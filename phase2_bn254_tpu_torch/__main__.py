@@ -1,0 +1,25 @@
+"""python -m phase2_bn254_tpu_torch <tool> [args]: the port's phase-1 tools."""
+
+from __future__ import annotations
+
+import sys
+
+from .cli import phase1
+
+TOOLS = {
+    "new_constrained": phase1.main_new,
+    "compute_constrained": phase1.main_compute,
+}
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    if not argv or argv[0] not in TOOLS:
+        print("usage: python -m phase2_bn254_tpu_torch <tool> [args]\ntools: " + ", ".join(TOOLS))
+        return 2
+    TOOLS[argv[0]](argv[1:])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

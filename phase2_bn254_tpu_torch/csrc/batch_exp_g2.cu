@@ -1,0 +1,98 @@
+// K2: signed GLS quad ladder for BN254 G2, one thread per point.
+//
+// Replaces the TPU kernel phase2_bn254_tpu/ops/pallas_exp.py
+// pallas_batch_exp_gls_signed (_batch_exp_gls_signed_kernel): out[i] =
+// k_i * Q_i with k_i = sum_c k_c L^c split by ops/gls.py into four rows of
+// signed base-32 digits in [-16, 16], most significant window first. Each
+// window does 5 doublings, then for c = 0..3 adds sign(d_c) psi^c(T[|d_c|]),
+// T[j] = j Q. psi^c is applied to the gathered entry first and y is negated
+// after it, with
+//   psi^1(x, y, z) = (conj(x) C1,  conj(y) C2,  conj(z))
+//   psi^2(x, y, z) = (x N1,        y N2,        z)        N1, N2 in Fq
+//   psi^3(x, y, z) = (conj(x) C31, conj(y) C32, conj(z))
+// In: x, y int64 (N, 2, 16) Montgomery affine ([c0, c1]); digits int64
+// (4, W, N). Out: x, y, z int64 (N, 2, 16), Jacobian, Montgomery, reduced.
+//
+// What bounds it on the card: 32-bit integer multiply throughput (Fq2
+// Karatsuba makes three Fq products of each Fq2 product, about 5500 Fq
+// products per point) and the per-thread table of 17 Fq2 Jacobian points
+// (3.3 KB) in local memory, read four times per window. The design keeps one
+// point per thread and accepts the table in local memory, as K1 does.
+//
+// Outside nvcc (no __CUDACC__) only the per-point function is compiled, so a
+// host C++ compiler can run the arithmetic on the CPU.
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#endif
+
+#include "field.cuh"
+
+__device__ __forceinline__ Fp2 load_fp2(const int64_t* d) { return {load_fp(d), load_fp(d + 16)}; }
+
+__device__ __forceinline__ void store_fp2(int64_t* d, const Fp2& a) {
+  store_fp(d, a.c0);
+  store_fp(d + 16, a.c1);
+}
+
+__device__ __forceinline__ Jac<Fp2> psi_pow(int c, const Jac<Fp2>& e) {
+  if (c == 1)
+    return {mul(conj(e.x), fp2_from_const(GLS_C1_C0, GLS_C1_C1)),
+            mul(conj(e.y), fp2_from_const(GLS_C2_C0, GLS_C2_C1)), conj(e.z)};
+  if (c == 2) return {mul_fp(e.x, fp_from_const(GLS_N1)), mul_fp(e.y, fp_from_const(GLS_N2)), e.z};
+  if (c == 3)
+    return {mul(conj(e.x), fp2_from_const(GLS_C31_C0, GLS_C31_C1)),
+            mul(conj(e.y), fp2_from_const(GLS_C32_C0, GLS_C32_C1)), conj(e.z)};
+  return e;
+}
+
+// Point i of the batch (W = nw windows).
+__device__ void batch_exp_gls_signed_point(const int64_t* x, const int64_t* y, const int64_t* digits,
+                                           int64_t* ox, int64_t* oy, int64_t* oz, int i, int n,
+                                           int nw) {
+  Jac<Fp2> table[17];
+  table[0] = jac_infinity<Fp2>();
+  table[1] = {load_fp2(x + 32 * (int64_t)i), load_fp2(y + 32 * (int64_t)i), fp2_one()};
+  for (int k = 2; k < 17; ++k) table[k] = jac_add(table[k - 1], table[1]);  // k = 2 is Q + Q
+
+  Jac<Fp2> acc = jac_infinity<Fp2>();
+  for (int w = 0; w < nw; ++w) {
+    for (int s = 0; s < 5; ++s) acc = jac_double(acc);
+    for (int c = 0; c < 4; ++c) {
+      int d = (int)digits[((int64_t)c * nw + w) * n + i];
+      Jac<Fp2> e = psi_pow(c, table[d < 0 ? -d : d]);
+      if (d < 0) e.y = neg(e.y);
+      acc = jac_add(acc, e);
+    }
+  }
+  store_fp2(ox + 32 * (int64_t)i, acc.x);
+  store_fp2(oy + 32 * (int64_t)i, acc.y);
+  store_fp2(oz + 32 * (int64_t)i, acc.z);
+}
+
+#ifdef __CUDACC__
+namespace {
+
+constexpr int kThreads = 128;
+
+__global__ void __launch_bounds__(kThreads)
+batch_exp_gls_signed_kernel(const int64_t* __restrict__ x, const int64_t* __restrict__ y,
+                            const int64_t* __restrict__ digits, int64_t* __restrict__ ox,
+                            int64_t* __restrict__ oy, int64_t* __restrict__ oz, int n, int nw) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) batch_exp_gls_signed_point(x, y, digits, ox, oy, oz, i, n, nw);
+}
+
+}  // namespace
+
+// Launches K2 on `stream`; returns cudaGetLastError() after the launch.
+extern "C" int p2_batch_exp_gls_signed(const void* x, const void* y, const void* digits, void* ox,
+                                       void* oy, void* oz, int n, int nw, void* stream) {
+  if (n > 0) {
+    int blocks = (n + kThreads - 1) / kThreads;
+    batch_exp_gls_signed_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int64_t*)x, (const int64_t*)y, (const int64_t*)digits, (int64_t*)ox,
+        (int64_t*)oy, (int64_t*)oz, n, nw);
+  }
+  return (int)cudaGetLastError();
+}
+#endif  // __CUDACC__

@@ -1,0 +1,30 @@
+// BN254 constants as 8 little-endian 32-bit limbs, Montgomery form
+// (R = 2^256) except FQ_P. Written by ops/_build.py constants_header()
+// from the refimpl integers; tests/test_torch_batch_exp.py checks it.
+#pragma once
+
+#include <cstdint>
+
+static constexpr uint32_t FQ_PINV = 0xe4866389u;  // -q^-1 mod 2^32
+// the modulus q
+static __constant__ uint32_t FQ_P[8] = {0xd87cfd47u, 0x3c208c16u, 0x6871ca8du, 0x97816a91u, 0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u};
+// R mod q (Montgomery one)
+static __constant__ uint32_t FQ_ONE[8] = {0xc58f0d9du, 0xd35d438du, 0xf5c70b3du, 0x0a78eb28u, 0x7879462cu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u};
+// beta, phi(x, y) = (beta x, y) on G1
+static __constant__ uint32_t GLV_BETA[8] = {0xd782e155u, 0x71930c11u, 0xffbe3323u, 0xa6bb947cu, 0xd4741444u, 0xaa303344u, 0x26594943u, 0x2c3b3f0du};
+// C1 = xi^((q-1)/3), psi's x factor
+static __constant__ uint32_t GLS_C1_C0[8] = {0x4563ab30u, 0xb5773b10u, 0xa9aa6454u, 0x347f91c8u, 0x242e0991u, 0x7a007127u, 0x118214ecu, 0x1956bcd8u};
+static __constant__ uint32_t GLS_C1_C1[8] = {0xa0aa4757u, 0x6e849f1eu, 0x89f89141u, 0xaa1c7b6du, 0xfae0ca3au, 0xb6e713cdu, 0x4e82ebc3u, 0x26694fbbu};
+// C2 = xi^((q-1)/2), psi's y factor
+static __constant__ uint32_t GLS_C2_C0[8] = {0x2936b629u, 0xe4bbdd0cu, 0xe133bacbu, 0xbb30f162u, 0xf9645366u, 0x31a9d1b6u, 0xa500f8ddu, 0x253570beu};
+static __constant__ uint32_t GLS_C2_C1[8] = {0x5ffe77c7u, 0xa1d77ce4u, 0x7826d1dbu, 0x07affd11u, 0xbb7edc6bu, 0x6d16bd27u, 0x85defeccu, 0x2c872002u};
+// N1 = C1 conj(C1), in Fq: psi^2's x factor
+static __constant__ uint32_t GLS_N1[8] = {0x13e80b9cu, 0x3350c88eu, 0xdb5e56b9u, 0x7dce557cu, 0xb615564au, 0x6001b4b8u, 0x020217e0u, 0x2682e617u};
+// N2 = C2 conj(C2), in Fq: psi^2's y factor
+static __constant__ uint32_t GLS_N2[8] = {0x12edefaau, 0x68c34889u, 0x72aabf4fu, 0x8d087f68u, 0x09081231u, 0x51e1a247u, 0x4729c0fau, 0x2259d6b1u};
+// C31 = N1 C1, psi^3's x factor
+static __constant__ uint32_t GLS_C31_C0[8] = {0x16ad6badu, 0xc9af22f7u, 0x4aa662b2u, 0xb311782au, 0xe248c7f4u, 0x19eeaf64u, 0xe3439f82u, 0x20273e77u};
+static __constant__ uint32_t GLS_C31_C1[8] = {0xf7ce93acu, 0xacc02860u, 0x7ba76b4cu, 0x3933d581u, 0x446c8467u, 0x69e6188bu, 0x4417cc55u, 0x0a46036du};
+// C32 = N2 C2, psi^3's y factor
+static __constant__ uint32_t GLS_C32_C0[8] = {0xaf46471eu, 0x5764af0au, 0x873e0fc1u, 0xdc50792eu, 0x881d04f6u, 0x86a673ffu, 0x3c30a74cu, 0x0b2eddb4u};
+static __constant__ uint32_t GLS_C32_C1[8] = {0x787e8580u, 0x9a490f32u, 0xf04af8b1u, 0x8fd16d7fu, 0xc6027bf2u, 0x4b39888eu, 0x5b52a15du, 0x03dd2e70u};

@@ -1,0 +1,266 @@
+// BN254 Fq and Fq2 arithmetic and the Jacobian group law, one thread per
+// point, for the batch scalar-multiplication kernels (batch_exp_g1.cu,
+// batch_exp_g2.cu).
+//
+// An Fq element is 8 little-endian 32-bit limbs in Montgomery form with
+// R = 2^256, the same values as the 16 x 16-bit limbs of the JAX package and
+// of field/fp.py; loads and stores convert between the two. Multiplication
+// is CIOS with 64-bit products and a final conditional subtraction, so every
+// value stays fully reduced in [0, p): equality and the zero test are limb
+// compares, and the kernels' outputs equal the plain PyTorch versions' limb
+// for limb.
+//
+// The group law is dbl-2009-l and add-2007-bl with the same exceptional
+// cases as curve/group.py (P + O, O + Q, P == Q by doubling, P == -Q to
+// infinity). The multiply and the group operations are __noinline__: one
+// copy of each keeps the ladders' code small enough for the instruction
+// cache, at the price of a call per operation.
+#pragma once
+
+#include <cstdint>
+
+#include "constants.cuh"
+
+struct Fp {
+  uint32_t v[8];
+};
+
+struct Fp2 {
+  Fp c0, c1;
+};
+
+template <class F>
+struct Jac {
+  F x, y, z;
+};
+
+// ---------------------------------------------------------------------------
+// Fq
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ Fp fp_zero() {
+  Fp r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r.v[i] = 0;
+  return r;
+}
+
+__device__ __forceinline__ Fp fp_from_const(const uint32_t* c) {
+  Fp r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r.v[i] = c[i];
+  return r;
+}
+
+__device__ __forceinline__ Fp fp_one() { return fp_from_const(FQ_ONE); }
+
+__device__ __forceinline__ bool is_zero(const Fp& a) {
+  uint32_t acc = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc |= a.v[i];
+  return acc == 0;
+}
+
+__device__ __forceinline__ bool eq(const Fp& a, const Fp& b) {
+  uint32_t acc = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc |= a.v[i] ^ b.v[i];
+  return acc == 0;
+}
+
+// r - p if r >= p, else r (r < 2^256)
+__device__ __forceinline__ Fp fp_reduce_once(const Fp& r) {
+  Fp s;
+  int64_t b = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    int64_t t = (int64_t)r.v[i] - (int64_t)FQ_P[i] + b;
+    s.v[i] = (uint32_t)t;
+    b = t >> 32;  // 0 or -1
+  }
+  return b < 0 ? r : s;
+}
+
+__device__ __forceinline__ Fp add(const Fp& a, const Fp& b) {
+  Fp r;
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    c += (uint64_t)a.v[i] + b.v[i];
+    r.v[i] = (uint32_t)c;
+    c >>= 32;
+  }
+  return fp_reduce_once(r);  // a + b < 2p < 2^255: no carry out
+}
+
+__device__ __forceinline__ Fp sub(const Fp& a, const Fp& b) {
+  Fp r;
+  int64_t br = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    int64_t t = (int64_t)a.v[i] - (int64_t)b.v[i] + br;
+    r.v[i] = (uint32_t)t;
+    br = t >> 32;
+  }
+  if (br < 0) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      c += (uint64_t)r.v[i] + FQ_P[i];
+      r.v[i] = (uint32_t)c;
+      c >>= 32;
+    }
+  }
+  return r;
+}
+
+__device__ __forceinline__ Fp neg(const Fp& a) { return sub(fp_zero(), a); }
+
+__device__ __forceinline__ Fp dbl(const Fp& a) { return add(a, a); }
+
+// Montgomery product a * b * 2^-256 mod p (CIOS)
+static __device__ __noinline__ Fp mul(Fp a, Fp b) {
+  uint32_t t[10];
+#pragma unroll
+  for (int i = 0; i < 10; ++i) t[i] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      c += (uint64_t)a.v[j] * b.v[i] + t[j];
+      t[j] = (uint32_t)c;
+      c >>= 32;
+    }
+    c += t[8];
+    t[8] = (uint32_t)c;
+    t[9] = (uint32_t)(c >> 32);
+    uint32_t m = t[0] * FQ_PINV;
+    c = ((uint64_t)m * FQ_P[0] + t[0]) >> 32;
+#pragma unroll
+    for (int j = 1; j < 8; ++j) {
+      c += (uint64_t)m * FQ_P[j] + t[j];
+      t[j - 1] = (uint32_t)c;
+      c >>= 32;
+    }
+    c += t[8];
+    t[7] = (uint32_t)c;
+    t[8] = t[9] + (uint32_t)(c >> 32);
+  }
+  Fp r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r.v[i] = t[i];
+  return fp_reduce_once(r);  // t < 2p < 2^256, so t[8] == 0
+}
+
+__device__ __forceinline__ Fp sqr(const Fp& a) { return mul(a, a); }
+
+// ---------------------------------------------------------------------------
+// Fq2 = Fq[u] / (u^2 + 1)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ Fp2 fp2_zero() { return {fp_zero(), fp_zero()}; }
+__device__ __forceinline__ Fp2 fp2_one() { return {fp_one(), fp_zero()}; }
+__device__ __forceinline__ Fp2 fp2_from_const(const uint32_t* c0, const uint32_t* c1) {
+  return {fp_from_const(c0), fp_from_const(c1)};
+}
+
+__device__ __forceinline__ bool is_zero(const Fp2& a) { return is_zero(a.c0) && is_zero(a.c1); }
+__device__ __forceinline__ bool eq(const Fp2& a, const Fp2& b) { return eq(a.c0, b.c0) && eq(a.c1, b.c1); }
+__device__ __forceinline__ Fp2 add(const Fp2& a, const Fp2& b) { return {add(a.c0, b.c0), add(a.c1, b.c1)}; }
+__device__ __forceinline__ Fp2 sub(const Fp2& a, const Fp2& b) { return {sub(a.c0, b.c0), sub(a.c1, b.c1)}; }
+__device__ __forceinline__ Fp2 neg(const Fp2& a) { return {neg(a.c0), neg(a.c1)}; }
+__device__ __forceinline__ Fp2 dbl(const Fp2& a) { return add(a, a); }
+__device__ __forceinline__ Fp2 conj(const Fp2& a) { return {a.c0, neg(a.c1)}; }
+
+// Karatsuba, as fq2.rs:112-204
+__device__ __forceinline__ Fp2 mul(const Fp2& a, const Fp2& b) {
+  Fp v0 = mul(a.c0, b.c0);
+  Fp v1 = mul(a.c1, b.c1);
+  Fp t = mul(add(a.c0, a.c1), add(b.c0, b.c1));
+  return {sub(v0, v1), sub(sub(t, v0), v1)};
+}
+
+// (a0 + a1)(a0 - a1) + 2 a0 a1 u
+__device__ __forceinline__ Fp2 sqr(const Fp2& a) {
+  Fp m = mul(a.c0, a.c1);
+  return {mul(add(a.c0, a.c1), sub(a.c0, a.c1)), add(m, m)};
+}
+
+__device__ __forceinline__ Fp2 mul_fp(const Fp2& a, const Fp& s) { return {mul(a.c0, s), mul(a.c1, s)}; }
+
+// ---------------------------------------------------------------------------
+// Jacobian group law, generic over Fp / Fp2
+// ---------------------------------------------------------------------------
+
+template <class F>
+__device__ __forceinline__ Jac<F> jac_infinity();
+
+template <>
+__device__ __forceinline__ Jac<Fp> jac_infinity<Fp>() {
+  return {fp_zero(), fp_one(), fp_zero()};
+}
+
+template <>
+__device__ __forceinline__ Jac<Fp2> jac_infinity<Fp2>() {
+  return {fp2_zero(), fp2_one(), fp2_zero()};
+}
+
+// dbl-2009-l; infinity maps to infinity (z3 = 2yz = 0)
+template <class F>
+__device__ __noinline__ Jac<F> jac_double(Jac<F> p) {
+  F a = sqr(p.x);
+  F b = sqr(p.y);
+  F c = sqr(b);
+  F d = dbl(sub(sub(sqr(add(p.x, b)), a), c));
+  F e = add(dbl(a), a);
+  F z3 = dbl(mul(p.z, p.y));
+  F x3 = sub(sqr(e), dbl(d));
+  F c8 = dbl(dbl(dbl(c)));
+  F y3 = sub(mul(sub(d, x3), e), c8);
+  return {x3, y3, z3};
+}
+
+// add-2007-bl with the exceptional cases of curve/group.py jac_add
+template <class F>
+__device__ __noinline__ Jac<F> jac_add(Jac<F> p, Jac<F> q) {
+  if (is_zero(p.z)) return q;
+  if (is_zero(q.z)) return p;
+  F z1z1 = sqr(p.z);
+  F z2z2 = sqr(q.z);
+  F u1 = mul(p.x, z2z2);
+  F u2 = mul(q.x, z1z1);
+  F s1 = mul(mul(p.y, q.z), z2z2);
+  F s2 = mul(mul(q.y, p.z), z1z1);
+  bool eq_x = eq(u1, u2);
+  if (eq_x && eq(s1, s2)) return jac_double(p);  // P == Q
+  F h = sub(u2, u1);
+  F i = sqr(dbl(h));
+  F j = mul(h, i);
+  F r = dbl(sub(s2, s1));
+  F v = mul(u1, i);
+  F x3 = sub(sub(sqr(r), j), dbl(v));
+  F y3 = sub(mul(sub(v, x3), r), dbl(mul(s1, j)));
+  F z3 = mul(sub(sub(sqr(add(p.z, q.z)), z1z1), z2z2), h);
+  if (eq_x) z3 = sub(z3, z3);  // P == -Q: infinity, x3 and y3 as computed
+  return {x3, y3, z3};
+}
+
+// ---------------------------------------------------------------------------
+// 16 x 16-bit int64 digits (the tensors' layout) <-> 8 x 32-bit limbs
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ Fp load_fp(const int64_t* d) {
+  Fp r;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) r.v[k] = (uint32_t)d[2 * k] | ((uint32_t)d[2 * k + 1] << 16);
+  return r;
+}
+
+__device__ __forceinline__ void store_fp(int64_t* d, const Fp& a) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    d[2 * k] = a.v[k] & 0xFFFF;
+    d[2 * k + 1] = a.v[k] >> 16;
+  }
+}

@@ -1,0 +1,193 @@
+"""Batch scalar multiplication for the contribute path (counterpart of
+`phase2_bn254_tpu/ops/pallas_exp.py`).
+
+* `tau_powers`: coeff * tau^(start + i), canonical Fr (pallas_exp.py:1161-1176).
+* K1 `batch_exp_glv_signed`: the signed GLV double ladder on G1
+  (pallas_exp.py:667-767), kernel in csrc/batch_exp_g1.cu.
+* K2 `batch_exp_gls_signed`: the signed GLS quad ladder on G2
+  (pallas_exp.py:985-1103), kernel in csrc/batch_exp_g2.cu.
+
+Each kernel has a wrapper, a plain PyTorch version of the same function and
+a launch count (`LAUNCHES[<wrapper name>]`, raised by one per kernel launch). The
+wrapper takes the plain version for tensors on the CPU; on a CUDA tensor it
+launches the kernel or raises.
+
+Inputs are Montgomery affine points, outputs Jacobian points in Montgomery
+form, fully reduced: the same function as the TPU kernels'.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from phase2_bn254_tpu.refimpl.glv import BETA
+from phase2_bn254_tpu.refimpl.gls import G2C1, G2C2
+
+from ..curve import group as G
+from ..field import fp
+from ..field.fq2 import FQ, FQ2
+from .gls import GLS_WINDOWS5
+from .glv import BN_PLAN
+
+G1_WINDOWS = BN_PLAN.windows5  # 26
+G2_WINDOWS = GLS_WINDOWS5  # 14
+
+# kernel launches by wrapper name; only a launch of the kernel counts
+LAUNCHES = {"batch_exp_glv_signed": 0, "batch_exp_gls_signed": 0}
+
+
+def tau_powers(tau_start: torch.Tensor, tau_pows: torch.Tensor, coeff: torch.Tensor, log2n: int) -> torch.Tensor:
+    """coeff * tau^(start + i) for i < 2^log2n, canonical, int64 (2^log2n, 16).
+
+    tau_start, coeff: Montgomery Fr limbs (16,); tau_pows[j]: Montgomery limbs
+    of tau^(2^j). Log-doubling: P_2k = [P_k, P_k tau^k]."""
+    ctx = fp.FR_CTX
+    out = tau_start[None]
+    for j in range(log2n):
+        out = torch.cat([out, fp.mont_mul(ctx, out, tau_pows[j])])
+    return fp.from_mont(ctx, fp.mont_mul(ctx, out, coeff))
+
+
+def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
+    if t.dtype != torch.int64 or tuple(t.shape) != shape or t.device != device or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: want contiguous int64 {shape} on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+        )
+
+
+def _gather(table: G.JacobianBatch, idx: torch.Tensor) -> G.JacobianBatch:
+    """Per-lane table lookup: entry idx[i] of lane i."""
+    lanes = torch.arange(idx.shape[0], device=idx.device)
+    return G.JacobianBatch(*(c[idx, lanes] for c in table))
+
+
+def _table(f, x: torch.Tensor, y: torch.Tensor) -> G.JacobianBatch:
+    """T[j] = j P for j = 0..16, stacked on a new leading axis."""
+    n = x.shape[0]
+    base = G.JacobianBatch(x, y, f.ones((n,), x.device))
+    entries = [G.jac_zero(f, (n,), x.device), base]
+    for _ in range(2, 17):
+        entries.append(G.jac_add(f, entries[-1], base))  # step 2 is P + P
+    return G.JacobianBatch(*(torch.stack(c) for c in zip(*entries)))
+
+
+def _signed_add(f, acc: G.JacobianBatch, e: G.JacobianBatch, d: torch.Tensor) -> G.JacobianBatch:
+    e = G.JacobianBatch(e.x, f.select(d < 0, f.neg(e.y), e.y), e.z)
+    return G.jac_add(f, acc, e)
+
+
+# ---------------------------------------------------------------------------
+# K1: G1 signed GLV double ladder
+# ---------------------------------------------------------------------------
+
+def batch_exp_glv_signed_plain(x, y, d1, d2) -> G.JacobianBatch:
+    """Plain PyTorch K1. x, y: int64 (N, 16) Montgomery affine; d1, d2: int64
+    (W, N) signed base-32 digits, MSB first."""
+    beta = fp.FQ_CTX.const(BETA, x.device)
+    table = _table(FQ, x, y)
+    beta_x = FQ.mul(table.x, beta)
+    acc = G.jac_zero(FQ, (x.shape[0],), x.device)
+    for w in range(d1.shape[0]):
+        for _ in range(5):
+            acc = G.jac_double(FQ, acc)
+        acc = _signed_add(FQ, acc, _gather(table, d1[w].abs()), d1[w])
+        acc = _signed_add(FQ, acc, _gather(table._replace(x=beta_x), d2[w].abs()), d2[w])  # phi
+    return acc
+
+
+def batch_exp_glv_signed(x, y, d1, d2) -> G.JacobianBatch:
+    """K1: k_i P_i for G1 points. CPU tensors take the plain version; CUDA
+    tensors launch csrc/batch_exp_g1.cu."""
+    if x.device.type == "cpu":
+        return batch_exp_glv_signed_plain(x, y, d1, d2)
+    if x.device.type != "cuda":
+        raise ValueError(f"batch_exp_glv_signed: no kernel for device {x.device}")
+    n, w = x.shape[0], d1.shape[0]
+    for name, t, shape in (("x", x, (n, 16)), ("y", y, (n, 16)), ("d1", d1, (w, n)), ("d2", d2, (w, n))):
+        _check(name, t, shape, x.device)
+    from . import _build
+
+    lib = _build.load()
+    out = [torch.empty_like(x) for _ in range(3)]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.p2_batch_exp_glv_signed(
+            x.data_ptr(), y.data_ptr(), d1.data_ptr(), d2.data_ptr(),
+            *(o.data_ptr() for o in out), n, w, stream,
+        )
+    if err:
+        raise RuntimeError(f"batch_exp_glv_signed: CUDA error {err} at launch")
+    LAUNCHES["batch_exp_glv_signed"] += 1
+    return G.JacobianBatch(*out)
+
+
+
+# ---------------------------------------------------------------------------
+# K2: G2 signed GLS quad ladder
+# ---------------------------------------------------------------------------
+
+def _gls_consts(device):
+    """psi constants (pallas_exp.py:830-842), Montgomery: C1, C2, N1, N2,
+    C31 = N1 C1, C32 = N2 C2."""
+    ctx = fp.FQ_CTX
+    n1 = (G2C1 * G2C1.conjugate()).c0
+    n2 = (G2C2 * G2C2.conjugate()).c0
+
+    def fq2(v):
+        return torch.stack([ctx.const(v.c0, device), ctx.const(v.c1, device)])
+
+    return fq2(G2C1), fq2(G2C2), ctx.const(n1, device), ctx.const(n2, device), fq2(G2C1 * n1), fq2(G2C2 * n2)
+
+
+def _psi_pow(c: int, e: G.JacobianBatch, consts) -> G.JacobianBatch:
+    c1, c2, n1, n2, c31, c32 = consts
+    if c == 0:
+        return e
+    if c == 2:
+        return G.JacobianBatch(FQ.mul(e.x, n1), FQ.mul(e.y, n2), e.z)
+    cx, cy = (c1, c2) if c == 1 else (c31, c32)
+    return G.JacobianBatch(
+        FQ2.mul(FQ2.conjugate(e.x), cx), FQ2.mul(FQ2.conjugate(e.y), cy), FQ2.conjugate(e.z)
+    )
+
+
+def batch_exp_gls_signed_plain(x, y, digits) -> G.JacobianBatch:
+    """Plain PyTorch K2. x, y: int64 (N, 2, 16) Montgomery affine; digits:
+    int64 (4, W, N) signed base-32 digits, MSB first."""
+    consts = _gls_consts(x.device)
+    table = _table(FQ2, x, y)
+    acc = G.jac_zero(FQ2, (x.shape[0],), x.device)
+    for w in range(digits.shape[1]):
+        for _ in range(5):
+            acc = G.jac_double(FQ2, acc)
+        for c in range(4):
+            d = digits[c, w]
+            acc = _signed_add(FQ2, acc, _psi_pow(c, _gather(table, d.abs()), consts), d)
+    return acc
+
+
+def batch_exp_gls_signed(x, y, digits) -> G.JacobianBatch:
+    """K2: k_i Q_i for G2 points. CPU tensors take the plain version; CUDA
+    tensors launch csrc/batch_exp_g2.cu."""
+    if x.device.type == "cpu":
+        return batch_exp_gls_signed_plain(x, y, digits)
+    if x.device.type != "cuda":
+        raise ValueError(f"batch_exp_gls_signed: no kernel for device {x.device}")
+    n, w = x.shape[0], digits.shape[1]
+    for name, t, shape in (("x", x, (n, 2, 16)), ("y", y, (n, 2, 16)), ("digits", digits, (4, w, n))):
+        _check(name, t, shape, x.device)
+    from . import _build
+
+    lib = _build.load()
+    out = [torch.empty_like(x) for _ in range(3)]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.p2_batch_exp_gls_signed(
+            x.data_ptr(), y.data_ptr(), digits.data_ptr(), *(o.data_ptr() for o in out), n, w, stream
+        )
+    if err:
+        raise RuntimeError(f"batch_exp_gls_signed: CUDA error {err} at launch")
+    LAUNCHES["batch_exp_gls_signed"] += 1
+    return G.JacobianBatch(*out)
+
+
