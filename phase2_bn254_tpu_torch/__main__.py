@@ -9,6 +9,8 @@ from .cli import phase1
 TOOLS = {
     "new_constrained": phase1.main_new,
     "compute_constrained": phase1.main_compute,
+    "beacon_constrained": phase1.main_beacon,
+    "verify_transform_constrained": phase1.main_verify,
 }
 
 

@@ -15,11 +15,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from phase2_bn254_tpu.refimpl import curve as rc
-from phase2_bn254_tpu.refimpl.field import Fq2
-
 from .curve.group import AffineBatch
 from .field import fp
+from .refimpl import curve as rc
+from .refimpl.field import Fq2
 
 
 def to_device(t: torch.Tensor | np.ndarray, device) -> torch.Tensor:

@@ -1,6 +1,7 @@
 // BN254 constants as 8 little-endian 32-bit limbs, Montgomery form
-// (R = 2^256) except FQ_P. Written by ops/_build.py constants_header()
-// from the refimpl integers; tests/test_torch_batch_exp.py checks it.
+// (R = 2^256) except FQ_P, FQ_R2 and the EXP_ exponents. Written by
+// ops/_build.py constants_header() from the refimpl integers;
+// tests/test_torch_batch_exp.py checks it.
 #pragma once
 
 #include <cstdint>
@@ -28,3 +29,18 @@ static __constant__ uint32_t GLS_C31_C1[8] = {0xf7ce93acu, 0xacc02860u, 0x7ba76b
 // C32 = N2 C2, psi^3's y factor
 static __constant__ uint32_t GLS_C32_C0[8] = {0xaf46471eu, 0x5764af0au, 0x873e0fc1u, 0xdc50792eu, 0x881d04f6u, 0x86a673ffu, 0x3c30a74cu, 0x0b2eddb4u};
 static __constant__ uint32_t GLS_C32_C1[8] = {0x787e8580u, 0x9a490f32u, 0xf04af8b1u, 0x8fd16d7fu, 0xc6027bf2u, 0x4b39888eu, 0x5b52a15du, 0x03dd2e70u};
+// b = 3 of G1: y^2 = x^3 + b
+static __constant__ uint32_t B_G1[8] = {0x50ad28d7u, 0x7a17caa9u, 0xe15521b9u, 0x1f6ac17au, 0x696bd284u, 0x334bea4eu, 0xce179d8eu, 0x2a1f6744u};
+// b = 3 / (9 + u) of G2
+static __constant__ uint32_t B_G2_C0[8] = {0x77b802a8u, 0x3bf938e3u, 0x3633535du, 0x020b1b27u, 0x49755260u, 0x26b7edf0u, 0x4384a86du, 0x2514c632u};
+static __constant__ uint32_t B_G2_C1[8] = {0xd1dcff67u, 0x38e7ecccu, 0x93ce0d3eu, 0x65f0b37du, 0x22ac00aau, 0xd749d0ddu, 0x4a688d4du, 0x0141b9ceu};
+// -1
+static __constant__ uint32_t FQ_NEG_ONE[8] = {0x12edefaau, 0x68c34889u, 0x72aabf4fu, 0x8d087f68u, 0x09081231u, 0x51e1a247u, 0x4729c0fau, 0x2259d6b1u};
+// R^2 mod q as an integer (to Montgomery form: multiply by it)
+static __constant__ uint32_t FQ_R2[8] = {0x538afa89u, 0xf32cfc5bu, 0xd44501fbu, 0xb5e71911u, 0x0a417ff6u, 0x47ab1effu, 0xcab8351fu, 0x06d89f71u};
+// exponent (q + 1) / 4, an integer: the G1 square root
+static __constant__ uint32_t EXP_SQRT_G1[8] = {0xb61f3f52u, 0x4f082305u, 0x5a1c72a3u, 0x65e05aa4u, 0xa0605617u, 0x6e14116du, 0xb84c680au, 0x0c19139cu};
+// exponent (q - 3) / 4: a1 of the G2 square root
+static __constant__ uint32_t EXP_G2_A1[8] = {0xb61f3f51u, 0x4f082305u, 0x5a1c72a3u, 0x65e05aa4u, 0xa0605617u, 0x6e14116du, 0xb84c680au, 0x0c19139cu};
+// exponent (q - 1) / 2: the G2 square root's (1 + alpha) power
+static __constant__ uint32_t EXP_G2_B[8] = {0x6c3e7ea3u, 0x9e10460bu, 0xb438e546u, 0xcbc0b548u, 0x40c0ac2eu, 0xdc2822dbu, 0x7098d014u, 0x18322739u};

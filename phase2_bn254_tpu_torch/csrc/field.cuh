@@ -1,6 +1,6 @@
 // BN254 Fq and Fq2 arithmetic and the Jacobian group law, one thread per
-// point, for the batch scalar-multiplication kernels (batch_exp_g1.cu,
-// batch_exp_g2.cu).
+// point or per lane, for the kernels of this directory (batch_exp_g1.cu,
+// batch_exp_g2.cu, msm.cu, decompress.cu).
 //
 // An Fq element is 8 little-endian 32-bit limbs in Montgomery form with
 // R = 2^256, the same values as the 16 x 16-bit limbs of the JAX package and
@@ -10,11 +10,11 @@
 // compares, and the kernels' outputs equal the plain PyTorch versions' limb
 // for limb.
 //
-// The group law is dbl-2009-l and add-2007-bl with the same exceptional
-// cases as curve/group.py (P + O, O + Q, P == Q by doubling, P == -Q to
-// infinity). The multiply and the group operations are __noinline__: one
-// copy of each keeps the ladders' code small enough for the instruction
-// cache, at the price of a call per operation.
+// The group law is dbl-2009-l, add-2007-bl and the mixed add madd-2007-bl
+// with the same exceptional cases as curve/group.py (P + O, O + Q, P == Q by
+// doubling, P == -Q to infinity). The multiply and the group operations are
+// __noinline__: one copy of each keeps the kernels' code small enough for
+// the instruction cache, at the price of a call per operation.
 #pragma once
 
 #include <cstdint>
@@ -246,6 +246,57 @@ __device__ __noinline__ Jac<F> jac_add(Jac<F> p, Jac<F> q) {
   return {x3, y3, z3};
 }
 
+// madd-2007-bl: P + (qx, qy) for an affine Q, with the exceptional cases of
+// curve/group.py jac_madd: P at infinity takes Q with z = 1, P == Q doubles,
+// P == -Q gives z = 0 (x3 and y3 as computed)
+template <class F>
+__device__ __noinline__ Jac<F> jac_madd(Jac<F> p, F qx, F qy) {
+  if (is_zero(p.z)) return {qx, qy, jac_infinity<F>().y};
+  F z1z1 = sqr(p.z);
+  F u2 = mul(qx, z1z1);
+  F s2 = mul(mul(qy, p.z), z1z1);
+  bool eq_x = eq(p.x, u2);
+  if (eq_x && eq(p.y, s2)) return jac_double(p);  // P == Q
+  F h = sub(u2, p.x);
+  F hh = sqr(h);
+  F i = dbl(dbl(hh));
+  F j = mul(h, i);
+  F r = dbl(sub(s2, p.y));
+  F v = mul(p.x, i);
+  F x3 = sub(sub(sqr(r), j), dbl(v));
+  F y3 = sub(mul(sub(v, x3), r), dbl(mul(p.y, j)));
+  F z3 = sub(sub(sqr(add(p.z, h)), z1z1), hh);
+  if (eq_x) z3 = sub(z3, z3);  // P == -Q: infinity
+  return {x3, y3, z3};
+}
+
+// ---------------------------------------------------------------------------
+// exponentiation by a public 256-bit exponent (8 little-endian 32-bit limbs),
+// square-and-multiply from the most significant bit
+// ---------------------------------------------------------------------------
+
+template <class F>
+__device__ F pow_public(const F& a, const uint32_t* e, F one) {
+  F r = one;
+  bool started = false;
+  for (int i = 255; i >= 0; --i) {
+    if (started) r = sqr(r);
+    if ((e[i >> 5] >> (i & 31)) & 1u) {
+      r = started ? mul(r, a) : a;
+      started = true;
+    }
+  }
+  return r;
+}
+
+// a > b as integers (canonical values)
+__device__ __forceinline__ bool gt(const Fp& a, const Fp& b) {
+  for (int i = 7; i >= 0; --i) {
+    if (a.v[i] != b.v[i]) return a.v[i] > b.v[i];
+  }
+  return false;
+}
+
 // ---------------------------------------------------------------------------
 // 16 x 16-bit int64 digits (the tensors' layout) <-> 8 x 32-bit limbs
 // ---------------------------------------------------------------------------
@@ -263,4 +314,34 @@ __device__ __forceinline__ void store_fp(int64_t* d, const Fp& a) {
     d[2 * k] = a.v[k] & 0xFFFF;
     d[2 * k + 1] = a.v[k] >> 16;
   }
+}
+
+// Fq2 as 32 digits, c0 then c1 (the tensors' (..., 2, 16) layout)
+__device__ __forceinline__ void load_el(const int64_t* d, Fp& a) { a = load_fp(d); }
+__device__ __forceinline__ void load_el(const int64_t* d, Fp2& a) { a = {load_fp(d), load_fp(d + 16)}; }
+__device__ __forceinline__ void store_el(int64_t* d, const Fp& a) { store_fp(d, a); }
+__device__ __forceinline__ void store_el(int64_t* d, const Fp2& a) {
+  store_fp(d, a.c0);
+  store_fp(d + 16, a.c1);
+}
+
+// int64 digits per element: 16 for Fq, 32 for Fq2
+template <class F>
+constexpr int kDigits = (int)(sizeof(F) / 2);
+
+// element i of three coordinate arrays <-> a Jacobian point
+template <class F>
+__device__ __forceinline__ Jac<F> load_jac(const int64_t* x, const int64_t* y, const int64_t* z, int64_t i) {
+  Jac<F> p;
+  load_el(x + kDigits<F> * i, p.x);
+  load_el(y + kDigits<F> * i, p.y);
+  load_el(z + kDigits<F> * i, p.z);
+  return p;
+}
+
+template <class F>
+__device__ __forceinline__ void store_jac(int64_t* x, int64_t* y, int64_t* z, int64_t i, const Jac<F>& p) {
+  store_el(x + kDigits<F> * i, p.x);
+  store_el(y + kDigits<F> * i, p.y);
+  store_el(z + kDigits<F> * i, p.z);
 }

@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 from ..field import fp
+from ..refimpl.field import B_G1, B_G2
 
 
 class JacobianBatch(NamedTuple):
@@ -27,6 +28,13 @@ class AffineBatch(NamedTuple):
     x: torch.Tensor
     y: torch.Tensor
     inf: torch.Tensor  # bool mask over the batch dims
+
+
+def curve_b(f, device) -> torch.Tensor:
+    """b of y^2 = x^3 + b, Montgomery: 3 on G1 (f Fq), 3 / (9 + u) on G2 (f Fq2)."""
+    if f.components == 1:
+        return f.ctx.const(B_G1, device)
+    return torch.stack([f.ctx.const(B_G2.c0, device), f.ctx.const(B_G2.c1, device)])
 
 
 def jac_zero(f, batch_shape, device) -> JacobianBatch:
@@ -63,15 +71,11 @@ def jac_double(f, p: JacobianBatch) -> JacobianBatch:
     return JacobianBatch(x3, f.sub(t, c8), f.double(zy))
 
 
-def jac_add(f, p: JacobianBatch, q: JacobianBatch) -> JacobianBatch:
-    """add-2007-bl with masks for P+O, O+Q, doubling and P+(-P)."""
-    p_inf = f.is_zero(p.z)
-    q_inf = f.is_zero(q.z)
+def _add_2007_bl(f, p: JacobianBatch, q: JacobianBatch):
+    """add-2007-bl for finite P, Q: (sum, eq_x, eq_y); the sum is only right
+    where not eq_x (P == Q needs the doubling, P == -Q has z3 = 0)."""
     z1z1, z2z2, pyqz, qypz = _muls(f, (p.z, p.z), (q.z, q.z), (p.y, q.z), (q.y, p.z))
     u1, u2, s1, s2 = _muls(f, (p.x, z2z2), (q.x, z1z1), (pyqz, z2z2), (qypz, z1z1))
-    eq_x = f.eq(u1, u2)
-    eq_y = f.eq(s1, s2)
-
     h = f.sub(u2, u1)
     h2 = f.double(h)
     r = f.double(f.sub(s2, s1))
@@ -81,19 +85,92 @@ def jac_add(f, p: JacobianBatch, q: JacobianBatch) -> JacobianBatch:
     x3 = f.sub(f.sub(rr, j), f.double(v))
     vr, s1j = _muls(f, (f.sub(v, x3), r), (s1, j))
     y3 = f.sub(vr, f.double(s1j))
+    return JacobianBatch(x3, y3, z3), f.eq(u1, u2), f.eq(s1, s2)
 
+
+def jac_add(f, p: JacobianBatch, q: JacobianBatch) -> JacobianBatch:
+    """add-2007-bl with masks for P+O, O+Q, doubling and P+(-P)."""
+    p_inf = f.is_zero(p.z)
+    q_inf = f.is_zero(q.z)
+    s, eq_x, eq_y = _add_2007_bl(f, p, q)
     dbl = jac_double(f, p)
     live = ~p_inf & ~q_inf
     is_dbl = eq_x & eq_y & live
     is_cancel = eq_x & ~eq_y & live
-    x = f.select(is_dbl, dbl.x, x3)
-    y = f.select(is_dbl, dbl.y, y3)
-    z = f.select(is_dbl, dbl.z, z3)
+    x = f.select(is_dbl, dbl.x, s.x)
+    y = f.select(is_dbl, dbl.y, s.y)
+    z = f.select(is_dbl, dbl.z, s.z)
     z = f.select(is_cancel, torch.zeros_like(z), z)
     x = f.select(p_inf, q.x, f.select(q_inf, p.x, x))
     y = f.select(p_inf, q.y, f.select(q_inf, p.y, y))
     z = f.select(p_inf, q.z, f.select(q_inf, p.z, z))
     return JacobianBatch(x, y, z)
+
+
+# ---------------------------------------------------------------------------
+# lane-compacted forms for the MSM's plain versions (1-D batches): the same
+# values as the masked forms, with the arithmetic only on the lanes that need
+# it (each compaction is one host sync)
+# ---------------------------------------------------------------------------
+
+def take(p: JacobianBatch, idx: torch.Tensor) -> JacobianBatch:
+    return JacobianBatch(p.x[idx], p.y[idx], p.z[idx])
+
+
+def put(p: JacobianBatch, idx: torch.Tensor, q: JacobianBatch) -> JacobianBatch:
+    """p with lanes idx replaced by q (a new batch; p is not changed)."""
+    out = JacobianBatch(p.x.clone(), p.y.clone(), p.z.clone())
+    for a, b in zip(out, q):
+        a[idx] = b
+    return out
+
+
+def _lanes(mask: torch.Tensor) -> torch.Tensor:
+    return mask.nonzero().squeeze(1)
+
+
+def _with_doubling(f, p: JacobianBatch, s: JacobianBatch, is_dbl: torch.Tensor) -> JacobianBatch:
+    idx = _lanes(is_dbl)
+    return put(s, idx, jac_double(f, take(p, idx))) if idx.numel() else s
+
+
+def jac_add_sparse(f, p: JacobianBatch, q: JacobianBatch) -> JacobianBatch:
+    """jac_add, computed only on the lanes where both points are finite (the
+    others take the finite one, or q, as jac_add does) and doubling only
+    where P == Q: equal to jac_add limb for limb."""
+    p_inf, q_inf = f.is_zero(p.z), f.is_zero(q.z)
+    out = JacobianBatch(*(f.select(p_inf, b, a) for a, b in zip(p, q)))
+    idx = _lanes(~p_inf & ~q_inf)
+    if not idx.numel():
+        return out
+    pl, ql = take(p, idx), take(q, idx)
+    s, eq_x, eq_y = _add_2007_bl(f, pl, ql)
+    s = s._replace(z=f.select(eq_x & ~eq_y, torch.zeros_like(s.z), s.z))
+    return put(out, idx, _with_doubling(f, pl, s, eq_x & eq_y))
+
+
+def jac_madd(f, p: JacobianBatch, qx: torch.Tensor, qy: torch.Tensor) -> JacobianBatch:
+    """P + Q for an affine Q (madd-2007-bl) with the exceptional cases of the
+    JAX package's `pallas_msm.jac_madd`: P at infinity takes Q with z = 1,
+    P == Q doubles, P == -Q gives z = 0 (x3, y3 as computed)."""
+    p_inf = f.is_zero(p.z)
+    z1z1, qypz = _muls(f, (p.z, p.z), (qy, p.z))
+    u2, s2 = _muls(f, (qx, z1z1), (qypz, z1z1))
+    eq_x, eq_y = f.eq(p.x, u2), f.eq(p.y, s2)
+    h = f.sub(u2, p.x)
+    r = f.double(f.sub(s2, p.y))
+    zh = f.add(p.z, h)
+    hh, rr, zh2 = _muls(f, (h, h), (r, r), (zh, zh))
+    i = f.double(f.double(hh))
+    j, v = _muls(f, (h, i), (p.x, i))
+    x3 = f.sub(f.sub(rr, j), f.double(v))
+    vr, yj = _muls(f, (f.sub(v, x3), r), (p.y, j))
+    y3 = f.sub(vr, f.double(yj))
+    z3 = f.sub(f.sub(zh2, z1z1), hh)
+    z3 = f.select(eq_x & ~eq_y & ~p_inf, torch.zeros_like(z3), z3)
+    s = _with_doubling(f, p, JacobianBatch(x3, y3, z3), eq_x & eq_y & ~p_inf)
+    one = f.ones(p_inf.shape, p_inf.device)
+    return JacobianBatch(f.select(p_inf, qx, s.x), f.select(p_inf, qy, s.y), f.select(p_inf, one, s.z))
 
 
 class PendingNormalize(NamedTuple):

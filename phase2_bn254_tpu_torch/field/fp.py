@@ -21,7 +21,7 @@ import functools
 
 import torch
 
-from phase2_bn254_tpu.refimpl.field import Q, R_MOD
+from ..refimpl.field import Q, R_MOD
 
 NLIMBS = 16
 LIMB_BITS = 16
@@ -95,17 +95,19 @@ def _pow2(n: int, device: torch.device) -> torch.Tensor:
     return torch.ones(n, dtype=DTYPE, device=device) << torch.arange(n, device=device)
 
 
-def _carry(t: torch.Tensor) -> torch.Tensor:
+def _carry(t: torch.Tensor, passes: int = 4) -> torch.Tensor:
     """Non-negative digits (< 2^62, at most 62 of them) -> canonical 16-bit
     digits of the value mod 2^(16*n), in a fixed number of tensor ops.
 
-    Four partial passes leave every digit <= 2^16. The remaining carries are
-    0 or 1: digit 2^16 generates one, digit 2^16 - 1 propagates one. With the
-    generate and propagate bits packed into integers G and P, the carry into
-    each digit is bit j of ((G | P) + G) ^ (G | P) ^ G (a binary adder whose
-    operands have those generate and propagate bits)."""
+    Four partial passes leave every digit <= 2^16 (one pass does for digits
+    < 2^31: then a digit >= 2^16 has at most 2^15 in its low bits). The
+    remaining carries are 0 or 1: digit 2^16 + k generates one, digit
+    2^16 - 1 propagates one. With the generate and propagate bits packed
+    into integers G and P, the carry into each digit is bit j of
+    ((G | P) + G) ^ (G | P) ^ G (a binary adder whose operands have those
+    generate and propagate bits)."""
     t = t.clone()
-    for _ in range(4):
+    for _ in range(passes):
         c = t >> LIMB_BITS
         t &= MASK
         t[..., 1:] += c[..., :-1]
@@ -134,10 +136,18 @@ def _ge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (torch.sign(a - b) * _pow2(a.shape[-1], a.device)).sum(-1) >= 0
 
 
+def _pick_carried(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Carries digits u and v (< 2^31 each, as non-negative 16-digit
+    numbers) in one pass over both; returns v mod 2^256 where v >= 2^256,
+    else u mod 2^256."""
+    both = _carry(torch.nn.functional.pad(torch.stack([u, v]), (0, 1)), passes=1)
+    return torch.where(both[1, ..., NLIMBS:] != 0, both[1, ..., :NLIMBS], both[0, ..., :NLIMBS])
+
+
 def _sub_p_if_ge(ctx: FpContext, a: torch.Tensor) -> torch.Tensor:
-    """a - p if a >= p: adds 2^256 - p, whose digits are non-negative."""
-    ge = _ge(a, ctx.limbs(ctx.p, a.device))
-    return _carry(a + ge[..., None] * ctx.limbs((1 << MONT_BITS) - ctx.p, a.device))
+    """a - p if a >= p, for canonical digits a < 2^256: a + 2^256 - p
+    reaches 2^256 exactly when a >= p."""
+    return _pick_carried(a, a + ctx.limbs((1 << MONT_BITS) - ctx.p, a.device))
 
 
 # ---------------------------------------------------------------------------
@@ -156,14 +166,16 @@ def mont_mul(ctx: FpContext, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def add(ctx: FpContext, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return _sub_p_if_ge(ctx, _carry(a + b))
+    """a + b - p if a + b >= p (a + b + 2^256 - p reaches 2^256), else a + b."""
+    s = a + b
+    return _pick_carried(s, s + ctx.limbs((1 << MONT_BITS) - ctx.p, a.device))
 
 
 def sub(ctx: FpContext, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a - b + (a < b) p, as a + (2^256 - b) + (a < b) p mod 2^256."""
-    a, b = torch.broadcast_tensors(a, b)
-    lt = ~_ge(a, b)
-    return _carry(a + (MASK - b) + ctx.limbs(1, a.device) + lt[..., None] * ctx.limbs(ctx.p, a.device))
+    """a - b if a >= b, else a - b + p: d = a + (2^256 - b) reaches 2^256
+    exactly when a >= b, and then d mod 2^256 = a - b; else d + p does."""
+    d = a + (MASK - b) + ctx.limbs(1, a.device)
+    return _pick_carried(d + ctx.limbs(ctx.p, a.device), d)
 
 
 def neg(ctx: FpContext, a: torch.Tensor) -> torch.Tensor:
@@ -195,6 +207,27 @@ def from_mont(ctx: FpContext, a: torch.Tensor) -> torch.Tensor:
 
 def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where(mask[..., None], a, b)
+
+
+def pow_fixed(ctx: FpContext, a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e for a public exponent e >= 0 (square-and-multiply, least
+    significant bit first); Montgomery in and out (JAX `fp.pow_fixed`)."""
+    def mul(u, v):
+        return mont_mul(ctx, u, v)
+
+    return square_multiply(mul, lambda u: mul(u, u), ctx.ones_mont(a.shape[:-1], a.device), a, e)
+
+
+def square_multiply(mul, sqr, one: torch.Tensor, a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e by square-and-multiply over the bits of e, least significant
+    first, in the field of `mul` / `sqr`; `one` is returned for e == 0."""
+    res, base = None, a
+    for i in range(e.bit_length()):
+        if (e >> i) & 1:
+            res = base if res is None else mul(res, base)
+        if i + 1 < e.bit_length():
+            base = sqr(base)
+    return one if res is None else res
 
 
 def _inclusive_scan(ctx: FpContext, x: torch.Tensor) -> torch.Tensor:

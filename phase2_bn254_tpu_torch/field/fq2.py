@@ -45,6 +45,10 @@ class FqOps:
     def eq(self, a, b):
         return fp.eq(a, b)
 
+    def gt(self, a, b):
+        """a > b on canonical (not Montgomery) elements."""
+        return fp.gt(a, b)
+
     def zeros(self, batch_shape, device):
         return self.ctx.zeros(batch_shape, device)
 
@@ -53,6 +57,9 @@ class FqOps:
 
     def select(self, mask, a, b):
         return torch.where(mask[..., None], a, b)
+
+    def pow_fixed(self, a, e: int):
+        return fp.pow_fixed(self.ctx, a, e)
 
     def norm(self, a):
         """The Fq element whose inverse yields a's inverse (a itself)."""
@@ -111,6 +118,13 @@ class Fq2Ops:
     def eq(self, a, b):
         return (a == b).all(-1).all(-1)
 
+    def gt(self, a, b):
+        """a > b on canonical (not Montgomery) elements: c1 first, then c0
+        (fq2.rs:21-30)."""
+        c1_gt = fp.gt(a[..., 1, :], b[..., 1, :])
+        c1_eq = fp.eq(a[..., 1, :], b[..., 1, :])
+        return c1_gt | (c1_eq & fp.gt(a[..., 0, :], b[..., 0, :]))
+
     def zeros(self, batch_shape, device):
         return torch.zeros((*batch_shape, 2, fp.NLIMBS), dtype=fp.DTYPE, device=device)
 
@@ -119,6 +133,11 @@ class Fq2Ops:
 
     def select(self, mask, a, b):
         return torch.where(mask[..., None, None], a, b)
+
+    def pow_fixed(self, a, e: int):
+        """a^e for a public exponent e >= 0, square-and-multiply (JAX
+        `Fq2Ops.pow_fixed`)."""
+        return fp.square_multiply(self.mul, self.sqr, self.ones(a.shape[:-2], a.device), a, e)
 
     def norm(self, a):
         """a0^2 + a1^2 in Fq (fq2.rs norm)."""

@@ -1,10 +1,12 @@
 """Build and load the CUDA kernels of `csrc/` (Hopper, sm_90a).
 
-The sources are compiled at first use with `nvcc` into one shared library
-with a plain C interface, loaded through ctypes. The library is keyed by a
-hash of the sources and kept under `build/kernels/` at the repository root
-(listed in .gitignore), so a fresh checkout builds everything on its first
-kernel call. Nothing here runs at import time.
+The sources are compiled at first use with `nvcc`, one process per source
+started together, and linked into one shared library with a plain C
+interface, loaded through ctypes. The library is keyed by a hash of the
+sources and kept under `build/kernels/` at the repository root (listed in
+.gitignore), so a fresh checkout builds everything on its first kernel call.
+Nothing here runs at import time. `on_card`, `check` and `launch` are the
+boundary every kernel wrapper goes through.
 
 `csrc/constants.cuh` holds the field constants as 32-bit limbs; it is the
 output of `constants_header()`, which derives them from the `refimpl`
@@ -20,13 +22,26 @@ import shutil
 import subprocess
 import threading
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("batch_exp_g1.cu", "batch_exp_g2.cu")
+SOURCES = ("batch_exp_g1.cu", "batch_exp_g2.cu", "msm.cu", "decompress.cu")
 HEADERS = ("field.cuh", "constants.cuh")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# the C entry points: name -> (pointer arguments, int arguments); each also
+# takes the stream last and returns cudaGetLastError()
+ENTRY_POINTS = {
+    "p2_batch_exp_glv_signed": (7, 2),
+    "p2_batch_exp_gls_signed": (6, 2),
+    **{f"p2_bucket_accumulate_{g}": (11, 4) for g in ("g1", "g2")},
+    **{f"p2_bucket_reduce_{g}": (7, 3) for g in ("g1", "g2")},
+    **{f"p2_combine_windows_{g}": (6, 3) for g in ("g1", "g2")},
+    **{f"p2_decompress_{g}": (5, 1) for g in ("g1", "g2")},
+}
 
 _lock = threading.Lock()
 _lib = None
@@ -34,9 +49,9 @@ _lib = None
 
 def constants_header() -> str:
     """The text of csrc/constants.cuh, from the refimpl integers."""
-    from phase2_bn254_tpu.refimpl.field import Q
-    from phase2_bn254_tpu.refimpl.glv import BETA
-    from phase2_bn254_tpu.refimpl.gls import G2C1, G2C2
+    from ..refimpl.field import B_G2, Q
+    from ..refimpl.gls import G2C1, G2C2
+    from ..refimpl.glv import BETA
 
     r = 1 << 256
 
@@ -60,11 +75,20 @@ def constants_header() -> str:
         ("GLS_C31_C1", mont(c31.c1), ""),
         ("GLS_C32_C0", mont(c32.c0), "C32 = N2 C2, psi^3's y factor"),
         ("GLS_C32_C1", mont(c32.c1), ""),
+        ("B_G1", mont(3), "b = 3 of G1: y^2 = x^3 + b"),
+        ("B_G2_C0", mont(B_G2.c0), "b = 3 / (9 + u) of G2"),
+        ("B_G2_C1", mont(B_G2.c1), ""),
+        ("FQ_NEG_ONE", mont(Q - 1), "-1"),
+        ("FQ_R2", r * r % Q, "R^2 mod q as an integer (to Montgomery form: multiply by it)"),
+        ("EXP_SQRT_G1", (Q + 1) // 4, "exponent (q + 1) / 4, an integer: the G1 square root"),
+        ("EXP_G2_A1", (Q - 3) // 4, "exponent (q - 3) / 4: a1 of the G2 square root"),
+        ("EXP_G2_B", (Q - 1) // 2, "exponent (q - 1) / 2: the G2 square root's (1 + alpha) power"),
     ]
     lines = [
         "// BN254 constants as 8 little-endian 32-bit limbs, Montgomery form",
-        "// (R = 2^256) except FQ_P. Written by ops/_build.py constants_header()",
-        "// from the refimpl integers; tests/test_torch_batch_exp.py checks it.",
+        "// (R = 2^256) except FQ_P, FQ_R2 and the EXP_ exponents. Written by",
+        "// ops/_build.py constants_header() from the refimpl integers;",
+        "// tests/test_torch_batch_exp.py checks it.",
         "#pragma once",
         "",
         "#include <cstdint>",
@@ -97,20 +121,33 @@ def _source_hash() -> str:
 
 def build() -> str:
     """Compile csrc/ into build/kernels/libp2kernels_<hash>.so (once per
-    source hash); returns the library path. The compiler's -Xptxas -v report
-    (registers, spills) is kept beside it as ptxas_<hash>.log."""
+    source hash): one nvcc per source, all started together, then one link.
+    Returns the library path. The compiler's -Xptxas -v report (registers,
+    spills) is kept beside it as ptxas_<hash>.log."""
     tag = _source_hash()
     out = os.path.join(BUILD_DIR, f"libp2kernels_{tag}.so")
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[os.path.join(CSRC, s) for s in SOURCES]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc, pid = _nvcc(), os.getpid()
+    objs = [os.path.join(BUILD_DIR, f"{s}.{tag}.{pid}.o") for s in SOURCES]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(CSRC, s)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for s, o in zip(SOURCES, objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]
     with open(os.path.join(BUILD_DIR, f"ptxas_{tag}.log"), "w") as f:
-        f.write(res.stdout + res.stderr)
+        f.write("".join(logs))
+    for s, p, log in zip(SOURCES, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {s} ({p.returncode}):\n{log[-4000:]}")
+    tmp = f"{out}.{pid}.tmp"
+    res = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs], capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr[-4000:]}")
+    for o in objs:
+        os.remove(o)
     os.replace(tmp, out)
     return out
 
@@ -122,9 +159,38 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(build())
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.p2_batch_exp_glv_signed.argtypes = [vp] * 7 + [ci, ci, vp]
-            lib.p2_batch_exp_glv_signed.restype = ci
-            lib.p2_batch_exp_gls_signed.argtypes = [vp] * 6 + [ci, ci, vp]
-            lib.p2_batch_exp_gls_signed.restype = ci
+            for name, (nptr, nint) in ENTRY_POINTS.items():
+                fn = getattr(lib, name)
+                fn.argtypes = [vp] * nptr + [ci] * nint + [vp]
+                fn.restype = ci
             _lib = lib
         return _lib
+
+
+def on_card(wrapper: str, t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU one (take
+    the plain version); raises for any other device."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{wrapper}: no kernel for device {t.device}")
+    return True
+
+
+def check(wrapper: str, name: str, t: torch.Tensor, shape: tuple, device: torch.device,
+          dtype: torch.dtype = torch.int64) -> None:
+    """Raise unless t is a contiguous `dtype` tensor of `shape` on `device`."""
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or t.device != device or not t.is_contiguous():
+        raise ValueError(f"{wrapper}: {name}: want contiguous {dtype} {tuple(shape)} on {device}, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def launch(entry: str, device: torch.device, *args) -> None:
+    """Call the C entry point `entry` with args (tensors pass their data
+    pointers) on the device's current stream; raise on a launch error."""
+    lib = load()
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        err = getattr(lib, entry)(*ptrs, torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{entry}: CUDA error {err} at launch")

@@ -1,7 +1,7 @@
 """`TorchBackend`: the ceremony's bulk-math backend on PyTorch (counterpart of
-`phase2_bn254_tpu/ops/backend.py`, the contribute slice).
+`phase2_bn254_tpu/ops/backend.py`, the contribute and verify slices).
 
-`phase2_bn254_tpu.ceremony.accumulator.transform` calls, per chunk and kind,
+Contribute: `ceremony.accumulator.transform` calls, per chunk and kind,
 `decode`, then `pow_mul` (point i times coeff * tau^(start + i)), then
 `encode`. Here `pow_mul` runs the tau powers, the GLV / GLS split, the
 ladder kernel (K1 for G1, K2 for G2) and the device half of the batched
@@ -10,24 +10,32 @@ total of the Montgomery trick travels to pinned host memory behind an event,
 and `encode` inverts it on the host and finishes. So `transform`'s pipeline
 (decode and launch chunk i+1 before encoding chunk i) keeps the device busy.
 
+Verify: `ceremony.accumulator.verify_transformation` decodes each compressed
+chunk (kernel D1) and calls `power_pairs`, two MSMs (K3, K4, K5 in
+`ops/msm.py`) with shared random coefficients; `decompress` re-encodes the
+chunks uncompressed.
+
 Batches are ragged: no padding to a power of two (the JAX backend pads with
 generator points; the output bytes are the same).
 """
 
 from __future__ import annotations
 
+import secrets
 from dataclasses import dataclass
 
+import numpy as np
 import torch
-
-from phase2_bn254_tpu.refimpl.field import R_MOD
 
 from .. import convert
 from ..curve import codecs
 from ..curve import group as G
 from ..field import fp
 from ..field.fq2 import FQ, FQ2
+from ..refimpl import curve as rc
+from ..refimpl.field import Fq2, R_MOD
 from . import batch_exp, gls, glv
+from . import msm as M
 
 
 @dataclass
@@ -57,8 +65,9 @@ def check_device(device) -> torch.device:
 
 
 class TorchBackend:
-    """Contribute-slice backend on one torch device ("cuda", "cuda:1" or
-    "cpu"). A CUDA device that is not there raises; nothing falls back."""
+    """Contribute- and verify-slice backend on one torch device ("cuda",
+    "cuda:1" or "cpu"). A CUDA device that is not there raises; nothing
+    falls back."""
 
     name = "torch"
 
@@ -112,6 +121,97 @@ class TorchBackend:
             ps.pending = ps.total_host = ps.ready = None
         return ps.affine
 
+    # -- the verify protocol -----------------------------------------------
+    def msm(self, ps: PointSet, scalars: list[int]) -> rc.Point:
+        """sum_i scalars[i] * point i, as a host Point."""
+        return self.msm_wait(self.msm_async(ps, scalars))
+
+    def msm_async(self, ps: PointSet, scalars: list[int]):
+        """Launch an MSM without waiting for it; msm_wait takes the handle."""
+        assert len(scalars) == ps.n
+        scalars = convert.ints_to_limbs([s % R_MOD for s in scalars], self.device)
+        return self._msm_launch(self._affine(ps), scalars, (0,), ps.group)
+
+    def msm_wait(self, handle) -> rc.Point:
+        return self._msm_points(handle)[0]
+
+    def power_pairs(self, ps: PointSet) -> tuple[rc.Point, rc.Point]:
+        """(merge_pairs of v[:-1] vs v[1:]) with shared random coefficients,
+        uniform in [0, r): the two MSMs share the scalars, so they run as one
+        (`msm.msm_shifted`, shifts 0 and 1)."""
+        coeffs = convert.to_device(random_scalars(ps.n - 1), self.device)
+        s, sx = self._msm_points(self._msm_launch(self._affine(ps), coeffs, (0, 1), ps.group))
+        return s, sx
+
+    def first_point(self, ps: PointSet) -> rc.Point:
+        return convert.affine_to_points(G.AffineBatch(*(t[:1] for t in self._affine(ps))), ps.group)[0]
+
+    def last_point(self, ps: PointSet) -> rc.Point:
+        return convert.affine_to_points(G.AffineBatch(*(t[ps.n - 1 : ps.n] for t in self._affine(ps))), ps.group)[0]
+
+    def from_points(self, points, group: str) -> PointSet:
+        return PointSet(group, len(points), affine=convert.points_to_affine(points, group, self.device))
+
+    def _msm_launch(self, points: G.AffineBatch, scalars: torch.Tensor, shifts: tuple[int, ...], group: str):
+        """Launch the MSMs and the copy of their Jacobian results to host
+        memory behind an event (pinned memory on a card)."""
+        jac = torch.stack(list(M.msm_shifted(points, scalars, shifts)), dim=1)  # (S, 3, ...)
+        if self.device.type != "cuda":
+            return jac, None, group
+        host = torch.empty(jac.shape, dtype=jac.dtype, pin_memory=True)
+        host.copy_(jac, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(self.device))
+        return host, ready, group
+
+    @staticmethod
+    def _msm_points(handle) -> list[rc.Point]:
+        host, ready, group = handle
+        if ready is not None:
+            ready.synchronize()
+        return [_jacobian_to_point(jac, group) for jac in host]
+
+
+def random_scalars(m: int) -> torch.Tensor:
+    """m scalars uniform in [0, r) from the system's randomness, as canonical
+    int64 (m, 16) limbs: 254-bit draws from `secrets.token_bytes`, the ones
+    >= r rejected (the distribution of `secrets.randbelow(r)`), in bulk."""
+    r_words = np.array([(R_MOD >> (64 * k)) & (2**64 - 1) for k in range(4)], dtype=np.uint64)
+    out, have = np.empty((m, 4), dtype=np.uint64), 0
+    while have < m:
+        k = (m - have) * 4 // 3 + 8  # r / 2^254 > 3 / 4 of the draws are kept
+        words = np.frombuffer(secrets.token_bytes(32 * k), dtype="<u8").reshape(k, 4).copy()
+        words[:, 3] &= np.uint64(2**62 - 1)  # 254 bits
+        lt, eq = np.zeros(k, dtype=bool), np.ones(k, dtype=bool)
+        for j in range(3, -1, -1):
+            lt |= eq & (words[:, j] < r_words[j])
+            eq &= words[:, j] == r_words[j]
+        keep = words[lt][: m - have]
+        out[have : have + len(keep)] = keep
+        have += len(keep)
+    return torch.from_numpy(out.view("<u2").astype(np.int64))
+
+
+def _jacobian_to_point(jac: torch.Tensor, group: str) -> rc.Point:
+    """Stacked (x, y, z) Montgomery limbs of one point -> host Point."""
+    ctx = fp.FQ_CTX
+
+    def fq(t):
+        return ctx.from_mont_int(fp.limbs_to_int(t))
+
+    if group == "g1":
+        x, y, z = (fq(jac[i]) for i in range(3))
+        if z == 0:
+            return rc.point_zero("g1")
+        zinv = pow(z, -1, ctx.p)
+        return rc.Point(x * zinv**2 % ctx.p, y * zinv**3 % ctx.p, False, "g1")
+    x, y, z = (Fq2(fq(jac[i, 0]), fq(jac[i, 1])) for i in range(3))
+    if z == Fq2(0, 0):
+        return rc.point_zero("g2")
+    zinv = z.inverse()
+    zinv2 = zinv * zinv
+    return rc.Point(x * zinv2, y * zinv2 * zinv, False, "g2")
+
 
 def _not_ported(name: str, item: str):
     def method(self, *args, **kwargs):
@@ -121,12 +221,6 @@ def _not_ported(name: str, item: str):
     return method
 
 
-# the rest of the backend protocol belongs to later slices
-_VERIFY, _PREPARE = "7 (MSM and the verify slice)", "9 (prepare_phase2)"
-for _name, _item in {
-    "msm": _VERIFY, "msm_async": _VERIFY, "msm_wait": _VERIFY, "power_pairs": _VERIFY,
-    "first_point": _VERIFY, "last_point": _VERIFY, "from_points": _VERIFY,
-    "from_batch": _PREPARE, "slice": _PREPARE, "concat": _PREPARE, "group_intt": _PREPARE,
-    "sub_batches": _PREPARE, "encode_radix": _PREPARE,
-}.items():
-    setattr(TorchBackend, _name, _not_ported(_name, _item))
+# the prepare_phase2 protocol belongs to a later slice
+for _name in ("from_batch", "slice", "concat", "group_intt", "sub_batches", "encode_radix"):
+    setattr(TorchBackend, _name, _not_ported(_name, "9 (prepare_phase2)"))

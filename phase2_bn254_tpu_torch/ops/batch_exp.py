@@ -20,12 +20,12 @@ from __future__ import annotations
 
 import torch
 
-from phase2_bn254_tpu.refimpl.glv import BETA
-from phase2_bn254_tpu.refimpl.gls import G2C1, G2C2
-
 from ..curve import group as G
 from ..field import fp
 from ..field.fq2 import FQ, FQ2
+from ..refimpl.gls import G2C1, G2C2
+from ..refimpl.glv import BETA
+from . import _build
 from .gls import GLS_WINDOWS5
 from .glv import BN_PLAN
 
@@ -46,13 +46,6 @@ def tau_powers(tau_start: torch.Tensor, tau_pows: torch.Tensor, coeff: torch.Ten
     for j in range(log2n):
         out = torch.cat([out, fp.mont_mul(ctx, out, tau_pows[j])])
     return fp.from_mont(ctx, fp.mont_mul(ctx, out, coeff))
-
-
-def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
-    if t.dtype != torch.int64 or tuple(t.shape) != shape or t.device != device or not t.is_contiguous():
-        raise ValueError(
-            f"{name}: want contiguous int64 {shape} on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
-        )
 
 
 def _gather(table: G.JacobianBatch, idx: torch.Tensor) -> G.JacobianBatch:
@@ -98,28 +91,15 @@ def batch_exp_glv_signed_plain(x, y, d1, d2) -> G.JacobianBatch:
 def batch_exp_glv_signed(x, y, d1, d2) -> G.JacobianBatch:
     """K1: k_i P_i for G1 points. CPU tensors take the plain version; CUDA
     tensors launch csrc/batch_exp_g1.cu."""
-    if x.device.type == "cpu":
+    if not _build.on_card("batch_exp_glv_signed", x):
         return batch_exp_glv_signed_plain(x, y, d1, d2)
-    if x.device.type != "cuda":
-        raise ValueError(f"batch_exp_glv_signed: no kernel for device {x.device}")
     n, w = x.shape[0], d1.shape[0]
     for name, t, shape in (("x", x, (n, 16)), ("y", y, (n, 16)), ("d1", d1, (w, n)), ("d2", d2, (w, n))):
-        _check(name, t, shape, x.device)
-    from . import _build
-
-    lib = _build.load()
+        _build.check("batch_exp_glv_signed", name, t, shape, x.device)
     out = [torch.empty_like(x) for _ in range(3)]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.p2_batch_exp_glv_signed(
-            x.data_ptr(), y.data_ptr(), d1.data_ptr(), d2.data_ptr(),
-            *(o.data_ptr() for o in out), n, w, stream,
-        )
-    if err:
-        raise RuntimeError(f"batch_exp_glv_signed: CUDA error {err} at launch")
+    _build.launch("p2_batch_exp_glv_signed", x.device, x, y, d1, d2, *out, n, w)
     LAUNCHES["batch_exp_glv_signed"] += 1
     return G.JacobianBatch(*out)
-
 
 
 # ---------------------------------------------------------------------------
@@ -169,25 +149,12 @@ def batch_exp_gls_signed_plain(x, y, digits) -> G.JacobianBatch:
 def batch_exp_gls_signed(x, y, digits) -> G.JacobianBatch:
     """K2: k_i Q_i for G2 points. CPU tensors take the plain version; CUDA
     tensors launch csrc/batch_exp_g2.cu."""
-    if x.device.type == "cpu":
+    if not _build.on_card("batch_exp_gls_signed", x):
         return batch_exp_gls_signed_plain(x, y, digits)
-    if x.device.type != "cuda":
-        raise ValueError(f"batch_exp_gls_signed: no kernel for device {x.device}")
     n, w = x.shape[0], digits.shape[1]
     for name, t, shape in (("x", x, (n, 2, 16)), ("y", y, (n, 2, 16)), ("digits", digits, (4, w, n))):
-        _check(name, t, shape, x.device)
-    from . import _build
-
-    lib = _build.load()
+        _build.check("batch_exp_gls_signed", name, t, shape, x.device)
     out = [torch.empty_like(x) for _ in range(3)]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.p2_batch_exp_gls_signed(
-            x.data_ptr(), y.data_ptr(), digits.data_ptr(), *(o.data_ptr() for o in out), n, w, stream
-        )
-    if err:
-        raise RuntimeError(f"batch_exp_gls_signed: CUDA error {err} at launch")
+    _build.launch("p2_batch_exp_gls_signed", x.device, x, y, digits, *out, n, w)
     LAUNCHES["batch_exp_gls_signed"] += 1
     return G.JacobianBatch(*out)
-
-

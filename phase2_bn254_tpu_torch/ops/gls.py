@@ -14,9 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from phase2_bn254_tpu.refimpl import gls as rgls
-
 from ..field.fp import LIMB_BITS
+from ..refimpl import gls as rgls
 from .glv import TDIG, barrett, mul_const, signed_sum, signed_windows5, twos_complement_abs
 
 KDIG = 5  # two's-complement width of k0..k3 in digits (80 bits >> 2^67)

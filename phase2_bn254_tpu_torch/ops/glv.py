@@ -18,10 +18,9 @@ from __future__ import annotations
 
 import torch
 
-from phase2_bn254_tpu.refimpl import glv as rglv
-from phase2_bn254_tpu.refimpl.field import R_MOD
-
 from ..field.fp import DTYPE, LIMB_BITS, MASK, _carry, int_to_limbs
+from ..refimpl import glv as rglv
+from ..refimpl.field import R_MOD
 
 KDIG = 12  # two's-complement width of k1, k2 in digits (192 bits >> 2^131)
 TDIG = 25  # Barrett shift in digits (400 bits)

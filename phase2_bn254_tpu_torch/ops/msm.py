@@ -1,0 +1,299 @@
+"""Pippenger multi-scalar multiplication (counterpart of
+`phase2_bn254_tpu/ops/pallas_msm.py` and of the helpers of `ops/msm.py`).
+
+`msm(points, scalars)` = sum_i k_i P_i over c-bit windows of the canonical
+scalars, least significant window first (w = 0 .. nwin - 1):
+
+1. `prep_windows` (glue): every window's digits, one batched `torch.sort` of
+   the digits (stable, so each bucket's points keep their index order), and
+   the `torch.searchsorted` start and count of every bucket. Nothing is
+   pulled to the host.
+2. K3 `bucket_accumulate`: S[w, l], the sum of the points of lane l of
+   window w. Lane l covers digit l // g_w and the sub-range l % g_w of that
+   digit's run (`window_groups`: g_w > 1 only in the top window, whose
+   digits have fewer than c bits). Points at infinity are skipped.
+3. K4 `bucket_reduce`: T[w] = sum_l (l // g_w) S[w, l].
+4. K5 `combine_windows`: sum_w 2^(c w) T[w], most significant window first.
+
+`msm_shifted` runs several MSMs with the same scalars over shifted ranges of
+one point array (`power_pairs`' v[:-1] and v[1:]) through one digit sort and
+one launch of each kernel.
+
+Each kernel (csrc/msm.cu) has a wrapper, a plain PyTorch version and a launch
+count (`LAUNCHES[<wrapper name>]`). The wrapper takes the plain version for
+tensors on the CPU; on a CUDA tensor it launches the kernel or raises.
+
+The plain versions: K3 is the JAX package's wave formulation (wave k adds
+the k-th point of every lane's run), computed on the lanes whose run is that
+long; it adds the same points in the same order as the kernel, so the two
+agree limb for limb. K4 weights each nonzero bucket by double-and-add and
+folds each window in log2 steps; it adds in another order than the kernel's
+serial running sum, so the two agree on the affine point of each window sum.
+K5 is the kernel's loop, limb for limb.
+
+There is one path for every N (no size gates) and no digit-distribution
+gate: a skewed distribution only lengthens the runs of a few K3 threads.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import torch
+
+from ..curve import group as G
+from ..field.fq2 import FQ, FQ2
+from . import _build
+
+SCALAR_BITS = 254  # canonical scalars < r < 2^254
+
+# kernel launches by wrapper name; only a launch of the kernel counts
+LAUNCHES = {"bucket_accumulate": 0, "bucket_reduce": 0, "combine_windows": 0}
+
+
+def pick_window(n: int) -> int:
+    """Window size (JAX `pallas_msm.pick_window`): c ~ log2(N) - 7, clamped
+    to [8, 13]."""
+    return max(8, min(13, n.bit_length() - 8))
+
+
+def num_windows(c: int) -> int:
+    return -(-SCALAR_BITS // c)
+
+
+def window_groups(c: int) -> list[int]:
+    """Lanes per digit of each window (JAX `pallas_msm._window_groups`): 1
+    for the windows of c digit bits, B / 2^bits for the top window."""
+    return [1 << (c - min(c, SCALAR_BITS - c * w)) for w in range(num_windows(c))]
+
+
+def window_digits(scalars: torch.Tensor, c: int, w: int) -> torch.Tensor:
+    """The w-th c-bit window of canonical scalars, int64 (N, 16) 16-bit
+    digits -> int64 (N,) (JAX `ops.msm._window_digits`; c <= 16)."""
+    return all_window_digits(scalars, c)[:, w]
+
+
+def all_window_digits(scalars: torch.Tensor, c: int) -> torch.Tensor:
+    """Every window's digits at once: int64 (N, nwin). A window spans at most
+    two 16-bit limbs; three are read."""
+    lo = c * torch.arange(num_windows(c), device=scalars.device)
+    limb, shift = lo // 16, lo % 16
+    s = torch.nn.functional.pad(scalars, (0, 2))
+    v = s[:, limb] | (s[:, limb + 1] << 16) | (s[:, limb + 2] << 32)
+    return (v >> shift) & ((1 << c) - 1)
+
+
+class Prep(NamedTuple):
+    """prep_windows' output: orders (nwin, N), starts and counts (nwin, B),
+    groups (nwin,); all int64 on the scalars' device."""
+
+    orders: torch.Tensor
+    starts: torch.Tensor
+    counts: torch.Tensor
+    groups: torch.Tensor
+    c: int
+
+
+@functools.lru_cache(maxsize=None)
+def _groups(c: int, device: torch.device) -> torch.Tensor:
+    return torch.tensor(window_groups(c), dtype=torch.int64).to(device)
+
+
+def prep_windows(scalars: torch.Tensor, c: int) -> Prep:
+    """Digits, per-window sort and bucket bounds (JAX `_prep_windows`
+    without its hot-bucket and occupancy outputs, which only the TPU's wave
+    grid needs, and without its infinity mask: K3 skips those points)."""
+    digits = all_window_digits(scalars, c).T.contiguous()
+    sorted_digits, orders = torch.sort(digits, dim=1, stable=True)
+    buckets = torch.arange(1 << c, device=scalars.device).expand(digits.shape[0], -1).contiguous()
+    starts = torch.searchsorted(sorted_digits, buckets, side="left")
+    counts = torch.searchsorted(sorted_digits, buckets, side="right") - starts
+    return Prep(orders, starts, counts, _groups(c, scalars.device), c)
+
+
+def _field(x: torch.Tensor):
+    return FQ if x.dim() == 2 else FQ2
+
+
+def _group(x: torch.Tensor, g1_dims: int) -> str:
+    """"g1" for Fq coordinates (x has g1_dims dimensions), "g2" for Fq2."""
+    return "g1" if x.dim() == g1_dims else "g2"
+
+
+# ---------------------------------------------------------------------------
+# K3: bucket accumulation
+# ---------------------------------------------------------------------------
+
+def lane_runs(starts, counts, groups):
+    """Each lane's run of the sorted order: (lo, length), (nwin, B)."""
+    b = starts.shape[1]
+    g = groups[:, None]
+    lane = torch.arange(b, device=starts.device)[None, :]
+    digit, part = lane // g, lane % g
+    s, cnt = starts.gather(1, digit.expand_as(starts)), counts.gather(1, digit.expand_as(counts))
+    sub = (cnt + g - 1) // g
+    lo = s + part * sub
+    hi = s + torch.minimum((part + 1) * sub, cnt)
+    return lo, (hi - lo).clamp(min=0) * (digit != 0)
+
+
+def bucket_accumulate_plain(x, y, inf, shifts, orders, starts, counts, groups) -> G.JacobianBatch:
+    """Plain PyTorch K3. x, y: (N', 16) or (N', 2, 16) Montgomery affine,
+    inf (N',) (skipped); shifts (S,): set s takes points shifts[s] ..
+    shifts[s] + N - 1; orders (nwin, N); starts, counts (nwin, B); groups
+    (nwin,). Returns (S, nwin, B) Jacobian bucket sums. Wave k mixed-adds
+    the k-th point of the run of every lane whose run is longer than k."""
+    f = _field(x)
+    nwin, b = starts.shape
+    nsets = shifts.shape[0]
+    lo, length = (t.reshape(-1).repeat(nsets) for t in lane_runs(starts, counts, groups))
+    acc = G.jac_zero(f, (nsets * nwin * b,), x.device)
+    for k in range(int(length.max()) if length.numel() else 0):
+        lanes = (length > k).nonzero().squeeze(1)
+        idx = orders[lanes // b % nwin, lo[lanes] + k] + shifts[lanes // (nwin * b)]
+        lanes, idx = lanes[~inf[idx]], idx[~inf[idx]]
+        acc = G.put(acc, lanes, G.jac_madd(f, G.take(acc, lanes), x[idx], y[idx]))
+    return G.JacobianBatch(*(t.reshape(nsets, nwin, b, *t.shape[1:]) for t in acc))
+
+
+def bucket_accumulate(x, y, inf, shifts, orders, starts, counts, groups) -> G.JacobianBatch:
+    """K3: bucket sums. CPU tensors take the plain version; CUDA tensors
+    launch csrc/msm.cu."""
+    if not _build.on_card("bucket_accumulate", x):
+        return bucket_accumulate_plain(x, y, inf, shifts, orders, starts, counts, groups)
+    (nwin, n), b, nsets = orders.shape, starts.shape[1], shifts.shape[0]
+    el = tuple(x.shape[1:])
+    for name, t, shape in (("x", x, (x.shape[0], *el)), ("y", y, (x.shape[0], *el)), ("shifts", shifts, (nsets,)),
+                           ("orders", orders, (nwin, n)), ("starts", starts, (nwin, b)),
+                           ("counts", counts, (nwin, b)), ("groups", groups, (nwin,))):
+        _build.check("bucket_accumulate", name, t, shape, x.device)
+    _build.check("bucket_accumulate", "inf", inf, x.shape[:1], x.device, torch.bool)
+    out = [torch.empty((nsets, nwin, b, *el), dtype=x.dtype, device=x.device) for _ in range(3)]
+    _build.launch(f"p2_bucket_accumulate_{_group(x, 2)}", x.device, x, y, inf, shifts, orders, starts, counts, groups,
+                  *out, nsets, n, nwin, b)
+    LAUNCHES["bucket_accumulate"] += 1
+    return G.JacobianBatch(*out)
+
+
+# ---------------------------------------------------------------------------
+# K4: bucket reduction
+# ---------------------------------------------------------------------------
+
+def _fold(f, p: G.JacobianBatch, width: int) -> G.JacobianBatch:
+    """Sum of the first `width` points of each row of (rows, width) lanes in
+    log2(width) halving steps; returns (rows,)."""
+    el = p.x.shape[2:]
+    while width > 1:
+        half = (width + 1) // 2
+        lo = G.JacobianBatch(*(t[:, : width - half].reshape(-1, *el) for t in p))
+        hi = G.JacobianBatch(*(t[:, half:width].reshape(-1, *el) for t in p))
+        s = G.jac_add_sparse(f, lo, hi)
+        p = G.JacobianBatch(*(torch.cat([u.reshape(t.shape[0], -1, *el), t[:, width - half : half]], 1)
+                              for u, t in zip(s, p)))
+        width = half
+    return G.JacobianBatch(*(t[:, 0] for t in p))
+
+
+def bucket_reduce_plain(buckets: G.JacobianBatch, groups) -> G.JacobianBatch:
+    """Plain PyTorch K4. buckets (S, nwin, B) Jacobian -> (S, nwin) window
+    sums sum_l (l // g_w) S_l: every nonzero bucket of weight > 0 times its
+    weight by double-and-add over the weight's bits (vectorized over those
+    buckets), then a log-step fold of each window's products. The JAX
+    package's log-step suffix scan takes B log2(B) adds per window whatever
+    the occupancy; this takes about (c + 1) adds per nonzero bucket."""
+    x = buckets.x
+    f = _field(x[:, 0, 0])
+    nsets, nwin, b = x.shape[:3]
+    el = tuple(x.shape[3:])
+    rows = nsets * nwin
+    flat = G.JacobianBatch(*(t.reshape(rows * b, *el) for t in buckets))
+    lane = torch.arange(rows * b, device=x.device)
+    weight = lane % b // groups.repeat(nsets).repeat_interleave(b)
+    idx = ((weight > 0) & ~f.is_zero(flat.z)).nonzero().squeeze(1)
+    if not idx.numel():
+        return G.jac_zero(f, (nsets, nwin), x.device)
+    pts, w = G.take(flat, idx), weight[idx]
+    acc = G.jac_zero(f, (idx.numel(),), x.device)
+    for bit in range(int(w.max()).bit_length() - 1, -1, -1):
+        live = (~f.is_zero(acc.z)).nonzero().squeeze(1)
+        acc = G.put(acc, live, G.jac_double(f, G.take(acc, live)))
+        sel = ((w >> bit) & 1).nonzero().squeeze(1)
+        acc = G.put(acc, sel, G.jac_add_sparse(f, G.take(acc, sel), G.take(pts, sel)))
+    row = idx // b
+    per_row = torch.bincount(row, minlength=rows)
+    rank = torch.arange(idx.numel(), device=x.device) - (torch.cumsum(per_row, 0) - per_row)[row]
+    width = int(per_row.max())
+    grid = G.put(G.jac_zero(f, (rows * width,), x.device), row * width + rank, acc)
+    out = _fold(f, G.JacobianBatch(*(t.reshape(rows, width, *el) for t in grid)), width)
+    return G.JacobianBatch(*(t.reshape(nsets, nwin, *el) for t in out))
+
+
+def bucket_reduce(buckets: G.JacobianBatch, groups) -> G.JacobianBatch:
+    """K4: window sums. CPU tensors take the plain version; CUDA tensors
+    launch csrc/msm.cu."""
+    x = buckets.x
+    if not _build.on_card("bucket_reduce", x):
+        return bucket_reduce_plain(buckets, groups)
+    nsets, nwin, b = x.shape[:3]
+    for name, t in zip("xyz", buckets):
+        _build.check("bucket_reduce", name, t, x.shape, x.device)
+    _build.check("bucket_reduce", "groups", groups, (nwin,), x.device)
+    out = [torch.empty((nsets, nwin, *x.shape[3:]), dtype=x.dtype, device=x.device) for _ in range(3)]
+    _build.launch(f"p2_bucket_reduce_{_group(x, 4)}", x.device, *buckets, groups, *out, nsets, nwin, b)
+    LAUNCHES["bucket_reduce"] += 1
+    return G.JacobianBatch(*out)
+
+
+# ---------------------------------------------------------------------------
+# K5: window combination
+# ---------------------------------------------------------------------------
+
+def combine_windows_plain(sums: G.JacobianBatch, c: int) -> G.JacobianBatch:
+    """Plain PyTorch K5: sum_w 2^(c w) T_w, MSB first, c doublings and one
+    add per window. sums: (S, nwin) Jacobian; returns (S,)."""
+    f = _field(sums.x[:, 0])
+    p = G.jac_zero(f, sums.x.shape[:1], sums.x.device)
+    for w in range(sums.x.shape[1] - 1, -1, -1):
+        for _ in range(c):
+            p = G.jac_double(f, p)
+        p = G.jac_add(f, p, G.JacobianBatch(*(t[:, w] for t in sums)))
+    return p
+
+
+def combine_windows(sums: G.JacobianBatch, c: int) -> G.JacobianBatch:
+    """K5: the MSMs from their window sums. CPU tensors take the plain
+    version; CUDA tensors launch csrc/msm.cu."""
+    x = sums.x
+    if not _build.on_card("combine_windows", x):
+        return combine_windows_plain(sums, c)
+    for name, t in zip("xyz", sums):
+        _build.check("combine_windows", name, t, x.shape, x.device)
+    out = [torch.empty((x.shape[0], *x.shape[2:]), dtype=x.dtype, device=x.device) for _ in range(3)]
+    _build.launch(f"p2_combine_windows_{_group(x, 3)}", x.device, *sums, *out, x.shape[0], x.shape[1], c)
+    LAUNCHES["combine_windows"] += 1
+    return G.JacobianBatch(*out)
+
+
+# ---------------------------------------------------------------------------
+
+def msm_shifted(points: G.AffineBatch, scalars: torch.Tensor, shifts: tuple[int, ...], c: int | None = None):
+    """sum_i scalars[i] * points[shift + i] for each shift, one launch of
+    K3, K4 and K5 for all of them (they share the scalars, so they share the
+    digit sort). points: Montgomery affine ((N', 16) or (N', 2, 16)
+    coordinates, inf (N',)) with N' >= max(shifts) + N; scalars: canonical
+    int64 (N, 16). Returns (S,) Jacobian points, Montgomery, on the points'
+    device, without waiting for the device."""
+    if points.x.shape[0] < max(shifts) + scalars.shape[0]:
+        raise ValueError(f"msm: {points.x.shape[0]} points, fewer than {scalars.shape[0]} scalars at shift {max(shifts)}")
+    c = pick_window(scalars.shape[0]) if c is None else c
+    prep = prep_windows(scalars, c)
+    shift_t = torch.tensor(shifts, dtype=torch.int64).to(points.x.device)
+    buckets = bucket_accumulate(points.x, points.y, points.inf, shift_t, prep.orders, prep.starts, prep.counts,
+                                prep.groups)
+    return combine_windows(bucket_reduce(buckets, prep.groups), c)
+
+
+def msm(points: G.AffineBatch, scalars: torch.Tensor, c: int | None = None) -> G.JacobianBatch:
+    """sum_i scalars[i] * points[i]: one Jacobian point (batch ())."""
+    return G.JacobianBatch(*(t[0] for t in msm_shifted(points, scalars, (0,), c)))

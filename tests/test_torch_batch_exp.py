@@ -18,6 +18,7 @@ default tier. Tolerance: exact integer equality of every limb and digit.
 """
 
 import ctypes
+import os
 import random
 import subprocess
 
@@ -29,15 +30,21 @@ import torch
 
 from phase2_bn254_tpu.field import fp as jfp
 from phase2_bn254_tpu.ops import gls_device, glv_device, pallas_exp
-from phase2_bn254_tpu.refimpl import curve as rc
-from phase2_bn254_tpu.refimpl import gls as rgls
-from phase2_bn254_tpu.refimpl.field import R_MOD
-from phase2_bn254_tpu.refimpl.glv import LAMBDA
 from phase2_bn254_tpu_torch import convert
 from phase2_bn254_tpu_torch.curve import group as G
 from phase2_bn254_tpu_torch.field import fp
 from phase2_bn254_tpu_torch.field.fq2 import FQ, FQ2
 from phase2_bn254_tpu_torch.ops import _build, batch_exp, gls, glv
+from phase2_bn254_tpu_torch.refimpl import curve as rc
+from phase2_bn254_tpu_torch.refimpl import gls as rgls
+from phase2_bn254_tpu_torch.refimpl.field import R_MOD
+from phase2_bn254_tpu_torch.refimpl.glv import LAMBDA
+
+# Under pytest-xdist several worker processes share a few cores; torch's
+# default of one OpenMP thread per core then oversubscribes them and slows
+# every process many times over, so each worker keeps one torch thread.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 EDGE = [1, 2, R_MOD - 1, R_MOD // 2, (R_MOD - 1) // 2, LAMBDA, R_MOD - LAMBDA, (1 << 128) - 1, 1 << 253, 0]
 

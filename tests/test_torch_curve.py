@@ -1,27 +1,35 @@
 """The port's group law and codecs against the JAX package's.
 
 `phase2_bn254_tpu_torch.curve.group` (jac_add, jac_double, jac_normalize)
-against `phase2_bn254_tpu.curve.group` (G1) and refimpl (G1, G2), and `curve.codecs` decode/encode
-against `phase2_bn254_tpu.curve.codecs`, on the same points from a seeded
-generator. Tolerance: exact integer equality of every limb, and of every
-encoded byte.
+against `phase2_bn254_tpu.curve.group` (G1) and the port's refimpl (G1, G2),
+and `curve.codecs` decode/encode against `phase2_bn254_tpu.curve.codecs`, on
+the same points from a seeded generator. Tolerance: exact integer equality
+of every limb, and of every encoded byte.
 """
 
+import os
 import random
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from phase2_bn254_tpu.curve import codecs as jcodecs
 from phase2_bn254_tpu.curve import group as JG
-from phase2_bn254_tpu.refimpl import curve as rc
-from phase2_bn254_tpu.refimpl.field import R_MOD
 from phase2_bn254_tpu_torch import convert
 from phase2_bn254_tpu_torch.curve import codecs
 from phase2_bn254_tpu_torch.curve import group as G
 from phase2_bn254_tpu_torch.field.fq2 import FQ, FQ2
+from phase2_bn254_tpu_torch.refimpl import curve as rc
+from phase2_bn254_tpu_torch.refimpl.field import R_MOD
+
+# Under pytest-xdist several worker processes share a few cores; torch's
+# default of one OpenMP thread per core then oversubscribes them and slows
+# every process many times over, so each worker keeps one torch thread.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 OPS = {"g1": (FQ, jcodecs.FQ), "g2": (FQ2, jcodecs.FQ2)}
 # the JAX reference, compiled once per op (eager dispatch is far slower)
@@ -116,7 +124,9 @@ def test_encode_rejects_infinity():
 @pytest.mark.parametrize("group", ["g1", "g2"])
 def test_decode_rejections(group):
     """The uncompressed rejections of tests/test_codecs.py: compression flag,
-    infinity flag, a coordinate >= q, and off-curve with check=True."""
+    infinity flag, a coordinate >= q, and off-curve with check=True; the
+    same point compressed decodes (tests/test_torch_decompress.py holds the
+    compressed rejections)."""
     p = _points(group, 1, 8)[0]
     good = rc.point_to_bytes(p, False)
 
@@ -138,5 +148,5 @@ def test_decode_rejections(group):
     with pytest.raises(ValueError, match="off-curve"):
         codecs.decode_batch(off, group, 1, False, True, "cpu")
     assert codecs.decode_batch(off, group, 1, False, False, "cpu").x.shape[0] == 1
-    with pytest.raises(NotImplementedError):
-        codecs.decode_batch(rc.point_to_bytes(p, True), group, 1, True, False, "cpu")
+    assert convert.affine_to_points(codecs.decode_batch(rc.point_to_bytes(p, True), group, 1, True, False, "cpu"),
+                                    group) == [p]

@@ -6,6 +6,8 @@ a seeded numpy generator. Tolerance: exact integer equality of every limb
 (the Montgomery values are the same integers in both packages).
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +20,12 @@ from phase2_bn254_tpu.refimpl.field import Q, R_MOD, Fq2
 from phase2_bn254_tpu_torch import convert
 from phase2_bn254_tpu_torch.field import fp
 from phase2_bn254_tpu_torch.field.fq2 import FQ2
+
+# Under pytest-xdist several worker processes share a few cores; torch's
+# default of one OpenMP thread per core then oversubscribes them and slows
+# every process many times over, so each worker keeps one torch thread.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 N = 24
 CTXS = {"fq": (fp.FQ_CTX, jfp.FpContext(Q, "fq")), "fr": (fp.FR_CTX, jfp.FpContext(R_MOD, "fr"))}
