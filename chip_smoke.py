@@ -6,8 +6,9 @@
 Drives `phase2_bn254_tpu_torch` through its own entry points and fails (exit
 code 1, no result line) if CUDA is missing, if the package is not beside this
 script, or if any phase fails. It imports the port only (its own copy of the
-ceremony protocol, `cli.phase1`, `ceremony`, `crypto`, and of the exact
-reference `refimpl`), and fails if jax or the JAX package got loaded. The
+ceremony protocol, `cli.phase1`, `ceremony`, `crypto`, of the exact
+reference `refimpl`, and of `groth16` and `phase2.circom`), and fails if jax
+or the JAX package got loaded. The
 phases:
 
 1. the card's name, power limit and SM clock; build the kernels (csrc/,
@@ -30,13 +31,32 @@ phases:
 8. verify_transform_constrained at size 21, batch 2^16, on phase 5's
    response: pass, hash chain, spot checks of the new challenge against
    refimpl decompression, K3-K5 / D1 launch counts, wall time by phase, and
-   a torch.profiler breakdown of one chunk's power_pairs.
+   a torch.profiler breakdown of one chunk's power_pairs;
+9. K6 (the four-step Fr NTT pass) against its plain version, limb for limb,
+   forward and inverse, at exp 1, 2, 3, 10, 18 and 20; at exp 24 (the
+   largest it takes) a round trip and 300 outputs of a sparse input against
+   a DFT on host integers; time per call and bound;
+10. `prove` (the port's CLI) on a seeded circom-shaped circuit of 2^18
+   constraints (half booleanity constraints on random bits, half products
+   of random field elements), with parameters from the port's generator:
+   the proof verifies, `snarkjs_verify` of the written JSON agrees and
+   rejects a changed public input; the wall time and K6 / K3-K5 launch
+   counts of `prove` as a user runs it, then a second run with every part
+   timed, the witness' share of 0 and 1 scalars, and a torch.profiler
+   breakdown of the h pipeline; K3, K4, K5 against their plain versions on
+   the sets that run's MSMs took (K4, K5 on the prover's own buckets, K3
+   with bucket runs capped at HOT_N points);
+11. scripts/fixtures' circuit and witness with fixed r and s: the proof on
+   the card equals the plain versions' proof on the CPU, byte for byte;
+   the witness' share of 0 and 1 scalars.
 
 Each kernel's bound is the larger of two times: the bytes of its inputs and
 outputs over the card's memory rate, and its 32-bit integer multiplies over
 the card's multiply rate (132 SMs x 64 per SM per clock x the SM clock
 nvidia-smi reads); the multiplies are counted from the kernels' code (see
-MULS_PER_FQ_PRODUCT, FQ_PRODUCTS) for this run's inputs.
+MULS_PER_FQ_PRODUCT, FQ_PRODUCTS; an Fr product costs what an Fq product
+does) for this run's inputs; K6's bound counts the products an NTT needs
+(_ntt_products), and its kernel's own count stands beside it.
 
 Prints one JSON line of the kernels' results, the card's nvidia-smi line,
 and last `{"ok": true, "device": {...}}`. Needs no network; starts no
@@ -60,7 +80,10 @@ DEVICE = "cuda"  # every phase runs on the card
 SEED = bytes(range(64))
 SMOKE_SIZE, SMOKE_BATCH = 21, 1 << 16
 KERNEL_N = 1 << 16  # the contribute and verify chunk shape
-HOT_N = 1 << 9  # all-equal scalars: the plain K3 adds one point per lane per step, so its limb check runs here
+# the longest bucket run the plain K3 is held to: it adds one point per lane
+# per step, so its limb checks run on all-equal scalars at this N, and on the
+# prover's sets with longer runs cut to this length
+HOT_N = 1 << 9
 NONRESIDUES = 16  # D1 inputs whose x^3 + b has no square root
 
 # Peak rates of the card the bounds are taken against
@@ -327,7 +350,11 @@ class _Timers:
         self.events: dict[str, list] = {}
         self._undo = []
 
-    def wall_of(self, key: str, owner, attr: str) -> None:
+    def wall_of(self, key: str, owner, attr: str, sync: bool = False) -> None:
+        """Add the wall time of owner.attr's calls to wall[key]; with sync,
+        up to the end of the device work they queued."""
+        import torch
+
         fn = getattr(owner, attr)
         self.wall.setdefault(key, 0.0)
 
@@ -336,7 +363,32 @@ class _Timers:
             try:
                 return fn(*a, **k)
             finally:
+                if sync:
+                    torch.cuda.synchronize()
                 self.wall[key] += time.time() - t0
+
+        setattr(owner, attr, inner)
+        self._undo.append((owner, attr, fn))
+
+    def keep(self, key: str, owner, attr: str, into: dict) -> None:
+        """Keep the last result of owner.attr in into[key]."""
+        fn = getattr(owner, attr)
+
+        def inner(*a, **k):
+            into[key] = fn(*a, **k)
+            return into[key]
+
+        setattr(owner, attr, inner)
+        self._undo.append((owner, attr, fn))
+
+    def args_of(self, key: str, owner, attr: str, into: dict) -> None:
+        """Append the positional arguments of owner.attr's calls to
+        into[key]."""
+        fn = getattr(owner, attr)
+
+        def inner(*a, **k):
+            into.setdefault(key, []).append(a)
+            return fn(*a, **k)
 
         setattr(owner, attr, inner)
         self._undo.append((owner, attr, fn))
@@ -962,6 +1014,428 @@ def _profile_power_pairs(response: str, params) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 9
+# ---------------------------------------------------------------------------
+
+NTT_EXPS = (1, 2, 3, 10, 18, 20)  # kernel == plain, forward and inverse
+NTT_BIG_EXP = 24  # the largest exp K6 takes: round trip and a sparse spot check against host integers
+PROVE_EXP = 18  # the prover's domain (phase 10)
+
+
+def _fr_random(m: int, gen) -> "torch.Tensor":
+    """m canonical Fr values (also valid Montgomery forms) as int64 (m, 16)
+    limbs on the card: random 16-bit limbs, the top one below r's."""
+    import torch
+    from phase2_bn254_tpu_torch.refimpl.field import R_MOD
+
+    x = torch.randint(0, 1 << 16, (m, 16), generator=gen, dtype=torch.int64)
+    x[:, 15] = torch.randint(0, R_MOD >> 240, (m,), generator=gen, dtype=torch.int64)
+    return x.to(DEVICE)
+
+
+def _ntt_products(exp: int) -> int:
+    """Fr Montgomery products an N-point four-step NTT needs, N = 2^exp:
+    N/2 log2(N) butterfly products and one inter-twiddle product per
+    element (the iNTT's 1/N folded into the twiddles). The bound counts
+    these."""
+    return (1 << exp) // 2 * exp + (1 << exp)
+
+
+def _ntt_kernel_products(exp: int) -> int:
+    """Fr products csrc/ntt.cu does for one `ntt`: the above and one more
+    per element, since it builds each inter-twiddle w^(j1 k2) as tw_lo *
+    tw_hi rather than reading it from an N-entry table. A cost of the
+    design, recorded beside the bound."""
+    return _ntt_products(exp) + (1 << exp)
+
+
+def _ntt_bytes(exp: int) -> int:
+    """Bytes an `ntt` must move: its input and output (int64 digits, 128
+    bytes an element) and its twiddle tables (C/2 + C + R + R/2 elements)."""
+    log2r = exp // 2
+    r, c = 1 << log2r, 1 << (exp - log2r)
+    return 128 * (2 * (1 << exp) + c // 2 + c + r + r // 2)
+
+
+def phase_ntt(card: Card, records: list[dict]) -> None:
+    import torch
+    from phase2_bn254_tpu_torch.field import fp
+    from phase2_bn254_tpu_torch.ops import ntt
+    from phase2_bn254_tpu_torch.refimpl.field import R_MOD
+
+    gen = torch.Generator().manual_seed(9)
+    per = {}
+    for exp in NTT_EXPS:
+        x = _fr_random(1 << exp, gen)
+        for inverse in (False, True):
+            got = ntt.ntt(exp, x, inverse)
+            want, plain_ms = once_ms(lambda: ntt.ntt_plain(exp, x, inverse))
+            if not torch.equal(got, want):
+                raise AssertionError(f"K6 exp {exp} inverse {inverse}: kernel and plain version differ "
+                                     f"(max abs limb error {max_limb_err([got], [want])})")
+            ms = cuda_ms(lambda: ntt.ntt(exp, x, inverse), 5)
+            bound_ms, bound_by = card.bound(_ntt_bytes(exp), _ntt_products(exp))
+            per[(exp, inverse)] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+        del x, got, want
+    log("phase 9 K6 (lane_dft): ntt == ntt_plain limb for limb, forward and inverse, at exp "
+        + ", ".join(map(str, NTT_EXPS)) + " (ms per ntt call, 2 launches; exp 1: 1)")
+    for (exp, inverse), p in per.items():
+        log(f"  exp {exp} {'inverse' if inverse else 'forward'}: kernel {p['ms']:.3f} ms, plain {p['plain_ms']:.3f} ms, "
+            f"bound {p['bound_ms']:.4f} ms ({p['bound_by']}: {_ntt_products(exp)} Fr products, {_ntt_bytes(exp)} bytes; "
+            f"the kernel does {_ntt_kernel_products(exp)} products)")
+
+    # the largest domain: round trip, and a sparse input against host integers
+    exp, m = NTT_BIG_EXP, 1 << NTT_BIG_EXP
+    x = _fr_random(m, gen)
+    y = ntt.ntt(exp, x, False)
+    if not torch.equal(ntt.ntt(exp, y, True), x):
+        raise AssertionError(f"K6 exp {exp}: the inverse of the forward NTT is not the input")
+    big_ms = cuda_ms(lambda: ntt.ntt(exp, x, False), 3)
+    del x, y
+    rng = random.Random(24)
+    nonzero = {rng.randrange(m): rng.randrange(R_MOD) for _ in range(4)}
+    sparse = torch.zeros((m, 16), dtype=torch.int64, device=DEVICE)
+    for j, v in nonzero.items():
+        sparse[j] = torch.tensor(fp.int_to_limbs(fp.FR_CTX.to_mont_int(v)), device=DEVICE)
+    ks = sorted({0, 1, m - 1} | {rng.randrange(m) for _ in range(297)})
+    d = ntt.Domain(exp)
+    for inverse in (False, True):
+        out = ntt.ntt(exp, sparse, inverse)[torch.tensor(ks, device=DEVICE)]
+        w, scale = (d.omegainv, d.minv) if inverse else (d.omega, 1)
+        for k, limbs in zip(ks, out.cpu()):
+            want = sum(v * pow(w, j * k % m, R_MOD) for j, v in nonzero.items()) * scale % R_MOD
+            if fp.FR_CTX.from_mont_int(fp.limbs_to_int(limbs)) != want:
+                raise AssertionError(f"K6 exp {exp} inverse {inverse}: output {k} differs from the host DFT")
+    del sparse
+    big_bound, big_by = card.bound(_ntt_bytes(exp), _ntt_products(exp))
+    log(f"  exp {exp}: inverse(forward(x)) == x; {len(ks)} outputs of a 4-term input == host DFT, both directions; "
+        f"forward kernel {big_ms:.3f} ms, bound {big_bound:.4f} ms ({big_by}); plain not run (its temporaries "
+        f"exceed the card's memory)")
+    main = per[(PROVE_EXP, False)]
+    rec = record(card, "lane_dft", "phase2_bn254_tpu_torch/csrc/ntt.cu", "phase2_bn254_tpu/ops/pallas_ntt.py:229",
+                 0, main["ms"], main["plain_ms"], (_ntt_bytes(PROVE_EXP), _ntt_products(PROVE_EXP)),
+                 shape=f"one ntt() call (2 launches) at 2^{PROVE_EXP}, forward; other exps beside",
+                 by_exp={f"{e}{'i' if inv else ''}": p for (e, inv), p in per.items()},
+                 exp24_forward_ms=big_ms, exp24_bound_ms=big_bound, fr_products=_ntt_products(PROVE_EXP),
+                 kernel_fr_products=_ntt_kernel_products(PROVE_EXP))
+    records.append(rec)
+
+
+# ---------------------------------------------------------------------------
+# phases 10 and 11: the prover
+# ---------------------------------------------------------------------------
+
+def write_circuit(workdir: str, exp: int, seed: int) -> tuple[str, str]:
+    """A circom-shaped circuit of 2^exp constraints once the prover's three
+    input constraints are added, and its witness, as circuit.json and
+    witness.json: half the constraints booleanity b * b = b on random bits,
+    half products x_(i+1) = x_i * y_i of random field elements, x_0 the
+    public input and x_K the output."""
+    from phase2_bn254_tpu_torch.refimpl.field import R_MOD
+
+    rng = random.Random(seed)
+    total = (1 << exp) - 3
+    k = total // 2
+    nbits = total - k
+    xs = [rng.randrange(R_MOD)]
+    ys = [rng.randrange(R_MOD) for _ in range(k)]
+    for y in ys:
+        xs.append(xs[-1] * y % R_MOD)
+    bits = [rng.randrange(2) for _ in range(nbits)]
+    # variables: 0 one, 1 output x_K, 2 public x_0, then y_0.., x_1..x_(K-1), the bits
+    x_idx = [2] + [3 + k + i for i in range(k - 1)] + [1]
+    b0 = 3 + 2 * k - 1
+    cons = [[{str(x_idx[i]): "1"}, {str(3 + i): "1"}, {str(x_idx[i + 1]): "1"}] for i in range(k)]
+    cons += [[{str(b0 + j): "1"}] * 3 for j in range(nbits)]
+    witness = [1, xs[k], xs[0]] + ys + xs[1:k] + bits
+    circuit = {"constraints": cons, "nPubInputs": 1, "nOutputs": 1, "nVars": len(witness)}
+    paths = os.path.join(workdir, f"circuit_{exp}.json"), os.path.join(workdir, f"witness_{exp}.json")
+    with open(paths[0], "w") as f:
+        json.dump(circuit, f)
+    with open(paths[1], "w") as f:
+        json.dump([str(v) for v in witness], f)
+    return paths
+
+
+def write_params(circuit_json: str, path: str, seed: int, device: str) -> None:
+    """A .params file (params || cs_hash || u32 0 contributions) of the
+    circuit from the port's generator, toxic waste from a ChaCha seed."""
+    from phase2_bn254_tpu_torch.crypto.chacha import ChaChaRng
+    from phase2_bn254_tpu_torch.groth16.generator import generate_parameters_bytes
+    from phase2_bn254_tpu_torch.phase2.circom import CircomCircuit
+    from phase2_bn254_tpu_torch.refimpl.sampling import rand_fr, rand_g1, rand_g2
+
+    rng = ChaChaRng.from_digest_be(hashlib.blake2b(seed.to_bytes(8, "little")).digest())
+    g1, g2 = rand_g1(rng), rand_g2(rng)
+    toxic = [rand_fr(rng) for _ in range(5)]
+    params = generate_parameters_bytes(CircomCircuit.from_json_file(circuit_json), g1, g2, *toxic, device)
+    with open(path, "wb") as f:
+        f.write(params + hashlib.blake2b(params).digest() + (0).to_bytes(4, "big"))
+
+
+def witness_shares(assignment) -> dict:
+    """The share of scalars equal to 0 and to 1 in each query the prover
+    runs on the aux values: l (every aux value), a and b (the values of the
+    variables that occur in A, in B), as groth16.prover.create_proof forms
+    them. (zero share, one share, count) per query."""
+    auxs, inputs = assignment.aux_assignment, assignment.input_assignment
+    queries = {"l": auxs,
+               "a": inputs + [v for v, d in zip(auxs, assignment.a_aux_density) if d],
+               "b": [v for v, d in zip(inputs, assignment.b_input_density) if d]
+               + [v for v, d in zip(auxs, assignment.b_aux_density) if d]}
+    return {name: (sum(v == 0 for v in vals) / max(len(vals), 1), sum(v == 1 for v in vals) / max(len(vals), 1),
+                   len(vals)) for name, vals in queries.items()}
+
+
+def _shares_text(shares: dict) -> str:
+    return "; ".join(f"{name} ({n} scalars): {100 * zero:.2f}% zero, {100 * one:.2f}% one"
+                     for name, (zero, one, n) in shares.items())
+
+
+def _cap_runs(scalars, c: int, cap: int):
+    """The scalars with every one zeroed that lies beyond the first `cap`
+    points of a bucket run longer than cap, so that the plain K3 takes at
+    most cap waves. Zeroed scalars only leave runs: no run grows."""
+    import torch
+    from phase2_bn254_tpu_torch.ops import msm as M
+
+    prep = M.prep_windows(scalars, c)
+    lo, length = M.lane_runs(prep.starts, prep.counts, prep.groups)
+    out = scalars.clone()
+    for w, lane in (length > cap).nonzero().tolist():
+        first = int(lo[w, lane]) + cap
+        out[prep.orders[w, first : int(lo[w, lane] + length[w, lane])]] = 0
+    return out
+
+
+def _k3_sets(group: str, sets, c: int) -> dict:
+    """K3 over each (points, scalars, shifts) set as msm.accumulate_sets
+    launches it, and its plain version: time (CUDA events), work, and the
+    largest limb difference."""
+    import torch
+    from phase2_bn254_tpu_torch.ops import msm as M
+
+    args, products = [], 0
+    for points, scalars, shifts in sets:
+        prep = M.prep_windows(scalars, c)
+        shift_t = torch.tensor(shifts, dtype=torch.int64, device=points.x.device)
+        args.append((points.x, points.y, points.inf, shift_t, prep.orders, prep.starts, prep.counts, prep.groups))
+        products += _k3_products(group, prep, len(shifts))
+    parts, ms = once_ms(lambda: [M.bucket_accumulate(*a) for a in args])
+    want, plain_ms = once_ms(lambda: [M.bucket_accumulate_plain(*a) for a in args])
+    return {"ms": ms, "plain_ms": plain_ms, "err": max(max_limb_err(got, w) for got, w in zip(parts, want)),
+            "work": (sum(nbytes(*a) for a in args) + sum(nbytes(*p) for p in parts), products)}
+
+
+def _prover_msm_kernels(card: Card, captured: list, records: list[dict]) -> None:
+    """K3, K4 and K5 at the prover's own shapes, on the sets its msm_sets
+    calls took in the run just made (three G1 sets sharing one K4 and one K5
+    launch, one G2 set): K4 and K5 against their plain versions on the very
+    buckets the prover builds (msm.accumulate_sets, as msm_sets runs it), K3
+    against its plain version on the same sets with every bucket run capped
+    at HOT_N points (the plain version takes one step per point of the
+    longest run)."""
+    from phase2_bn254_tpu_torch.curve import group as G
+    from phase2_bn254_tpu_torch.field.fq2 import FQ, FQ2
+    from phase2_bn254_tpu_torch.ops import msm as M
+
+    per_kernel = {"bucket_accumulate": {}, "bucket_reduce": {}, "combine_windows": {}}
+    for (sets,) in captured:
+        group = "g1" if sets[0][0].x.dim() == 2 else "g2"
+        f = FQ if group == "g1" else FQ2
+        c = M.pick_window(max(k.shape[0] for _, k, _ in sets))
+        sizes = [k.shape[0] for _, k, _ in sets]
+        (buckets, groups), k3_ms = once_ms(lambda: M.accumulate_sets(sets, c))
+        capped_sets = [(p, _cap_runs(k, c, HOT_N), sh) for p, k, sh in sets]
+        capped = _k3_sets(group, capped_sets, c)
+        if capped["err"]:
+            raise AssertionError(f"K3 {group} at the prover's shape: kernel and plain version differ "
+                                 f"(max abs limb error {capped['err']})")
+        sums, k4_ms = once_ms(lambda: M.bucket_reduce(buckets, groups))
+        want, k4_plain_ms = once_ms(lambda: M.bucket_reduce_plain(buckets, groups))
+        flat = [G.JacobianBatch(*(t.reshape(-1, *t.shape[2:]) for t in x)) for x in (sums, want)]
+        k4_err = max_limb_err(*(G.jac_normalize(f, x) for x in flat))
+        if k4_err:
+            raise AssertionError(f"K4 {group} at the prover's shape: kernel and plain version differ on the affine "
+                                 f"window sums")
+        res, k5_ms = once_ms(lambda: M.combine_windows(sums, c))
+        want, k5_plain_ms = once_ms(lambda: M.combine_windows_plain(sums, c))
+        k5_err = max_limb_err(res, want)
+        if k5_err:
+            raise AssertionError(f"K5 {group} at the prover's shape: kernel and plain version differ (max abs limb "
+                                 f"error {k5_err})")
+        work = {"bucket_accumulate": capped["work"],
+                "bucket_reduce": (nbytes(*buckets, groups, *sums), _k4_products(group, buckets, groups)),
+                "combine_windows": (nbytes(*sums, *res), _k5_products(group, sums, c))}
+        times = {"bucket_accumulate": (capped["ms"], capped["plain_ms"], capped["err"]),
+                 "bucket_reduce": (k4_ms, k4_plain_ms, k4_err), "combine_windows": (k5_ms, k5_plain_ms, k5_err)}
+        shape = f"{len(sets)} set(s) of {sizes} scalars, c={c}"
+        for name, (ms, plain_ms, err) in times.items():
+            bound_ms, bound_by = card.bound(*work[name])
+            per_kernel[name][group] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "bound_ms": bound_ms,
+                                       "bound_by": bound_by, "shape": shape}
+        per_kernel["bucket_accumulate"][group]["uncapped_ms"] = k3_ms
+        b3 = card.bound(*capped["work"])[0]
+        log(f"phase 10 MSM kernels at the prover's {group} shape ({shape}): K3 == plain limb for limb with runs "
+            f"capped at {HOT_N} points (kernel {capped['ms']:.3f} ms, plain {capped['plain_ms']:.3f} ms, bound "
+            f"{b3:.3f} ms); K3 on the prover's own scalars {k3_ms:.3f} ms (with their digit sort, as msm_sets runs "
+            f"it); on those buckets K4 == plain after "
+            f"normalizing (kernel {k4_ms:.3f} ms, plain {k4_plain_ms:.3f} ms), K5 == plain limb for limb (kernel "
+            f"{k5_ms:.3f} ms, plain {k5_plain_ms:.3f} ms)")
+    for r in records:
+        if r["name"] in per_kernel:
+            r["prove_shape"] = per_kernel[r["name"]]
+
+
+def phase_prove(card: Card, workdir: str, records: list[dict], exp: int = PROVE_EXP) -> None:
+    """`prove` three times: as a user runs it, for the wall time and the
+    kernel launches; with every part timed, which also keeps the prover's
+    MSM inputs for `_prover_msm_kernels`; and as a user runs it again."""
+    import torch
+    from phase2_bn254_tpu_torch.cli import phase2 as cli2
+    from phase2_bn254_tpu_torch.groth16 import prover
+    from phase2_bn254_tpu_torch.groth16.source import ParametersSource
+    from phase2_bn254_tpu_torch.ops import batch_exp, ntt
+    from phase2_bn254_tpu_torch.ops import msm as M
+    from phase2_bn254_tpu_torch.phase2 import circom
+    from phase2_bn254_tpu_torch.refimpl.field import R_MOD
+
+    t0 = time.time()
+    circuit_json, witness_json = write_circuit(workdir, exp, seed=18)
+    t_circuit = time.time() - t0
+    params = os.path.join(workdir, f"circuit_{exp}.params")
+    for counts in (batch_exp.LAUNCHES, ntt.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+    t0 = time.time()
+    write_params(circuit_json, params, seed=18, device=DEVICE)
+    torch.cuda.synchronize()
+    t_params = time.time() - t0
+    gen_launches = {**dict(batch_exp.LAUNCHES), "lane_dft": ntt.LAUNCHES["lane_dft"]}
+    proof_json, public_json = os.path.join(workdir, "proof.json"), os.path.join(workdir, "public.json")
+    argv = [circuit_json, witness_json, params, proof_json, public_json, "--device", DEVICE]
+
+    def as_a_user_runs_it():
+        """(wall s, kernel launches) of one `prove`."""
+        for counts in (ntt.LAUNCHES, M.LAUNCHES):
+            for name in counts:
+                counts[name] = 0
+        t0 = time.time()
+        cli2.main_prove(argv)
+        torch.cuda.synchronize()
+        total = time.time() - t0
+        launches = {**ntt.LAUNCHES, **M.LAUNCHES}
+        want = {"lane_dft": 14, "bucket_accumulate": 4, "bucket_reduce": 2, "combine_windows": 2}
+        if launches != want:
+            raise AssertionError(f"kernel launches {launches}, want {want} (7 NTTs of 2 passes; 3 G1 MSMs sharing "
+                                 f"one K4 and K5 launch, 1 G2 MSM)")
+        return total, launches
+
+    total, launches = as_a_user_runs_it()
+    for r in records:
+        if r["name"] == "lane_dft":
+            r["launches"] = launches["lane_dft"]
+        elif r["name"] in M.LAUNCHES:
+            r["prove_launches"] = launches[r["name"]]
+
+    # every part timed; h up to the end of its device work
+    timers = _Timers()
+    timers.wall_of("json", circom.json, "load")
+    timers.wall_of("synthesis", prover, "prepare_prover")
+    timers.wall_of("h", prover, "_h_coefficients", sync=True)
+    timers.wall_of("decode", prover._Bases, "_decoded")
+    timers.wall_of("msm_launch", prover._Bases, "msm_async")
+    timers.wall_of("msm_wait", prover._Bases, "wait")
+    timers.wall_of("combine", prover, "combine")
+    timers.wall_of("pairings", cli2, "prepare_verifying_key")
+    timers.wall_of("pairings", cli2, "verify_proof")
+    timers.device_of("ntt", ntt, "lane_dft")
+    for name in M.LAUNCHES:
+        timers.device_of("msm", M, name)
+    kept = {}
+    timers.keep("assignment", prover, "prepare_prover", kept)
+    timers.args_of("msm_sets", M, "msm_sets", kept)
+    try:
+        t0 = time.time()
+        cli2.main_prove(argv)
+        torch.cuda.synchronize()
+        timed_total = time.time() - t0
+    finally:
+        timers.restore()
+    total_again, _ = as_a_user_runs_it()
+
+    with open(params, "rb") as f:
+        vk_json = circom.verification_key_json(ParametersSource(f))
+    with open(proof_json) as f:
+        proof = f.read()
+    with open(public_json) as f:
+        publics = json.load(f)
+    if not circom.snarkjs_verify(vk_json, proof, json.dumps(publics)):
+        raise AssertionError("snarkjs_verify rejects the proof that prove verified")
+    wrong = [publics[0], str((int(publics[1]) + 1) % R_MOD)]
+    if circom.snarkjs_verify(vk_json, proof, json.dumps(wrong)):
+        raise AssertionError("the proof verifies with a changed public input")
+
+    w = timers.wall
+    other = timed_total - sum(w[k] for k in ("json", "synthesis", "h", "msm_launch", "msm_wait", "combine", "pairings"))
+    log(f"phase 10 prove: 2^{exp} constraints ({os.path.getsize(circuit_json)} bytes of circuit JSON, written in "
+        f"{t_circuit:.1f} s); params from the port's generator in {t_params:.3f} s ({os.path.getsize(params)} bytes; "
+        f"launches {gen_launches}); prove verifies, snarkjs_verify agrees, a changed public input is rejected")
+    log(f"  proof wall time {total:.3f} s, again {total_again:.3f} s after the timed run (`prove` as a user runs "
+        f"it); K6 launches {launches['lane_dft']}, "
+        f"K3 / K4 / K5 launches {launches['bucket_accumulate']} / {launches['bucket_reduce']} / "
+        f"{launches['combine_windows']}")
+    log(f"  second run, every part timed ({timed_total:.3f} s; h waits for its device work, which `prove` does "
+        f"not): JSON parse {w['json']:.3f} | synthesis {w['synthesis']:.3f} | h (NTTs and glue, to the device's "
+        f"end) {w['h']:.3f} | MSM launch {w['msm_launch']:.3f} (of it params decode {w['decode']:.3f}) | MSM wait "
+        f"{w['msm_wait']:.3f} | host combination {w['combine']:.3f} | pairings {w['pairings']:.3f} | other (circuit "
+        f"from JSON, witness, vk read, files) {other:.3f}; device s (CUDA events): K6 {timers.device_s('ntt'):.3f}, "
+        f"K3 + K4 + K5 {timers.device_s('msm'):.3f}")
+    assignment = kept["assignment"]
+    log(f"  witness (the circuit's assumed mix): {_shares_text(witness_shares(assignment))}")
+    dev = torch.device(DEVICE)
+    prover._h_coefficients(assignment, dev)  # warm
+    out = _profile(lambda: prover._h_coefficients(assignment, dev), {"K6": ("lane_dft",)})
+    log(f"  profile _h_coefficients at 2^{exp}: {out}")
+    _prover_msm_kernels(card, kept["msm_sets"], records)
+
+
+def phase_fixture_proof(workdir: str) -> None:
+    """scripts/fixtures' circuit and witness, fixed r and s: the proof on the
+    card equals the one of the plain versions on the CPU, byte for byte."""
+    from phase2_bn254_tpu_torch.groth16 import prover
+    from phase2_bn254_tpu_torch.groth16.source import ParametersSource
+    from phase2_bn254_tpu_torch.groth16.verifier import prepare_verifying_key, verify_proof
+    from phase2_bn254_tpu_torch.ops.backend import TorchBackend
+    from phase2_bn254_tpu_torch.phase2.circom import CircomCircuit, witness_from_json_file
+
+    fixtures = os.path.join(REPO, "scripts", "fixtures")
+    circuit_json = os.path.join(fixtures, "circuit.json")
+    params = os.path.join(workdir, "fixture.params")
+    write_params(circuit_json, params, seed=11, device=DEVICE)
+    circuit = CircomCircuit.from_json_file(circuit_json).with_witness(
+        witness_from_json_file(os.path.join(fixtures, "witness.json")))
+    r, s = 0x0123456789ABCDEF0123456789ABCDEF, 0xFEDCBA9876543210FEDCBA9876543210
+    proofs, secs = {}, {}
+    for device in (DEVICE, "cpu"):
+        t0 = time.time()
+        with open(params, "rb") as f:
+            proofs[device] = prover.create_proof(prover.prepare_prover(circuit), ParametersSource(f), r, s,
+                                                 TorchBackend(device))
+        secs[device] = time.time() - t0
+    if proofs[DEVICE].write() != proofs["cpu"].write():
+        raise AssertionError("fixture proof: the card's bytes differ from the plain versions' on the CPU")
+    with open(params, "rb") as f:
+        vk = ParametersSource(f).vk
+    if not verify_proof(prepare_verifying_key(vk), proofs[DEVICE], circuit.get_public_inputs()):
+        raise AssertionError("fixture proof does not verify")
+    log(f"phase 11 fixture proof ({circuit.num_constraints} constraints, {circuit.num_inputs} inputs): card == CPU "
+        f"plain versions byte for byte ({proofs[DEVICE].write()[:8].hex()}...), verifies; card {secs[DEVICE]:.1f} s, "
+        f"CPU {secs['cpu']:.1f} s")
+    log(f"  witness: {_shares_text(witness_shares(prover.prepare_prover(circuit)))}")
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     try:
@@ -994,6 +1468,9 @@ def main() -> int:
         phase_msm_kernels(card, records)
         phase_verify_small(workdir)
         phase_verify(workdir, records)
+        phase_ntt(card, records)
+        phase_prove(card, workdir, records)
+        phase_fixture_proof(workdir)
     loaded = sorted(m for m in ("jax", "phase2_bn254_tpu") if m in sys.modules)
     if loaded:
         print(f"chip_smoke: {', '.join(loaded)} was loaded", file=sys.stderr)

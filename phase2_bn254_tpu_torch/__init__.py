@@ -9,7 +9,11 @@ Two slices of the phase-1 powers-of-tau ceremony run on the card:
   Pippenger MSM kernels K3, K4 and K5 (csrc/msm.cu) and point decompression
   D1 (csrc/decompress.cu).
 
+and the Groth16 prover (`python -m phase2_bn254_tpu_torch prove`): the
+four-step Fr NTT K6 (csrc/ntt.cu) and K3-K5 (`groth16/`, `phase2/circom`).
+
 The package carries its own copy of the host protocol (`cli.phase1`,
-`ceremony`, `crypto`, `refimpl`, `native`); it imports torch, and nothing of
-jax or of the JAX package.
+`ceremony`, `crypto`, `refimpl`, `native`, and of `groth16` and
+`phase2.circom`); it imports torch, and nothing of jax or of the JAX
+package.
 """

@@ -1,16 +1,18 @@
-"""python -m phase2_bn254_tpu_torch <tool> [args]: the port's phase-1 tools."""
+"""python -m phase2_bn254_tpu_torch <tool> [args]: the port's phase-1 tools and
+the phase-2 `prove`."""
 
 from __future__ import annotations
 
 import sys
 
-from .cli import phase1
+from .cli import phase1, phase2
 
 TOOLS = {
     "new_constrained": phase1.main_new,
     "compute_constrained": phase1.main_compute,
     "beacon_constrained": phase1.main_beacon,
     "verify_transform_constrained": phase1.main_verify,
+    "prove": phase2.main_prove,
 }
 
 

@@ -1,5 +1,5 @@
 // BN254 constants as 8 little-endian 32-bit limbs, Montgomery form
-// (R = 2^256) except FQ_P, FQ_R2 and the EXP_ exponents. Written by
+// (R = 2^256) except FQ_P, FR_P, FQ_R2 and the EXP_ exponents. Written by
 // ops/_build.py constants_header() from the refimpl integers;
 // tests/test_torch_batch_exp.py checks it.
 #pragma once
@@ -7,6 +7,7 @@
 #include <cstdint>
 
 static constexpr uint32_t FQ_PINV = 0xe4866389u;  // -q^-1 mod 2^32
+static constexpr uint32_t FR_PINV = 0xefffffffu;  // -r^-1 mod 2^32
 // the modulus q
 static __constant__ uint32_t FQ_P[8] = {0xd87cfd47u, 0x3c208c16u, 0x6871ca8du, 0x97816a91u, 0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u};
 // R mod q (Montgomery one)
@@ -44,3 +45,7 @@ static __constant__ uint32_t EXP_SQRT_G1[8] = {0xb61f3f52u, 0x4f082305u, 0x5a1c7
 static __constant__ uint32_t EXP_G2_A1[8] = {0xb61f3f51u, 0x4f082305u, 0x5a1c72a3u, 0x65e05aa4u, 0xa0605617u, 0x6e14116du, 0xb84c680au, 0x0c19139cu};
 // exponent (q - 1) / 2: the G2 square root's (1 + alpha) power
 static __constant__ uint32_t EXP_G2_B[8] = {0x6c3e7ea3u, 0x9e10460bu, 0xb438e546u, 0xcbc0b548u, 0x40c0ac2eu, 0xdc2822dbu, 0x7098d014u, 0x18322739u};
+// the scalar field's modulus r
+static __constant__ uint32_t FR_P[8] = {0xf0000001u, 0x43e1f593u, 0x79b97091u, 0x2833e848u, 0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u};
+// R mod r (Montgomery one of Fr)
+static __constant__ uint32_t FR_ONE[8] = {0x4ffffffbu, 0xac96341cu, 0x9f60cd29u, 0x36fc7695u, 0x7879462eu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u};

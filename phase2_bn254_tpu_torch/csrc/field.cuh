@@ -1,10 +1,11 @@
-// BN254 Fq and Fq2 arithmetic and the Jacobian group law, one thread per
+// BN254 Fq, Fq2 and Fr arithmetic and the Jacobian group law, one thread per
 // point or per lane, for the kernels of this directory (batch_exp_g1.cu,
-// batch_exp_g2.cu, msm.cu, decompress.cu).
+// batch_exp_g2.cu, msm.cu, decompress.cu; Fr for ntt.cu).
 //
-// An Fq element is 8 little-endian 32-bit limbs in Montgomery form with
-// R = 2^256, the same values as the 16 x 16-bit limbs of the JAX package and
-// of field/fp.py; loads and stores convert between the two. Multiplication
+// An Fq element (Fp) or an Fr element (Fr) is 8 little-endian 32-bit limbs
+// in Montgomery form with R = 2^256, the same values as the 16 x 16-bit
+// limbs of the JAX package and of field/fp.py; loads and stores convert
+// between the two. Multiplication
 // is CIOS with 64-bit products and a final conditional subtraction, so every
 // value stays fully reduced in [0, p): equality and the zero test are limb
 // compares, and the kernels' outputs equal the plain PyTorch versions' limb
@@ -12,16 +13,20 @@
 //
 // The group law is dbl-2009-l, add-2007-bl and the mixed add madd-2007-bl
 // with the same exceptional cases as curve/group.py (P + O, O + Q, P == Q by
-// doubling, P == -Q to infinity). The multiply and the group operations are
-// __noinline__: one copy of each keeps the kernels' code small enough for
-// the instruction cache, at the price of a call per operation.
+// doubling, P == -Q to infinity). The Fq multiply and the group operations
+// are __noinline__: one copy of each keeps the kernels' code small enough
+// for the instruction cache, at the price of a call per operation.
 #pragma once
 
 #include <cstdint>
 
 #include "constants.cuh"
 
-struct Fp {
+struct Fp {  // Fq, the base field
+  uint32_t v[8];
+};
+
+struct Fr {  // the scalar field
   uint32_t v[8];
 };
 
@@ -68,21 +73,27 @@ __device__ __forceinline__ bool eq(const Fp& a, const Fp& b) {
   return acc == 0;
 }
 
+// The arithmetic below is written once over the modulus p (8 limbs) and its
+// -p^-1 mod 2^32, for both moduli (254 bits each, so a + b < 2^255 and the
+// CIOS result t < 2p < 2^256). E is Fp or Fr.
+
 // r - p if r >= p, else r (r < 2^256)
-__device__ __forceinline__ Fp fp_reduce_once(const Fp& r) {
-  Fp s;
+template <class E>
+__device__ __forceinline__ E reduce_once_mod(const E& r, const uint32_t* p) {
+  E s;
   int64_t b = 0;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    int64_t t = (int64_t)r.v[i] - (int64_t)FQ_P[i] + b;
+    int64_t t = (int64_t)r.v[i] - (int64_t)p[i] + b;
     s.v[i] = (uint32_t)t;
     b = t >> 32;  // 0 or -1
   }
   return b < 0 ? r : s;
 }
 
-__device__ __forceinline__ Fp add(const Fp& a, const Fp& b) {
-  Fp r;
+template <class E>
+__device__ __forceinline__ E add_mod(const E& a, const E& b, const uint32_t* p) {
+  E r;
   uint64_t c = 0;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -90,11 +101,12 @@ __device__ __forceinline__ Fp add(const Fp& a, const Fp& b) {
     r.v[i] = (uint32_t)c;
     c >>= 32;
   }
-  return fp_reduce_once(r);  // a + b < 2p < 2^255: no carry out
+  return reduce_once_mod(r, p);  // a + b < 2p < 2^255: no carry out
 }
 
-__device__ __forceinline__ Fp sub(const Fp& a, const Fp& b) {
-  Fp r;
+template <class E>
+__device__ __forceinline__ E sub_mod(const E& a, const E& b, const uint32_t* p) {
+  E r;
   int64_t br = 0;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -106,7 +118,7 @@ __device__ __forceinline__ Fp sub(const Fp& a, const Fp& b) {
     uint64_t c = 0;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      c += (uint64_t)r.v[i] + FQ_P[i];
+      c += (uint64_t)r.v[i] + p[i];
       r.v[i] = (uint32_t)c;
       c >>= 32;
     }
@@ -114,12 +126,9 @@ __device__ __forceinline__ Fp sub(const Fp& a, const Fp& b) {
   return r;
 }
 
-__device__ __forceinline__ Fp neg(const Fp& a) { return sub(fp_zero(), a); }
-
-__device__ __forceinline__ Fp dbl(const Fp& a) { return add(a, a); }
-
 // Montgomery product a * b * 2^-256 mod p (CIOS)
-static __device__ __noinline__ Fp mul(Fp a, Fp b) {
+template <class E>
+__device__ __forceinline__ E mont_mul_mod(const E& a, const E& b, const uint32_t* p, uint32_t pinv) {
   uint32_t t[10];
 #pragma unroll
   for (int i = 0; i < 10; ++i) t[i] = 0;
@@ -135,11 +144,11 @@ static __device__ __noinline__ Fp mul(Fp a, Fp b) {
     c += t[8];
     t[8] = (uint32_t)c;
     t[9] = (uint32_t)(c >> 32);
-    uint32_t m = t[0] * FQ_PINV;
-    c = ((uint64_t)m * FQ_P[0] + t[0]) >> 32;
+    uint32_t m = t[0] * pinv;
+    c = ((uint64_t)m * p[0] + t[0]) >> 32;
 #pragma unroll
     for (int j = 1; j < 8; ++j) {
-      c += (uint64_t)m * FQ_P[j] + t[j];
+      c += (uint64_t)m * p[j] + t[j];
       t[j - 1] = (uint32_t)c;
       c >>= 32;
     }
@@ -147,13 +156,28 @@ static __device__ __noinline__ Fp mul(Fp a, Fp b) {
     t[7] = (uint32_t)c;
     t[8] = t[9] + (uint32_t)(c >> 32);
   }
-  Fp r;
+  E r;
 #pragma unroll
   for (int i = 0; i < 8; ++i) r.v[i] = t[i];
-  return fp_reduce_once(r);  // t < 2p < 2^256, so t[8] == 0
+  return reduce_once_mod(r, p);  // t < 2p < 2^256, so t[8] == 0
 }
 
+__device__ __forceinline__ Fp fp_reduce_once(const Fp& r) { return reduce_once_mod(r, FQ_P); }
+__device__ __forceinline__ Fp add(const Fp& a, const Fp& b) { return add_mod(a, b, FQ_P); }
+__device__ __forceinline__ Fp sub(const Fp& a, const Fp& b) { return sub_mod(a, b, FQ_P); }
+__device__ __forceinline__ Fp neg(const Fp& a) { return sub(fp_zero(), a); }
+__device__ __forceinline__ Fp dbl(const Fp& a) { return add(a, a); }
+static __device__ __noinline__ Fp mul(Fp a, Fp b) { return mont_mul_mod(a, b, FQ_P, FQ_PINV); }
+
 __device__ __forceinline__ Fp sqr(const Fp& a) { return mul(a, a); }
+
+// ---------------------------------------------------------------------------
+// Fr (inlined: the NTT's butterflies are its only users)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ Fr add(const Fr& a, const Fr& b) { return add_mod(a, b, FR_P); }
+__device__ __forceinline__ Fr sub(const Fr& a, const Fr& b) { return sub_mod(a, b, FR_P); }
+__device__ __forceinline__ Fr mul(const Fr& a, const Fr& b) { return mont_mul_mod(a, b, FR_P, FR_PINV); }
 
 // ---------------------------------------------------------------------------
 // Fq2 = Fq[u] / (u^2 + 1)
@@ -301,20 +325,27 @@ __device__ __forceinline__ bool gt(const Fp& a, const Fp& b) {
 // 16 x 16-bit int64 digits (the tensors' layout) <-> 8 x 32-bit limbs
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ Fp load_fp(const int64_t* d) {
-  Fp r;
+template <class E>
+__device__ __forceinline__ E load_limbs(const int64_t* d) {
+  E r;
 #pragma unroll
   for (int k = 0; k < 8; ++k) r.v[k] = (uint32_t)d[2 * k] | ((uint32_t)d[2 * k + 1] << 16);
   return r;
 }
 
-__device__ __forceinline__ void store_fp(int64_t* d, const Fp& a) {
+template <class E>
+__device__ __forceinline__ void store_limbs(int64_t* d, const E& a) {
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
     d[2 * k] = a.v[k] & 0xFFFF;
     d[2 * k + 1] = a.v[k] >> 16;
   }
 }
+
+__device__ __forceinline__ Fp load_fp(const int64_t* d) { return load_limbs<Fp>(d); }
+__device__ __forceinline__ void store_fp(int64_t* d, const Fp& a) { store_limbs(d, a); }
+__device__ __forceinline__ Fr load_fr(const int64_t* d) { return load_limbs<Fr>(d); }
+__device__ __forceinline__ void store_fr(int64_t* d, const Fr& a) { store_limbs(d, a); }
 
 // Fq2 as 32 digits, c0 then c1 (the tensors' (..., 2, 16) layout)
 __device__ __forceinline__ void load_el(const int64_t* d, Fp& a) { a = load_fp(d); }

@@ -32,17 +32,23 @@ def _ops(group: str):
     return FQ if group == "g1" else FQ2
 
 
-def decode_batch(raw: bytes, group: str, count: int, compressed: bool, check: bool, device) -> G.AffineBatch:
+def decode_batch(raw: bytes, group: str, count: int, compressed: bool, check: bool, device,
+                 allow_infinity: bool = False) -> G.AffineBatch:
     """Element bytes -> AffineBatch (Montgomery) on `device`. The host codec
-    rejects, as the reference does, a point at infinity, a compression flag
-    on an uncompressed point and a coordinate >= q. Compressed points go
-    through D1 and raise if an x has no square root (one device sync);
-    check=True runs the on-curve test on uncompressed points (one sync)."""
+    rejects, as the reference does, a point at infinity (unless
+    allow_infinity, for uncompressed points: it then comes back with its inf
+    flag set), a compression flag on an uncompressed point and a coordinate
+    >= q. Compressed points go through D1 and raise if an x has no square
+    root (one device sync); check=True runs the on-curve test on the finite
+    uncompressed points (one sync)."""
+    if allow_infinity and compressed:
+        raise ValueError("allow_infinity is for uncompressed points")
     ncoords = (1 if group == "g1" else 2) * (1 if compressed else 2)
-    res = native.decode_digits(raw, count, ncoords, 16, _Q_BE, reject_greatest=not compressed)
+    res = native.decode_digits(raw, count, ncoords, 16, _Q_BE, reject_inf=not allow_infinity,
+                               reject_greatest=not compressed)
     if res is None:
         raise RuntimeError("the native host codec is unavailable (it needs g++)")
-    digits, greatest, _ = res  # digits uint32 (count, ncoords, 16), file coordinate order
+    digits, greatest, inf = res  # digits uint32 (count, ncoords, 16), file coordinate order
     d = to_device(digits.astype(np.int64), device)
     if group == "g2":
         # file order is c1 || c0 per coordinate; tensors hold [c0, c1]
@@ -54,12 +60,13 @@ def decode_batch(raw: bytes, group: str, count: int, compressed: bool, check: bo
         return batch
     mont = fp.to_mont(CTX, d)
     x, y = mont[:, 0].contiguous(), mont[:, 1].contiguous()
+    inf = torch.zeros(count, dtype=torch.bool, device=device) if inf is None else to_device(inf, device)
     if check:
         f = _ops(group)
         rhs = f.add(f.mul(f.sqr(x), x), G.curve_b(f, device))
-        if not bool(f.eq(f.sqr(y), rhs).all()):
+        if not bool((f.eq(f.sqr(y), rhs) | inf).all()):
             raise ValueError(f"invalid {group} point in stream (off-curve)")
-    return G.AffineBatch(x, y, torch.zeros(count, dtype=torch.bool, device=device))
+    return G.AffineBatch(x, y, inf)
 
 
 def encode_batch(batch: G.AffineBatch, group: str, compressed: bool) -> bytes:

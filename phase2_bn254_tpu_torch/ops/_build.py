@@ -27,7 +27,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("batch_exp_g1.cu", "batch_exp_g2.cu", "msm.cu", "decompress.cu")
+SOURCES = ("batch_exp_g1.cu", "batch_exp_g2.cu", "msm.cu", "decompress.cu", "ntt.cu")
 HEADERS = ("field.cuh", "constants.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -41,6 +41,7 @@ ENTRY_POINTS = {
     **{f"p2_bucket_reduce_{g}": (7, 3) for g in ("g1", "g2")},
     **{f"p2_combine_windows_{g}": (6, 3) for g in ("g1", "g2")},
     **{f"p2_decompress_{g}": (5, 1) for g in ("g1", "g2")},
+    "p2_lane_dft": (5, 7),
 }
 
 _lock = threading.Lock()
@@ -49,14 +50,14 @@ _lib = None
 
 def constants_header() -> str:
     """The text of csrc/constants.cuh, from the refimpl integers."""
-    from ..refimpl.field import B_G2, Q
+    from ..refimpl.field import B_G2, Q, R_MOD
     from ..refimpl.gls import G2C1, G2C2
     from ..refimpl.glv import BETA
 
     r = 1 << 256
 
-    def mont(v: int) -> int:
-        return v * r % Q
+    def mont(v: int, p: int = Q) -> int:
+        return v * r % p
 
     n1 = (G2C1 * G2C1.conjugate()).c0
     n2 = (G2C2 * G2C2.conjugate()).c0
@@ -83,10 +84,12 @@ def constants_header() -> str:
         ("EXP_SQRT_G1", (Q + 1) // 4, "exponent (q + 1) / 4, an integer: the G1 square root"),
         ("EXP_G2_A1", (Q - 3) // 4, "exponent (q - 3) / 4: a1 of the G2 square root"),
         ("EXP_G2_B", (Q - 1) // 2, "exponent (q - 1) / 2: the G2 square root's (1 + alpha) power"),
+        ("FR_P", R_MOD, "the scalar field's modulus r"),
+        ("FR_ONE", mont(1, R_MOD), "R mod r (Montgomery one of Fr)"),
     ]
     lines = [
         "// BN254 constants as 8 little-endian 32-bit limbs, Montgomery form",
-        "// (R = 2^256) except FQ_P, FQ_R2 and the EXP_ exponents. Written by",
+        "// (R = 2^256) except FQ_P, FR_P, FQ_R2 and the EXP_ exponents. Written by",
         "// ops/_build.py constants_header() from the refimpl integers;",
         "// tests/test_torch_batch_exp.py checks it.",
         "#pragma once",
@@ -94,6 +97,7 @@ def constants_header() -> str:
         "#include <cstdint>",
         "",
         f"static constexpr uint32_t FQ_PINV = 0x{(-pow(Q, -1, 1 << 32)) % (1 << 32):08x}u;  // -q^-1 mod 2^32",
+        f"static constexpr uint32_t FR_PINV = 0x{(-pow(R_MOD, -1, 1 << 32)) % (1 << 32):08x}u;  // -r^-1 mod 2^32",
     ]
     for name, v, doc in arrays:
         limbs = ", ".join(f"0x{(v >> (32 * k)) & 0xFFFFFFFF:08x}u" for k in range(8))

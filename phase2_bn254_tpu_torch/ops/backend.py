@@ -1,5 +1,6 @@
 """`TorchBackend`: the ceremony's bulk-math backend on PyTorch (counterpart of
-`phase2_bn254_tpu/ops/backend.py`, the contribute and verify slices).
+`phase2_bn254_tpu/ops/backend.py`, the contribute and verify slices; the
+Groth16 prover's query MSMs go through `msm_async` / `msm_wait`).
 
 Contribute: `ceremony.accumulator.transform` calls, per chunk and kind,
 `decode`, then `pow_mul` (point i times coeff * tau^(start + i)), then
@@ -75,8 +76,12 @@ class TorchBackend:
         self.device = check_device(device)
 
     # -- the contribute protocol -------------------------------------------
-    def decode(self, raw: bytes, group: str, count: int, compressed: bool, check: bool) -> PointSet:
-        return PointSet(group, count, affine=codecs.decode_batch(raw, group, count, compressed, check, self.device))
+    def decode(self, raw: bytes, group: str, count: int, compressed: bool, check: bool,
+               allow_infinity: bool = False) -> PointSet:
+        """Raises on a point at infinity unless allow_infinity (uncompressed
+        only: the point then has its inf flag set)."""
+        return PointSet(group, count, affine=codecs.decode_batch(raw, group, count, compressed, check, self.device,
+                                                                 allow_infinity))
 
     def pow_mul(self, ps: PointSet, tau: int, start: int, coeff: int | None) -> PointSet:
         log2n = (ps.n - 1).bit_length()  # 2^log2n >= n
@@ -126,21 +131,37 @@ class TorchBackend:
         """sum_i scalars[i] * point i, as a host Point."""
         return self.msm_wait(self.msm_async(ps, scalars))
 
-    def msm_async(self, ps: PointSet, scalars: list[int]):
-        """Launch an MSM without waiting for it; msm_wait takes the handle."""
-        assert len(scalars) == ps.n
-        scalars = convert.ints_to_limbs([s % R_MOD for s in scalars], self.device)
-        return self._msm_launch(self._affine(ps), scalars, (0,), ps.group)
+    def msm_async(self, ps: PointSet, scalars: list[int] | torch.Tensor):
+        """Launch an MSM without waiting for it; msm_wait takes the handle.
+        scalars: ints, or canonical Fr limbs, int64 (ps.n, 16) on the
+        backend's device."""
+        return self.msm_many_async([(ps, scalars)])
 
     def msm_wait(self, handle) -> rc.Point:
-        return self._msm_points(handle)[0]
+        return self.msm_many_wait(handle)[0]
+
+    def msm_many_async(self, items):
+        """Launch the MSMs of items, (PointSet, scalars) pairs of one group
+        (scalars as msm_async takes them), sharing one K4 and one K5 launch;
+        msm_many_wait gives their results in order."""
+        sets = []
+        for ps, scalars in items:
+            if len(scalars) != ps.n:
+                raise ValueError(f"msm: {len(scalars)} scalars for {ps.n} points")
+            if not isinstance(scalars, torch.Tensor):
+                scalars = convert.ints_to_limbs([s % R_MOD for s in scalars], self.device)
+            sets.append((self._affine(ps), scalars, (0,)))
+        return self._to_host(M.msm_sets(sets), items[0][0].group)
+
+    def msm_many_wait(self, handle) -> list[rc.Point]:
+        return self._msm_points(handle)
 
     def power_pairs(self, ps: PointSet) -> tuple[rc.Point, rc.Point]:
         """(merge_pairs of v[:-1] vs v[1:]) with shared random coefficients,
         uniform in [0, r): the two MSMs share the scalars, so they run as one
-        (`msm.msm_shifted`, shifts 0 and 1)."""
+        (`msm.msm_sets`, one set of shifts 0 and 1)."""
         coeffs = convert.to_device(random_scalars(ps.n - 1), self.device)
-        s, sx = self._msm_points(self._msm_launch(self._affine(ps), coeffs, (0, 1), ps.group))
+        s, sx = self._msm_points(self._to_host(M.msm_sets([(self._affine(ps), coeffs, (0, 1))]), ps.group))
         return s, sx
 
     def first_point(self, ps: PointSet) -> rc.Point:
@@ -152,10 +173,10 @@ class TorchBackend:
     def from_points(self, points, group: str) -> PointSet:
         return PointSet(group, len(points), affine=convert.points_to_affine(points, group, self.device))
 
-    def _msm_launch(self, points: G.AffineBatch, scalars: torch.Tensor, shifts: tuple[int, ...], group: str):
-        """Launch the MSMs and the copy of their Jacobian results to host
-        memory behind an event (pinned memory on a card)."""
-        jac = torch.stack(list(M.msm_shifted(points, scalars, shifts)), dim=1)  # (S, 3, ...)
+    def _to_host(self, jac: G.JacobianBatch, group: str):
+        """Start the copy of (S,) Jacobian MSM results to host memory behind
+        an event (pinned memory on a card): the handle _msm_points takes."""
+        jac = torch.stack(list(jac), dim=1)  # (S, 3, ...)
         if self.device.type != "cuda":
             return jac, None, group
         host = torch.empty(jac.shape, dtype=jac.dtype, pin_memory=True)

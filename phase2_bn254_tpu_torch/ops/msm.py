@@ -15,9 +15,11 @@ scalars, least significant window first (w = 0 .. nwin - 1):
 3. K4 `bucket_reduce`: T[w] = sum_l (l // g_w) S[w, l].
 4. K5 `combine_windows`: sum_w 2^(c w) T[w], most significant window first.
 
-`msm_shifted` runs several MSMs with the same scalars over shifted ranges of
-one point array (`power_pairs`' v[:-1] and v[1:]) through one digit sort and
-one launch of each kernel.
+`msm_sets` runs several MSMs through one K4 and one K5 launch. Each set is
+(points, scalars, shifts): one digit sort and one K3 launch sum
+scalars[i] * points[shift + i] for each of its shifts, so `power_pairs`'
+v[:-1] and v[1:] are one set of shifts (0, 1), and the prover's G1 queries
+are three sets of shift 0.
 
 Each kernel (csrc/msm.cu) has a wrapper, a plain PyTorch version and a launch
 count (`LAUNCHES[<wrapper name>]`). The wrapper takes the plain version for
@@ -277,23 +279,36 @@ def combine_windows(sums: G.JacobianBatch, c: int) -> G.JacobianBatch:
 
 # ---------------------------------------------------------------------------
 
-def msm_shifted(points: G.AffineBatch, scalars: torch.Tensor, shifts: tuple[int, ...], c: int | None = None):
-    """sum_i scalars[i] * points[shift + i] for each shift, one launch of
-    K3, K4 and K5 for all of them (they share the scalars, so they share the
-    digit sort). points: Montgomery affine ((N', 16) or (N', 2, 16)
+def accumulate_sets(sets, c: int) -> tuple[G.JacobianBatch, torch.Tensor]:
+    """K3 of every set of `msm_sets`, one launch each: the (S, nwin, B)
+    Jacobian bucket sums of all the sets' shifts, in order, and the window
+    groups."""
+    parts = []
+    for points, scalars, shifts in sets:
+        if points.x.shape[0] < max(shifts) + scalars.shape[0]:
+            raise ValueError(f"msm: {points.x.shape[0]} points, fewer than {scalars.shape[0]} scalars at shift "
+                             f"{max(shifts)}")
+        prep = prep_windows(scalars, c)
+        shift_t = torch.tensor(shifts, dtype=torch.int64).to(points.x.device)
+        parts.append(bucket_accumulate(points.x, points.y, points.inf, shift_t, prep.orders, prep.starts, prep.counts,
+                                       prep.groups))
+    buckets = parts[0] if len(parts) == 1 else G.JacobianBatch(*(torch.cat(t) for t in zip(*parts)))
+    return buckets, prep.groups
+
+
+def msm_sets(sets, c: int | None = None) -> G.JacobianBatch:
+    """sum_i scalars[i] * points[shift + i] for each (points, scalars,
+    shifts) set of one group and each of its shifts: one K3 launch per set,
+    one K4 and one K5 launch for all, at window size c (by default that of
+    the largest set). points: Montgomery affine ((N', 16) or (N', 2, 16)
     coordinates, inf (N',)) with N' >= max(shifts) + N; scalars: canonical
     int64 (N, 16). Returns (S,) Jacobian points, Montgomery, on the points'
     device, without waiting for the device."""
-    if points.x.shape[0] < max(shifts) + scalars.shape[0]:
-        raise ValueError(f"msm: {points.x.shape[0]} points, fewer than {scalars.shape[0]} scalars at shift {max(shifts)}")
-    c = pick_window(scalars.shape[0]) if c is None else c
-    prep = prep_windows(scalars, c)
-    shift_t = torch.tensor(shifts, dtype=torch.int64).to(points.x.device)
-    buckets = bucket_accumulate(points.x, points.y, points.inf, shift_t, prep.orders, prep.starts, prep.counts,
-                                prep.groups)
-    return combine_windows(bucket_reduce(buckets, prep.groups), c)
+    c = pick_window(max(k.shape[0] for _, k, _ in sets)) if c is None else c
+    buckets, groups = accumulate_sets(sets, c)
+    return combine_windows(bucket_reduce(buckets, groups), c)
 
 
 def msm(points: G.AffineBatch, scalars: torch.Tensor, c: int | None = None) -> G.JacobianBatch:
     """sum_i scalars[i] * points[i]: one Jacobian point (batch ())."""
-    return G.JacobianBatch(*(t[0] for t in msm_shifted(points, scalars, (0,), c)))
+    return G.JacobianBatch(*(t[0] for t in msm_sets([(points, scalars, (0,))], c)))

@@ -1,12 +1,14 @@
 """The port's own copy of the host protocol against the JAX package's.
 
-The port carries `refimpl`, `crypto`, `native`, `ceremony` and `cli.phase1`
-of its own so that it imports nothing of the JAX package. These cases hold
-each copy against its original on the same inputs (seeded): field and curve
-constants, point bytes both ways, the ChaCha stream and the keypair it
-seeds, `CeremonyParams` geometry, Blake2b file hashes, the native codec's
-digits and bytes, the GLV / GLS splits and `same_ratio` on a true and a
-false pair. Tolerance: exact equality of integers and bytes.
+The port carries `refimpl`, `crypto`, `native`, `ceremony`, `cli.phase1`,
+`groth16` and `phase2` of its own so that it imports nothing of the JAX
+package. These cases hold each copy against its original on the same inputs
+(seeded): field and curve constants, point bytes both ways, the ChaCha
+stream and the keypair it seeds, `CeremonyParams` geometry, Blake2b file
+hashes, the native codec's digits and bytes, the GLV / GLS splits and
+`same_ratio` on a true and a false pair. The host-only Groth16 and circom
+modules copied unchanged (`COPIES`) must equal their originals' code, every
+docstring left out. Tolerance: exact equality of integers, bytes and code.
 
 `test_port_imports_neither_jax_nor_the_jax_package` reads every module of
 the port and `chip_smoke.py` (ast) and fails on any import of `jax` or of
@@ -161,6 +163,28 @@ def test_same_ratio_matches():
     g2y, j2y = _pair("g2", 5 * (x + 1))
     assert pairing.same_ratio((g1, g1x), (g2, g2x)) and jpairing.same_ratio((j1, j1x), (j2, j2x))
     assert not pairing.same_ratio((g1, g1x), (g2, g2y)) and not jpairing.same_ratio((j1, j1x), (j2, j2y))
+
+
+# modules of the port that are the JAX package's code unchanged (their
+# docstrings differ: each names its original)
+COPIES = ["groth16/cs.py", "groth16/containers.py", "groth16/source.py", "groth16/verifier.py", "phase2/circom.py"]
+
+
+def _code(path: str) -> str:
+    """The module's ast without docstrings."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if isinstance(body, list) and body and isinstance(body[0], ast.Expr) \
+                and isinstance(body[0].value, ast.Constant) and isinstance(body[0].value.value, str):
+            node.body = body[1:] or [ast.Pass()]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copied_module_matches_original(rel):
+    assert _code(os.path.join(REPO, "phase2_bn254_tpu_torch", rel)) == _code(os.path.join(REPO, "phase2_bn254_tpu", rel))
 
 
 def _sources():

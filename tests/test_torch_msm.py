@@ -3,7 +3,7 @@ package's helpers and refimpl, on the CPU (plain versions).
 
 * `window_digits`, `window_groups`, `pick_window` against
   `phase2_bn254_tpu.ops.msm._window_digits` and `ops.pallas_msm`;
-* `msm` / `msm_shifted` against sum k_i P_i from refimpl integers (the
+* `msm` / `msm_sets` against sum k_i P_i from refimpl integers (the
   points are known multiples m_i G, so the sum is (sum k_i m_i) G) at
   N in {1, 2, 255, 300} and c in {7, 8, 9}, G1 and G2, on the
   distributions of tests/test_msm.py: uniform, all-equal scalars (whose
@@ -137,7 +137,7 @@ def test_msm_matches_refimpl(name, group, n, c, shifts, scalars, pattern, inf):
     if shifts == (0,):
         got = _msm_points(G.JacobianBatch(*(t[None] for t in M.msm(pts, convert.ints_to_limbs(ks, "cpu"), c))), group)
     else:
-        got = _msm_points(M.msm_shifted(pts, convert.ints_to_limbs(ks, "cpu"), shifts, c), group)
+        got = _msm_points(M.msm_sets([(pts, convert.ints_to_limbs(ks, "cpu"), shifts)], c), group)
     assert got == [_want(group, logs[s : s + n], ks, {i - s for i in inf}) for s in shifts]
 
 
