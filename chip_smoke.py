@@ -48,15 +48,32 @@ phases:
    with bucket runs capped at HOT_N points);
 11. scripts/fixtures' circuit and witness with fixed r and s: the proof on
    the card equals the plain versions' proof on the CPU, byte for byte;
-   the witness' share of 0 and 1 scalars.
+   the witness' share of 0 and 1 scalars;
+12. K9 (the G2 windowed ladder) against its plain version at 2^16 points
+   with the edge scalars first, and S1 (the segmented scan) on 2^16 G1 and
+   G2 terms with a third of them in one segment, empty segments and
+   infinity terms: limb for limb; time per call and bound;
+13. the phase-2 ceremony on phase 10's circuit (2^18 constraints): a radix
+   file written with the port's kernels from seeded tau, alpha, beta; `new`,
+   `contribute`, `beacon` (2^10) and `verify_contribution` twice through the
+   port's CLI functions, each timed as a user runs it, with its K1 / K9 /
+   S1 / K3-K5 launches; copies with one l point or delta_g2 changed are
+   rejected; `prove` on the result verifies; K9 and S1 against their plain
+   versions on the sets `new` took (plain on a prefix); scripts/fixtures'
+   circuit: `new` + `contribute` on the card equal the plain versions' on
+   the CPU, byte for byte.
 
 Each kernel's bound is the larger of two times: the bytes of its inputs and
 outputs over the card's memory rate, and its 32-bit integer multiplies over
 the card's multiply rate (132 SMs x 64 per SM per clock x the SM clock
-nvidia-smi reads); the multiplies are counted from the kernels' code (see
-MULS_PER_FQ_PRODUCT, FQ_PRODUCTS; an Fr product costs what an Fq product
-does) for this run's inputs; K6's bound counts the products an NTT needs
-(_ntt_products), and its kernel's own count stands beside it.
+nvidia-smi reads). The multiplies are those the function needs on this
+run's inputs, at the costs of the kernels' field code (MULS_PER_FQ_PRODUCT,
+FQ_PRODUCTS; an Fr product costs what an Fq product does): a ladder from
+each scalar's first nonzero window with the multiples its digits use
+(_k1_products, _k2_products, _k9_products), one add per finite term after
+the first of its segment (_s1_products), the products of an NTT
+(_ntt_products); the kernel's own count stands beside each
+(kernel_fq_products, kernel_fr_products).
 
 Prints one JSON line of the kernels' results, the card's nvidia-smi line,
 and last `{"ok": true, "device": {...}}`. Needs no network; starts no
@@ -65,6 +82,7 @@ process that outlives it.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -221,8 +239,38 @@ def _edge_scalars(n: int, rng: random.Random) -> list[int]:
     return edge + [rng.randrange(R_MOD) for _ in range(n - len(edge))]
 
 
+def _ladder_doublings(nonzero, bits: int) -> int:
+    """Doublings a windowed ladder needs over windows nonzero (W, N), most
+    significant first: `bits` for each window below a point's first nonzero
+    one (a point without one needs none)."""
+    first = nonzero.int().argmax(0)
+    return bits * int(((nonzero.shape[0] - 1 - first) * nonzero.any(0)).sum())
+
+
+def _table_products(ops: dict, top) -> int:
+    """Fq products of the multiples jP, j = 2..top (N,), the largest digit
+    magnitude each point uses: 2P through the doubling branch, then one add
+    each."""
+    more = (top - 1).clamp(min=0)
+    return int(((more > 0) * (ops["add_head"] + ops["dbl"]) + (more - 1).clamp(min=0) * ops["add"]).sum())
+
+
 def _k1_products(d1, d2) -> int:
-    """Fq products of K1 (csrc/batch_exp_g1.cu) on these digits: the table
+    """Fq products k P needs on these GLV digits (signed base 32, MSB first)
+    by K1's ladder, as far as this data needs it: the multiples up to each
+    point's largest digit magnitude (with their beta x where d2 has a nonzero
+    digit), 5 doublings per window after the first nonzero one, one add per
+    nonzero digit after the first."""
+    ops = FQ_PRODUCTS["g1"]
+    nz1, nz2 = d1 != 0, d2 != 0
+    top = d1.abs().amax(0).maximum(d2.abs().amax(0))
+    adds = int((nz1.sum(0) + nz2.sum(0) - 1).clamp(min=0).sum())
+    return (_table_products(ops, top) + int((top * nz2.any(0)).sum()) + _ladder_doublings(nz1 | nz2, 5) * ops["dbl"]
+            + adds * ops["add"])
+
+
+def _k1_kernel_products(d1, d2) -> int:
+    """Fq products K1 (csrc/batch_exp_g1.cu) does on these digits: the table
     (16 beta x, 2P through the doubling branch, 3P..16P), 5 doublings per
     window, and one add per nonzero digit after the first (an add into
     infinity or of infinity costs none)."""
@@ -234,7 +282,21 @@ def _k1_products(d1, d2) -> int:
 
 
 def _k2_products(digits) -> int:
-    """Fq products of K2 (csrc/batch_exp_g2.cu): the table (2Q through the
+    """Fq products k Q needs on these GLS digits (4, W, N) by K2's ladder, as
+    far as this data needs it: the multiples up to each point's largest digit
+    magnitude, psi, psi^2, psi^3 (6, 4, 6) of each nonzero digit of parts 1,
+    2, 3, 5 doublings per window after the first nonzero one, one add per
+    nonzero digit after the first."""
+    ops = FQ_PRODUCTS["g2"]
+    nz = digits != 0
+    psi = 6 * int(nz[1].sum()) + 4 * int(nz[2].sum()) + 6 * int(nz[3].sum())
+    adds = int((nz.sum((0, 1)) - 1).clamp(min=0).sum())
+    return (_table_products(ops, digits.abs().amax((0, 1))) + psi + _ladder_doublings(nz.any(0), 5) * ops["dbl"]
+            + adds * ops["add"])
+
+
+def _k2_kernel_products(digits) -> int:
+    """Fq products K2 (csrc/batch_exp_g2.cu) does: the table (2Q through the
     doubling branch, 3Q..16Q), per window 5 doublings and psi, psi^2, psi^3
     of the gathered entries (6 + 4 + 6), one add per nonzero digit after the
     first."""
@@ -256,14 +318,16 @@ def phase_kernels(card: Card, n: int = KERNEL_N) -> list[dict]:
     rng = random.Random(2024)
     cases = [
         ("batch_exp_glv_signed", "g1", FQ, batch_exp.batch_exp_glv_signed, batch_exp.batch_exp_glv_signed_plain,
-         lambda k: glv.decompose_signed(k), _k1_products, "phase2_bn254_tpu_torch/csrc/batch_exp_g1.cu",
+         lambda k: glv.decompose_signed(k), _k1_products, _k1_kernel_products,
+         "phase2_bn254_tpu_torch/csrc/batch_exp_g1.cu",
          "phase2_bn254_tpu/ops/pallas_exp.py:728"),
         ("batch_exp_gls_signed", "g2", FQ2, batch_exp.batch_exp_gls_signed, batch_exp.batch_exp_gls_signed_plain,
-         lambda k: (gls.decompose_signed(k),), _k2_products, "phase2_bn254_tpu_torch/csrc/batch_exp_g2.cu",
+         lambda k: (gls.decompose_signed(k),), _k2_products, _k2_kernel_products,
+         "phase2_bn254_tpu_torch/csrc/batch_exp_g2.cu",
          "phase2_bn254_tpu/ops/pallas_exp.py:1073"),
     ]
     records = []
-    for name, group, f, kernel, plain, split, products, source, replaces in cases:
+    for name, group, f, kernel, plain, split, products, kernel_products, source, replaces in cases:
         pts, _ = _tiled_points(group, n, dev, rng)
         x, y = pts.x, pts.y
         digits = split(convert.ints_to_limbs(_edge_scalars(n, rng), dev))
@@ -275,11 +339,13 @@ def phase_kernels(card: Card, n: int = KERNEL_N) -> list[dict]:
         if err != 0 or not torch.equal(ga.inf, wa.inf):
             raise AssertionError(f"{name}: kernel and plain version differ (max abs limb error {err})")
         ms = cuda_ms(lambda: kernel(x, y, *digits), 5)
-        rec = record(card, name, source, replaces, err, ms, plain_ms,
-                     (nbytes(x, y, *digits, *got), products(*digits)))
+        need, does = products(*digits), kernel_products(*digits)
+        rec = record(card, name, source, replaces, err, ms, plain_ms, (nbytes(x, y, *digits, *got), need),
+                     fq_products=need, kernel_fq_products=does)
         log(f"phase 2 {name}: N={n} kernel == plain (Jacobian identical: {same_jac}, "
             f"{int(ga.inf.sum())} at infinity); kernel {ms:.3f} ms/call, plain {plain_ms:.3f} ms/call, "
-            f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}: {products(*digits) / n:.0f} Fq products/point)")
+            f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}: {need / n:.0f} Fq products/point; the kernel does "
+            f"{does / n:.0f})")
         records.append(rec)
     return records
 
@@ -491,7 +557,7 @@ def phase_contribute(workdir: str, records: list[dict], size: int = SMOKE_SIZE, 
 
     low = len(list(params.chunks("low")))
     high = len(list(params.chunks("high")))
-    want = {"batch_exp_glv_signed": 3 * low + high, "batch_exp_gls_signed": low}
+    want = {"batch_exp_glv_signed": 3 * low + high, "batch_exp_gls_signed": low, "batch_exp_g2_windowed": 0}
     if launches != want:
         raise AssertionError(f"kernel launches {launches}, want {want} (one per chunk call)")
     for r in records:
@@ -1436,6 +1502,491 @@ def phase_fixture_proof(workdir: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phases 12 and 13: the phase-2 ceremony
+# ---------------------------------------------------------------------------
+
+CEREMONY_EXP = 18  # phase 13's domain: phase 10's circuit, an eighth of the reference's design depth 2^21
+PLAIN_SCAN_N = 1 << 17  # the prefix of a captured set the plain S1 is held to (lane i needs lanes <= i only)
+
+
+def _k9_products(scalars) -> int:
+    """Fq products k Q needs on these scalars by K9's ladder, as far as this
+    data needs it: the multiples up to each point's largest 4-bit window, 4
+    doublings per window after the first nonzero one, one add per nonzero
+    window after the first (k = 1 needs none)."""
+    from phase2_bn254_tpu_torch.ops import batch_exp
+
+    ops = FQ_PRODUCTS["g2"]
+    win = batch_exp.scalar_windows_msb(scalars)
+    nz = win != 0
+    adds = int((nz.sum(0) - 1).clamp(min=0).sum())
+    return _table_products(ops, win.amax(0)) + _ladder_doublings(nz, 4) * ops["dbl"] + adds * ops["add"]
+
+
+def _k9_kernel_products(scalars) -> int:
+    """Fq products K9 (csrc/batch_exp_g2_windowed.cu) does on these scalars:
+    the table (2Q through the doubling branch, 3Q..15Q), 4 doublings per
+    window (64), and one add per nonzero digit after the first (an add into
+    infinity or of T[0] costs none)."""
+    from phase2_bn254_tpu_torch.ops import batch_exp
+
+    ops = FQ_PRODUCTS["g2"]
+    n = scalars.shape[0]
+    table = ops["add_head"] + ops["dbl"] + 13 * ops["add"]
+    adds = int(((batch_exp.scalar_windows_msb(scalars) != 0).sum(0) - 1).clamp(min=0).sum())
+    return n * (table + batch_exp.N_WINDOWS * 4 * ops["dbl"]) + adds * ops["add"]
+
+
+def _s1_products(group: str, jac, starts) -> int:
+    """Fq products a segmented inclusive scan needs on these terms: one add
+    for each lane whose term and whose segment's sum before it are both
+    finite (N - segments adds at most)."""
+    from phase2_bn254_tpu_torch.field.fq2 import FQ, FQ2
+
+    fin = (~(FQ if group == "g1" else FQ2).is_zero(jac.z)).long()
+    before = fin.cumsum(0) - fin  # finite terms in the lanes before i
+    return int(((fin > 0) & (before - before[starts] > 0)).sum()) * FQ_PRODUCTS[group]["add"]
+
+
+def _s1_kernel_products(group: str, jac, starts) -> int:
+    """Fq products S1's rounds do on these points: one add per lane and round
+    where i - d lies in i's segment and both partial sums are finite (an add
+    with infinity costs none; the rare P == Q doubling is counted as an
+    add)."""
+    import torch
+    from phase2_bn254_tpu_torch.field.fq2 import FQ, FQ2
+
+    f = FQ if group == "g1" else FQ2
+    inf = f.is_zero(jac.z)
+    n = inf.shape[0]
+    idx = torch.arange(n, device=inf.device)
+    adds, d = 0, 1
+    while d < n:
+        live = (idx - d) >= starts
+        other = torch.roll(inf, d)
+        adds += int((live & ~inf & ~other).sum())
+        inf = torch.where(live, inf & other, inf)
+        d *= 2
+    return adds * FQ_PRODUCTS[group]["add"]
+
+
+def _scan_case(group: str, jac, starts, plain_n: int | None = None) -> dict:
+    """S1 on the card over (jac, starts), against its plain version on the
+    first plain_n lanes (all by default): limb for limb, times and work."""
+    from phase2_bn254_tpu_torch.curve import group as G
+    from phase2_bn254_tpu_torch.ops import segsum
+
+    n = jac.x.shape[0]
+    plain_n = n if plain_n is None else min(plain_n, n)
+    got, ms = once_ms(lambda: segsum.segmented_scan(jac, starts))
+    head = G.JacobianBatch(*(t[:plain_n] for t in jac))
+    want, plain_ms = once_ms(lambda: segsum.segmented_scan_plain(head, starts[:plain_n]))
+    err = max_limb_err([t[:plain_n] for t in got], want)
+    if err:
+        raise AssertionError(f"S1 {group}: kernel and plain version differ on the first {plain_n} lanes "
+                             f"(max abs limb error {err})")
+    ms = cuda_ms(lambda: segsum.segmented_scan(jac, starts), 3)
+    rounds = (n - 1).bit_length()
+    return {"ms": ms, "plain_ms": plain_ms, "plain_n": plain_n, "err": err, "n": n, "rounds": rounds,
+            "work": (nbytes(*jac, starts, *got), _s1_products(group, jac, starts)),
+            "kernel_fq_products": _s1_kernel_products(group, jac, starts)}
+
+
+def _k9_case(x, y, scalars, plain_n: int | None = None) -> dict:
+    """K9 on the card, against its plain version on the first plain_n points
+    (all by default): limb for limb, times and work."""
+    from phase2_bn254_tpu_torch.ops import batch_exp
+
+    n = x.shape[0]
+    plain_n = n if plain_n is None else min(plain_n, n)
+    got = batch_exp.batch_exp_g2_windowed(x, y, scalars)
+    want, plain_ms = once_ms(lambda: batch_exp.batch_exp_g2_windowed_plain(x[:plain_n], y[:plain_n],
+                                                                              scalars[:plain_n]))
+    err = max_limb_err([t[:plain_n] for t in got], want)
+    if err:
+        raise AssertionError(f"K9: kernel and plain version differ on the first {plain_n} points "
+                             f"(max abs limb error {err})")
+    ms = cuda_ms(lambda: batch_exp.batch_exp_g2_windowed(x, y, scalars), 3)
+    return {"ms": ms, "plain_ms": plain_ms, "plain_n": plain_n, "err": err, "n": n,
+            "work": (nbytes(x, y, scalars, *got), _k9_products(scalars)),
+            "kernel_fq_products": _k9_kernel_products(scalars)}
+
+
+def _skewed_terms(group: str, n: int, rng: random.Random):
+    """n terms on tiled points: a third of them in segment 1 (the fixture
+    circuit's share of B terms on ONE), the rest over segments 3.. with
+    every fourth segment id skipped (empty segments, 0 and 2 among them);
+    coefficients 1, r - 1, 0 (infinity terms) and random, as circom's are
+    mostly +-1. Returns (products on the card: K1 / K9, starts, seg_ids,
+    number of segments)."""
+    import torch
+    from phase2_bn254_tpu_torch import convert
+    from phase2_bn254_tpu_torch.ops import segsum
+    from phase2_bn254_tpu_torch.refimpl.field import R_MOD
+
+    dev = torch.device(DEVICE)
+    pts, _ = _tiled_points(group, n, dev, rng)
+    hot = n // 3
+    rest = sorted(rng.randrange(3, n // 4) for _ in range(n - hot))
+    segs = [1] * hot + [s for s in rest if s % 4]
+    segs += [segs[-1]] * (n - len(segs))
+    coeffs = [rng.choice((1, 1, R_MOD - 1, 0, rng.randrange(R_MOD))) for _ in range(n)]
+    seg_ids = torch.tensor(segs, device=dev)
+    jac = segsum.term_products(pts, torch.arange(n, device=dev), convert.ints_to_limbs(coeffs, dev))
+    return jac, segsum.segment_starts(seg_ids), seg_ids, n // 4
+
+
+def phase_segsum_kernels(card: Card, records: list[dict], n: int = KERNEL_N) -> None:
+    """Phase 12: K9 and S1 against their plain versions on the card."""
+    import torch
+    from phase2_bn254_tpu_torch import convert
+
+    rng = random.Random(12)
+    dev = torch.device(DEVICE)
+    pts, _ = _tiled_points("g2", n, dev, rng)
+    k9 = _k9_case(pts.x, pts.y, convert.ints_to_limbs(_edge_scalars(n, rng), dev))
+    b, by = card.bound(*k9["work"])
+    log(f"phase 12 K9 (batch_exp_g2_windowed): N={n} G2 points, edge scalars first: kernel == plain limb for limb; "
+        f"kernel {k9['ms']:.3f} ms/call, plain {k9['plain_ms']:.3f} ms, bound {b:.3f} ms ({by}: "
+        f"{k9['work'][1] / n:.0f} Fq products/point; the kernel does {k9['kernel_fq_products'] / n:.0f})")
+    scans = {}
+    for group in ("g1", "g2"):
+        jac, starts, seg_ids, nseg = _skewed_terms(group, n, rng)
+        scans[group] = _scan_case(group, jac, starts)
+        c = scans[group]
+        b, by = card.bound(*c["work"])
+        log(f"phase 12 S1 (segmented_scan) {group}: N={n} terms over {nseg} segments ({int(torch.bincount(seg_ids).max())} "
+            f"in the largest, {nseg - int(seg_ids.unique().numel())} empty), coefficients 1, r-1, 0, random: kernel == "
+            f"plain limb for limb; kernel {c['ms']:.3f} ms ({c['rounds']} launches), plain {c['plain_ms']:.3f} ms, "
+            f"bound {b:.3f} ms ({by}: {c['work'][1]} Fq products, {c['work'][0]} bytes; the rounds do "
+            f"{c['kernel_fq_products']})")
+    records.append(record(card, "batch_exp_g2_windowed", "phase2_bn254_tpu_torch/csrc/batch_exp_g2_windowed.cu",
+                          "phase2_bn254_tpu/ops/pallas_exp.py:449", k9["err"], k9["ms"], k9["plain_ms"], k9["work"],
+                          shape=f"N={n} G2 points, edge and random scalars", fq_products=k9["work"][1],
+                          kernel_fq_products=k9["kernel_fq_products"]))
+    g2 = scans["g2"]
+    b2, by2 = card.bound(*g2["work"])
+    records.append(record(card, "segmented_scan", "phase2_bn254_tpu_torch/csrc/segsum.cu",
+                          "phase2_bn254_tpu/ops/segsum.py:46 (XLA glue, not a Pallas kernel)",
+                          max(c["err"] for c in scans.values()), scans["g1"]["ms"], scans["g1"]["plain_ms"],
+                          scans["g1"]["work"], shape=f"N={n} G1 terms, a third in one segment; g2 beside",
+                          fq_products=scans["g1"]["work"][1], kernel_fq_products=scans["g1"]["kernel_fq_products"],
+                          g2={"ms": g2["ms"], "plain_ms": g2["plain_ms"], "bound_ms": b2, "bound_by": by2,
+                              "max_abs_err": g2["err"], "fq_products": g2["work"][1],
+                              "kernel_fq_products": g2["kernel_fq_products"]}))
+
+
+def write_radix(workdir: str, exp: int, seed: int) -> str:
+    """phase1radix2m{exp} in workdir from tau, alpha, beta drawn from a
+    ChaCha seed, written with the port's kernels: the Lagrange coefficients
+    L_i(tau) are K6's inverse NTT of the tau powers (as the generator
+    computes them), the G1 vectors go through K1 and the G2 one through K2;
+    the layout of ceremony/prepare.py:1-12 (alpha G1, beta G1, beta G2;
+    L_i G1; L_i G2; alpha L_i G1; beta L_i G1; tau^i (tau^m - 1) G1 for
+    i < m - 1). Returns the directory."""
+    import torch
+    from phase2_bn254_tpu_torch import convert
+    from phase2_bn254_tpu_torch.crypto.chacha import ChaChaRng
+    from phase2_bn254_tpu_torch.field import fp
+    from phase2_bn254_tpu_torch.groth16.generator import _batch_mul
+    from phase2_bn254_tpu_torch.ops import ntt
+    from phase2_bn254_tpu_torch.refimpl import curve as rc
+    from phase2_bn254_tpu_torch.refimpl.field import R_MOD
+    from phase2_bn254_tpu_torch.refimpl.sampling import rand_fr
+
+    rng = ChaChaRng.from_digest_be(hashlib.blake2b(b"radix" + seed.to_bytes(8, "little")).digest())
+    tau, alpha, beta = rand_fr(rng), rand_fr(rng), rand_fr(rng)
+    dev, ctx, m = torch.device(DEVICE), fp.FR_CTX, 1 << exp
+    powers = ntt.geometric(tau, exp, dev)
+    lag = ntt.ntt(exp, powers, True)
+
+    def times(v, c):  # canonical limbs of v * c, v Montgomery
+        return fp.from_mont(ctx, fp.mont_mul(ctx, v, convert.ints_to_limbs([ctx.to_mont_int(c % R_MOD)], dev)[0]))
+
+    path = os.path.join(workdir, f"phase1radix2m{exp}")
+    with open(path, "wb") as f:
+        for p in (rc.G1_GEN.mul(alpha), rc.G1_GEN.mul(beta), rc.G2_GEN.mul(beta)):
+            f.write(rc.point_to_bytes(p, False))
+        f.write(_batch_mul(rc.G1_GEN, times(lag, 1)))
+        f.write(_batch_mul(rc.G2_GEN, times(lag, 1)))
+        f.write(_batch_mul(rc.G1_GEN, times(lag, alpha)))
+        f.write(_batch_mul(rc.G1_GEN, times(lag, beta)))
+        f.write(_batch_mul(rc.G1_GEN, times(powers[: m - 1], pow(tau, m, R_MOD) - 1)))
+    return workdir
+
+
+def _launch_counts() -> dict:
+    from phase2_bn254_tpu_torch.ops import batch_exp, segsum
+    from phase2_bn254_tpu_torch.ops import msm as M
+
+    return {"batch_exp_glv_signed": batch_exp.LAUNCHES["batch_exp_glv_signed"],
+            "batch_exp_g2_windowed": batch_exp.LAUNCHES["batch_exp_g2_windowed"], **segsum.LAUNCHES, **M.LAUNCHES}
+
+
+def _zero_counts() -> None:
+    from phase2_bn254_tpu_torch.ops import batch_exp, decompress, ntt, segsum
+    from phase2_bn254_tpu_torch.ops import msm as M
+
+    for counts in (batch_exp.LAUNCHES, segsum.LAUNCHES, M.LAUNCHES, ntt.LAUNCHES, decompress.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def _replace_bytes(src: str, dst: str, offset: int, data: bytes) -> None:
+    shutil.copyfile(src, dst)
+    with open(dst, "r+b") as f:
+        f.seek(offset)
+        f.write(data)
+
+
+def phase_ceremony(card: Card, workdir: str, records: list[dict], exp: int = CEREMONY_EXP) -> None:
+    """Phase 13: the phase-2 ceremony through the port's CLI functions at
+    2^exp constraints (phase 10's circuit), the tampered copies, `prove` on
+    the result, and K9 / S1 against their plain versions on the sets `new`
+    took."""
+    import torch
+    from phase2_bn254_tpu_torch.cli import phase2 as cli2
+    from phase2_bn254_tpu_torch.groth16.source import ParametersSource
+    from phase2_bn254_tpu_torch.ops import batch_exp, segsum
+    from phase2_bn254_tpu_torch.refimpl import curve as rc
+
+    circuit_json = os.path.join(workdir, f"circuit_{exp}.json")
+    witness_json = os.path.join(workdir, f"witness_{exp}.json")
+    if not os.path.exists(circuit_json):
+        write_circuit(workdir, exp, seed=18)
+    radix = os.path.join(workdir, "radix")
+    os.makedirs(radix, exist_ok=True)
+    t0 = time.time()
+    write_radix(radix, exp, seed=13)
+    torch.cuda.synchronize()
+    t_radix = time.time() - t0
+    params = [os.path.join(workdir, f"circom{i}.params") for i in range(4)]
+    steps = [
+        ("new", lambda: cli2.main_new([circuit_json, params[1], radix, "--device", DEVICE])),
+        ("contribute", lambda: cli2.main_contribute([params[1], params[2], "smoke entropy", "--device", DEVICE])),
+        ("beacon", lambda: cli2.main_beacon([params[2], "ab" * 32, "10", params[3], "--device", DEVICE])),
+        ("verify_contribution 1->2", lambda: cli2.main_verify_contribution([circuit_json, params[1], params[2], radix,
+                                                                            "--device", DEVICE])),
+        ("verify_contribution 2->3", lambda: cli2.main_verify_contribution([circuit_json, params[2], params[3], radix,
+                                                                            "--device", DEVICE])),
+    ]
+    wall, launches, kept = {}, {}, {}
+    tool_log = os.path.join(workdir, "ceremony_tools.log")  # the tools' own output (beacon prints 2^10 lines)
+    for name, step in steps:
+        _zero_counts()
+        timers = _Timers()
+        if name == "new":  # keep the sets new's kernels took; the wrappers add no time of their own
+            timers.args_of("k1", batch_exp, "batch_exp_glv_signed", kept)
+            timers.args_of("k9", batch_exp, "batch_exp_g2_windowed", kept)
+            timers.args_of("s1", segsum, "segmented_scan", kept)
+        try:
+            with open(tool_log, "a") as out, contextlib.redirect_stdout(out):
+                t0 = time.time()
+                step()
+                torch.cuda.synchronize()
+                wall[name] = time.time() - t0
+        finally:
+            timers.restore()
+        launches[name] = _launch_counts()
+    for name in ("new", "verify_contribution 1->2"):
+        got = launches[name]
+        if not (got["batch_exp_glv_signed"] and got["batch_exp_g2_windowed"] and got["segmented_scan"]):
+            raise AssertionError(f"{name}: K1, K9 and S1 must all launch: {got}")
+    if not all(launches["verify_contribution 1->2"][k] for k in ("bucket_accumulate", "bucket_reduce",
+                                                                 "combine_windows")):
+        raise AssertionError(f"verify_contribution must launch K3-K5: {launches['verify_contribution 1->2']}")
+    for name in ("contribute", "beacon"):
+        if launches[name]["batch_exp_glv_signed"] != 2:
+            raise AssertionError(f"{name}: want 2 K1 launches (l and h), got {launches[name]}")
+
+    parts = _ceremony_parts(workdir, circuit_json, radix, params, tool_log)
+
+    # tampered copies: one l point replaced by another valid point; delta_g2 changed
+    with open(params[3], "rb") as f:
+        src = ParametersSource(f)
+        l_off, l_n = src.spans["l"][:2]
+    index = l_n // 2
+    delta_g2_off = 2 * 64 + 2 * 128 + 64  # alpha_g1, beta_g1, beta_g2, gamma_g2, delta_g1
+    tampered = {"l": (l_off + 64 * index, rc.point_to_bytes(rc.G1_GEN.mul(424242), False)),
+                "delta_g2": (delta_g2_off, rc.point_to_bytes(rc.G2_GEN.mul(77), False))}
+    rejected = {}
+    for what, (offset, data) in tampered.items():
+        bad = os.path.join(workdir, f"circom3_{what}.params")
+        _replace_bytes(params[3], bad, offset, data)
+        t0 = time.time()
+        try:
+            with open(tool_log, "a") as out, contextlib.redirect_stdout(out):
+                cli2.verify(circuit_json, params[2], bad, radix, DEVICE)
+        except ValueError as e:
+            rejected[what] = (str(e), time.time() - t0)
+        else:
+            raise AssertionError(f"verify_contribution accepted the params with a changed {what}")
+
+    # prove on the final parameters, as a user runs it
+    proof_json, public_json = os.path.join(workdir, "ceremony_proof.json"), os.path.join(workdir, "ceremony_public.json")
+    with open(tool_log, "a") as out, contextlib.redirect_stdout(out):
+        t0 = time.time()
+        cli2.main_prove([circuit_json, witness_json, params[3], proof_json, public_json, "--device", DEVICE])
+        torch.cuda.synchronize()
+        wall["prove"] = time.time() - t0
+
+    log(f"phase 13 ceremony at 2^{exp} constraints (phase 10's circuit): radix file from the port's kernels in "
+        f"{t_radix:.3f} s ({os.path.getsize(os.path.join(radix, f'phase1radix2m{exp}'))} bytes); new -> contribute -> "
+        f"beacon (2^10) -> verify_contribution twice pass; prove on the result verifies")
+    log("  wall s (each tool as a user runs it): " + " | ".join(f"{k} {v:.3f}" for k, v in wall.items())
+        + f"; .params {os.path.getsize(params[3])} bytes")
+    for name in ("new", "contribute", "beacon", "verify_contribution 1->2"):
+        log(f"  launches {name}: " + ", ".join(f"{k} {v}" for k, v in launches[name].items() if v))
+    for tool, split in parts.items():
+        log(f"  {tool} again, every part timed: " + " | ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    for what, (msg, secs) in rejected.items():
+        log(f"  a copy with a changed {what} is rejected: {msg!r} ({secs:.1f} s)")
+
+    # K1, K9 and S1 on the sets new took
+    (x, y, d1, d2), = kept["k1"]
+    k1_ms = cuda_ms(lambda: batch_exp.batch_exp_glv_signed(x, y, d1, d2), 3)
+    k1_need, k1_does = _k1_products(d1, d2), _k1_kernel_products(d1, d2)
+    k1_bound, k1_by = card.bound(nbytes(x, y, d1, d2) + 3 * nbytes(x), k1_need)
+    k1 = {"n": x.shape[0], "ms": k1_ms, "bound_ms": k1_bound, "bound_by": k1_by, "fq_products": k1_need,
+          "kernel_fq_products": k1_does}
+    log(f"  K1 on new's G1 terms: N={x.shape[0]}, kernel {k1_ms:.3f} ms, bound {k1_bound:.3f} ms ({k1_by}: {k1_need} "
+        f"Fq products; the kernel does {k1_does}; K1 was held to its plain version in phase 2)")
+    (x, y, k), = kept["k9"]
+    k9 = _k9_case(x, y, k, plain_n=KERNEL_N)
+    b, by = card.bound(*k9["work"])
+    log(f"  K9 on new's G2 terms: N={k9['n']}, kernel == plain limb for limb on the first {k9['plain_n']}; kernel "
+        f"{k9['ms']:.3f} ms, plain {k9['plain_ms']:.3f} ms ({k9['plain_n']} points), bound {b:.3f} ms ({by}: "
+        f"{k9['work'][1]} Fq products; the kernel does {k9['kernel_fq_products']})")
+    per = {}
+    for jac, starts in kept["s1"]:
+        group = "g1" if jac.x.dim() == 2 else "g2"
+        c = _scan_case(group, jac, starts, plain_n=PLAIN_SCAN_N)
+        b, by = card.bound(*c["work"])
+        per[group] = {"ms": c["ms"], "plain_ms": c["plain_ms"], "plain_n": c["plain_n"], "n": c["n"],
+                      "launches": c["rounds"], "bound_ms": b, "bound_by": by, "fq_products": c["work"][1],
+                      "kernel_fq_products": c["kernel_fq_products"]}
+        log(f"  S1 on new's {group} set: N={c['n']} ({c['rounds']} launches), kernel == plain limb for limb on the "
+            f"first {c['plain_n']} lanes; kernel {c['ms']:.3f} ms, plain {c['plain_ms']:.3f} ms ({c['plain_n']} "
+            f"lanes), bound {b:.3f} ms ({by}: {c['work'][1]} Fq products, {c['work'][0]} bytes; the rounds do "
+            f"{c['kernel_fq_products']})")
+    del kept
+    for r in records:
+        if r["name"] == "batch_exp_g2_windowed":
+            r["launches"] = launches["new"]["batch_exp_g2_windowed"]
+            r["new_shape"] = {"n": k9["n"], "ms": k9["ms"], "bound_ms": card.bound(*k9["work"])[0],
+                              "plain_ms": k9["plain_ms"], "plain_n": k9["plain_n"], "fq_products": k9["work"][1],
+                              "kernel_fq_products": k9["kernel_fq_products"]}
+        elif r["name"] == "batch_exp_glv_signed":
+            r["new_shape"] = k1
+        elif r["name"] == "segmented_scan":
+            r["launches"] = launches["new"]["segmented_scan"]
+            r["new_shape"] = per
+        if r["name"] in ("batch_exp_glv_signed", "bucket_accumulate", "bucket_reduce", "combine_windows",
+                         "batch_exp_g2_windowed", "segmented_scan"):
+            r["ceremony_launches"] = {k: launches[k][r["name"]] for k in ("new", "contribute",
+                                                                          "verify_contribution 1->2")}
+
+
+def _ceremony_parts(workdir: str, circuit_json: str, radix: str, params: list[str], tool_log: str) -> dict:
+    """`new` and `verify_contribution` once more each, every part timed
+    (host clock; the device parts up to the end of their device work). The
+    parts do not overlap: `new`'s circuit parse (from_json) runs after its
+    JSON parse; `verify_contribution`'s second `new` calls none of the
+    checks timed beside it."""
+    import torch
+    from phase2_bn254_tpu_torch.cli import phase2 as cli2
+    from phase2_bn254_tpu_torch.ops import segsum
+    from phase2_bn254_tpu_torch.ops.backend import TorchBackend
+    from phase2_bn254_tpu_torch.phase2 import circom, mpc
+
+    out = {}
+    runs = {"new": (lambda: cli2.new(circuit_json, os.path.join(workdir, "circom_parts.params"), radix, DEVICE),
+                    (("JSON parse", circom.json, "load", False), ("circuit from JSON", circom.CircomCircuit,
+                                                                  "from_json", False),
+                     ("synthesis", circom.CircomCircuit, "synthesize", False), ("radix decode", mpc, "_read_radix", True),
+                     ("term arrays", mpc, "_qap_terms", False), ("K1 / K9 + S1", segsum, "segmented_msm", True),
+                     ("params encode (for cs_hash, for the file)", mpc.DeviceParameters, "write", False))),
+            "verify_contribution": (lambda: cli2.verify(circuit_json, params[1], params[2], radix, DEVICE),
+                                    (("params read", cli2, "_load_mpc", True), ("new", mpc.MPCParameters, "new", True),
+                                     ("merge_pairs MSMs", TorchBackend, "merge_pairs", True),
+                                     ("query comparisons", mpc, "_check_invariants", True),
+                                     ("host pairings", mpc, "same_ratio", False)))}
+    for tool, (run, parts) in runs.items():
+        timers = _Timers()
+        for key, owner, attr, sync in parts:
+            timers.wall_of(key, owner, attr, sync)
+        try:
+            with open(tool_log, "a") as f, contextlib.redirect_stdout(f):
+                t0 = time.time()
+                run()
+                torch.cuda.synchronize()
+                total = time.time() - t0
+        finally:
+            timers.restore()
+        split = dict(timers.wall)
+        out[tool] = {"total": total, **split, "other": total - sum(split.values())}
+    return out
+
+
+def _fixture_ceremony_bytes(radix: str, device: str) -> bytes:
+    """scripts/fixtures' circuit: `new` on the radix file in `radix`, then
+    `contribute` with the fixed ChaCha seed, on `device`; the .params bytes."""
+    from phase2_bn254_tpu_torch.crypto.chacha import ChaChaRng
+    from phase2_bn254_tpu_torch.ops.backend import TorchBackend
+    from phase2_bn254_tpu_torch.phase2.circom import CircomCircuit
+    from phase2_bn254_tpu_torch.phase2.mpc import MPCParameters
+
+    circuit = CircomCircuit.from_json_file(os.path.join(REPO, "scripts", "fixtures", "circuit.json"))
+    be = TorchBackend(device)
+    mp = MPCParameters.new(circuit, False, lambda e: os.path.join(radix, f"phase1radix2m{e}"), be)
+    mp.contribute(ChaChaRng.from_digest_be(SEED), be)
+    return mp.write()
+
+
+def phase_fixture_ceremony(workdir: str) -> None:
+    """Phase 13's last check: scripts/fixtures' circuit, `new` and
+    `contribute` with a fixed ChaCha seed on the card and with the plain
+    versions on the CPU give the same bytes (a radix file from the port's
+    kernels). It runs after every timed phase: the CPU half takes minutes."""
+    from phase2_bn254_tpu_torch.phase2.circom import CircomCircuit
+
+    circuit = CircomCircuit.from_json_file(os.path.join(REPO, "scripts", "fixtures", "circuit.json"))
+    exp = (circuit.num_constraints + circuit.num_inputs - 1).bit_length()  # new adds one per input
+    radix = os.path.join(workdir, "fixture_radix")
+    os.makedirs(radix, exist_ok=True)
+    write_radix(radix, exp, seed=9)
+    t0 = time.time()
+    card = _fixture_ceremony_bytes(radix, DEVICE)
+    t_card = time.time() - t0
+    t0 = time.time()
+    cpu = _fixture_ceremony_bytes(radix, "cpu")
+    t_cpu = time.time() - t0
+    if card != cpu:
+        raise AssertionError("fixture ceremony: the card's new + contribute differ from the plain versions' on the CPU")
+    log(f"phase 13 fixture ceremony ({circuit.num_constraints} constraints, domain 2^{exp}): new + contribute on the "
+        f"card == plain versions on the CPU byte for byte ({len(cpu)} bytes, blake2b "
+        f"{hashlib.blake2b(cpu).hexdigest()[:16]}); card {t_card:.1f} s, CPU {t_cpu:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+
+def run_phases(card: Card, workdir: str, records: list[dict]) -> None:
+    """Phases 3-13 (phases 1 and 2 run before the working directory exists)."""
+    phase_golden(workdir)
+    phase_parity(workdir)
+    phase_contribute(workdir, records)
+    phase_msm_kernels(card, records)
+    phase_verify_small(workdir)
+    phase_verify(workdir, records)
+    phase_ntt(card, records)
+    phase_prove(card, workdir, records)
+    phase_fixture_proof(workdir)
+    phase_segsum_kernels(card, records)
+    phase_ceremony(card, workdir, records)
+    phase_fixture_ceremony(workdir)
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     try:
@@ -1462,15 +2013,7 @@ def main() -> int:
     phase_build(card)
     records = phase_kernels(card)
     with tempfile.TemporaryDirectory() as workdir:
-        phase_golden(workdir)
-        phase_parity(workdir)
-        phase_contribute(workdir, records)
-        phase_msm_kernels(card, records)
-        phase_verify_small(workdir)
-        phase_verify(workdir, records)
-        phase_ntt(card, records)
-        phase_prove(card, workdir, records)
-        phase_fixture_proof(workdir)
+        run_phases(card, workdir, records)
     loaded = sorted(m for m in ("jax", "phase2_bn254_tpu") if m in sys.modules)
     if loaded:
         print(f"chip_smoke: {', '.join(loaded)} was loaded", file=sys.stderr)

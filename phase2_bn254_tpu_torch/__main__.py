@@ -1,5 +1,5 @@
-"""python -m phase2_bn254_tpu_torch <tool> [args]: the port's phase-1 tools and
-the phase-2 `prove`."""
+"""python -m phase2_bn254_tpu_torch <tool> [args]: the port's phase-1 and
+phase-2 tools."""
 
 from __future__ import annotations
 
@@ -12,7 +12,15 @@ TOOLS = {
     "compute_constrained": phase1.main_compute,
     "beacon_constrained": phase1.main_beacon,
     "verify_transform_constrained": phase1.main_verify,
+    "new": phase2.main_new,
+    "contribute": phase2.main_contribute,
+    "beacon": phase2.main_beacon,
+    "verify_contribution": phase2.main_verify_contribution,
     "prove": phase2.main_prove,
+    "export_keys": phase2.main_export_keys,
+    "generate_verifier": phase2.main_generate_verifier,
+    "copy_json": phase2.main_copy_json,
+    "snarkjs_verify": phase2.main_snarkjs_verify,
 }
 
 

@@ -26,6 +26,7 @@ from . import group as G
 
 _Q_BE = Q.to_bytes(32, "big")
 CTX = fp.FQ_CTX
+VECTOR_CHUNK = 1 << 18  # points per read in decode_vector
 
 
 def _ops(group: str):
@@ -69,28 +70,56 @@ def decode_batch(raw: bytes, group: str, count: int, compressed: bool, check: bo
     return G.AffineBatch(x, y, inf)
 
 
-def encode_batch(batch: G.AffineBatch, group: str, compressed: bool) -> bytes:
+def encode_batch(batch: G.AffineBatch, group: str, compressed: bool, allow_infinity: bool = False) -> bytes:
     """AffineBatch -> element bytes, compressed or uncompressed. Raises on a
     point at infinity (the reference's "contribution produced infinity,
-    re-run" guard, codecs.py:282-285).
+    re-run" guard, codecs.py:282-285) unless allow_infinity (uncompressed
+    only): such a point is then written as bellman writes it, 0x40 and zeros.
 
     The device computes one int32 row per point, pulled in one copy:
     G1 [x | y | greatest | inf], G2 [x.c0 | x.c1 | y.c0 | y.c1 | greatest | inf]."""
+    if allow_infinity and compressed:
+        raise ValueError("allow_infinity is for uncompressed points")
+    n = batch.inf.shape[0]
+    if n == 0:
+        return b""
     f = _ops(group)
     can = fp.from_mont(CTX, torch.stack([batch.x, batch.y, f.neg(batch.y)]))
     x, y, ny = can[0], can[1], can[2]
     greatest = f.gt(y, ny)
-    n = batch.inf.shape[0]
     cols = [x.reshape(n, -1), y.reshape(n, -1), greatest[:, None].to(fp.DTYPE), batch.inf[:, None].to(fp.DTYPE)]
     packed = torch.cat(cols, dim=1).to(torch.int32).cpu().numpy()
-    if packed[:, -1].any():
+    inf = packed[:, -1] != 0
+    if inf.any() and not allow_infinity:
         raise ValueError("point at infinity cannot be serialized into the accumulator")
     if group == "g1":
         coord_cols = [0] if compressed else [0, 16]
     else:
         # file order = x.c1 || x.c0 (|| y.c1 || y.c0)
         coord_cols = [16, 0] if compressed else [16, 0, 48, 32]
-    out = native.encode_digits(packed.view(np.uint32), coord_cols, 16, greatest_col=packed.shape[1] - 2 if compressed else -1)
+    out = native.encode_digits(packed.view(np.uint32), coord_cols, 16, greatest_col=packed.shape[1] - 2 if compressed else -1,
+                               inf_mask=inf if inf.any() else None)
     if out is None:
         raise RuntimeError("the native host codec is unavailable (it needs g++)")
     return out.tobytes()
+
+
+def decode_vector(src, name: str, device) -> G.AffineBatch:
+    """A query vector of a `groth16.source.ParametersSource` decoded whole
+    on `device` (VECTOR_CHUNK points per read), with the source's read modes: its
+    `checked` runs the on-curve test; a point at infinity comes back with its
+    inf flag set, or raises if the source disallows them."""
+    group, n = src.group(name), src.count(name)
+    dim = (n, 16) if group == "g1" else (n, 2, 16)
+    if n == 0:
+        z = torch.zeros(dim, dtype=fp.DTYPE, device=device)
+        return G.AffineBatch(z, z.clone(), torch.zeros(0, dtype=torch.bool, device=device))
+    parts = []
+    for off in range(0, n, VECTOR_CHUNK):
+        k = min(VECTOR_CHUNK, n - off)
+        try:
+            parts.append(decode_batch(src.read_chunk(name, off, k), group, k, False, src.checked, device,
+                                      allow_infinity=src.allow_inf))
+        except ValueError as e:
+            raise ValueError(f"{name}: {e}") from e
+    return G.AffineBatch(*(torch.cat(t) for t in zip(*parts)))

@@ -32,6 +32,7 @@ import torch
 
 from .. import convert
 from ..crypto.chacha import ChaChaRng
+from ..curve import codecs
 from ..curve.group import AffineBatch
 from ..field import fp
 from ..ops import ntt
@@ -44,7 +45,6 @@ from .cs import LinearCombination, ProvingAssignment, SynthesisError, Variable
 from .source import ParametersSource
 
 CTX = fp.FR_CTX
-_SOURCE_CHUNK = 1 << 18  # bases decoded per read of a ParametersSource span
 
 
 def prepare_prover(circuit) -> ProvingAssignment:
@@ -95,18 +95,10 @@ class _Bases:
 
     def _decoded(self, name: str) -> AffineBatch:
         if name not in self._vectors:
-            src, be = self.params, self.backend
-            group, n = src.group(name), src.count(name)
-            parts = [be.decode(src.read_chunk(name, off, min(_SOURCE_CHUNK, n - off)), group,
-                               min(_SOURCE_CHUNK, n - off), False, src.checked, allow_infinity=True).affine
-                     for off in range(0, n, _SOURCE_CHUNK)]
-            batch = AffineBatch(*(torch.cat(t) for t in zip(*parts))) if parts else None
-            if parts and bool(batch.inf.any()):
-                if not src.allow_inf:
-                    raise ValueError(f"point at infinity in {name}")
-                if name != "l":  # filter_params leaves l as it is
-                    keep = (~batch.inf).nonzero().squeeze(1)
-                    batch = AffineBatch(*(t[keep] for t in batch))
+            batch = codecs.decode_vector(self.params, name, self.backend.device)
+            if name != "l" and bool(batch.inf.any()):  # filter_params leaves l as it is
+                keep = (~batch.inf).nonzero().squeeze(1)
+                batch = AffineBatch(*(t[keep] for t in batch))
             self._vectors[name] = batch
         return self._vectors[name]
 
@@ -118,7 +110,7 @@ class _Bases:
                 raise ValueError(f"not enough bases in {name}: {count} of {len(vec)}")
             return self.backend.from_points(vec[:count], "g2" if name == "b_g2" else "g1").affine
         batch = self._decoded(name)
-        have = 0 if batch is None else batch.inf.shape[0]
+        have = batch.inf.shape[0]
         if count > have:
             raise ValueError(f"not enough bases in {name}: {count} of {have}")
         return AffineBatch(*(t[:count] for t in batch))

@@ -14,7 +14,8 @@ and `encode` inverts it on the host and finishes. So `transform`'s pipeline
 Verify: `ceremony.accumulator.verify_transformation` decodes each compressed
 chunk (kernel D1) and calls `power_pairs`, two MSMs (K3, K4, K5 in
 `ops/msm.py`) with shared random coefficients; `decompress` re-encodes the
-chunks uncompressed.
+chunks uncompressed. The phase-2 checks of `phase2/mpc.py` call
+`merge_pairs`, the same MSMs over pairs of query vectors.
 
 Batches are ragged: no padding to a power of two (the JAX backend pads with
 generator points; the output bytes are the same).
@@ -163,6 +164,25 @@ class TorchBackend:
         coeffs = convert.to_device(random_scalars(ps.n - 1), self.device)
         s, sx = self._msm_points(self._to_host(M.msm_sets([(self._affine(ps), coeffs, (0, 1))]), ps.group))
         return s, sx
+
+    def merge_pairs(self, pairs, group: str) -> list[tuple[rc.Point, rc.Point]]:
+        """For each (v1, v2) pair of equal-length AffineBatches of `group` on
+        the backend's device: (sum c_i v1_i, sum c_i v2_i) as host Points,
+        with coefficients c_i uniform in [0, r) drawn for the pair and shared
+        by its two sums (phase2 utils.rs merge_pairs). A pair is one
+        `msm.msm_sets` set of shifts (0, n) over v1 || v2, and all pairs
+        share one K4 and one K5 launch; an empty pair gives infinity twice."""
+        sets = []
+        for v1, v2 in pairs:
+            n = v1.inf.shape[0]
+            if v2.inf.shape[0] != n:
+                raise ValueError(f"merge_pairs: {n} points against {v2.inf.shape[0]}")
+            if n:
+                both = G.AffineBatch(*(torch.cat([a, b]) for a, b in zip(v1, v2)))
+                sets.append((both, convert.to_device(random_scalars(n), self.device), (0, n)))
+        sums = iter(self._msm_points(self._to_host(M.msm_sets(sets), group)) if sets else ())
+        zero = rc.point_zero(group)
+        return [(next(sums), next(sums)) if v1.inf.shape[0] else (zero, zero) for v1, _ in pairs]
 
     def first_point(self, ps: PointSet) -> rc.Point:
         return convert.affine_to_points(G.AffineBatch(*(t[:1] for t in self._affine(ps))), ps.group)[0]

@@ -6,6 +6,10 @@
   (pallas_exp.py:667-767), kernel in csrc/batch_exp_g1.cu.
 * K2 `batch_exp_gls_signed`: the signed GLS quad ladder on G2
   (pallas_exp.py:985-1103), kernel in csrc/batch_exp_g2.cu.
+* K9 `batch_exp_g2_windowed`: the plain windowed ladder on G2, 64 4-bit
+  windows of the canonical scalar and no endomorphism (pallas_exp.py:391-476),
+  kernel in csrc/batch_exp_g2_windowed.cu; the phase-2 QAP evaluation's G2
+  terms (`ops/segsum.py`).
 
 Each kernel has a wrapper, a plain PyTorch version of the same function and
 a launch count (`LAUNCHES[<wrapper name>]`, raised by one per kernel launch). The
@@ -33,7 +37,8 @@ G1_WINDOWS = BN_PLAN.windows5  # 26
 G2_WINDOWS = GLS_WINDOWS5  # 14
 
 # kernel launches by wrapper name; only a launch of the kernel counts
-LAUNCHES = {"batch_exp_glv_signed": 0, "batch_exp_gls_signed": 0}
+LAUNCHES = {"batch_exp_glv_signed": 0, "batch_exp_gls_signed": 0, "batch_exp_g2_windowed": 0}
+N_WINDOWS = 64  # 4-bit windows of a canonical scalar (K9)
 
 
 def tau_powers(tau_start: torch.Tensor, tau_pows: torch.Tensor, coeff: torch.Tensor, log2n: int) -> torch.Tensor:
@@ -54,14 +59,23 @@ def _gather(table: G.JacobianBatch, idx: torch.Tensor) -> G.JacobianBatch:
     return G.JacobianBatch(*(c[idx, lanes] for c in table))
 
 
-def _table(f, x: torch.Tensor, y: torch.Tensor) -> G.JacobianBatch:
-    """T[j] = j P for j = 0..16, stacked on a new leading axis."""
+def _table(f, x: torch.Tensor, y: torch.Tensor, size: int = 17) -> G.JacobianBatch:
+    """T[j] = j P for j < size, stacked on a new leading axis."""
     n = x.shape[0]
     base = G.JacobianBatch(x, y, f.ones((n,), x.device))
     entries = [G.jac_zero(f, (n,), x.device), base]
-    for _ in range(2, 17):
+    for _ in range(2, size):
         entries.append(G.jac_add(f, entries[-1], base))  # step 2 is P + P
     return G.JacobianBatch(*(torch.stack(c) for c in zip(*entries)))
+
+
+def _first_live_window(*digits: torch.Tensor) -> int:
+    """The first window (row) in which any lane has a nonzero digit; the
+    number of rows if none has. Before it every lane's accumulator is
+    infinity, and a window of doublings and adds of T[0] leaves it so, limbs
+    included (the add returns T[0]): the plain ladders start there."""
+    live = torch.stack([(d != 0).reshape(d.shape[0], -1).any(1) for d in digits]).any(0)
+    return int(live.nonzero()[0]) if bool(live.any()) else live.shape[0]
 
 
 def _signed_add(f, acc: G.JacobianBatch, e: G.JacobianBatch, d: torch.Tensor) -> G.JacobianBatch:
@@ -75,12 +89,13 @@ def _signed_add(f, acc: G.JacobianBatch, e: G.JacobianBatch, d: torch.Tensor) ->
 
 def batch_exp_glv_signed_plain(x, y, d1, d2) -> G.JacobianBatch:
     """Plain PyTorch K1. x, y: int64 (N, 16) Montgomery affine; d1, d2: int64
-    (W, N) signed base-32 digits, MSB first."""
+    (W, N) signed base-32 digits, MSB first. The windows before the first
+    nonzero digit of the batch are skipped (`_first_live_window`)."""
     beta = fp.FQ_CTX.const(BETA, x.device)
     table = _table(FQ, x, y)
     beta_x = FQ.mul(table.x, beta)
     acc = G.jac_zero(FQ, (x.shape[0],), x.device)
-    for w in range(d1.shape[0]):
+    for w in range(_first_live_window(d1, d2), d1.shape[0]):
         for _ in range(5):
             acc = G.jac_double(FQ, acc)
         acc = _signed_add(FQ, acc, _gather(table, d1[w].abs()), d1[w])
@@ -157,4 +172,44 @@ def batch_exp_gls_signed(x, y, digits) -> G.JacobianBatch:
     out = [torch.empty_like(x) for _ in range(3)]
     _build.launch("p2_batch_exp_gls_signed", x.device, x, y, digits, *out, n, w)
     LAUNCHES["batch_exp_gls_signed"] += 1
+    return G.JacobianBatch(*out)
+
+
+# ---------------------------------------------------------------------------
+# K9: G2 plain windowed ladder
+# ---------------------------------------------------------------------------
+
+def scalar_windows_msb(scalars: torch.Tensor) -> torch.Tensor:
+    """Canonical scalars int64 (N, 16) -> int64 (64, N) 4-bit windows, most
+    significant first (JAX `pallas_exp.scalar_windows_t_msb`)."""
+    w = torch.arange(N_WINDOWS - 1, -1, -1, device=scalars.device)
+    return (scalars[:, w // 4] >> (4 * (w % 4))).T & 0xF
+
+
+def batch_exp_g2_windowed_plain(x, y, scalars) -> G.JacobianBatch:
+    """Plain PyTorch K9. x, y: int64 (N, 2, 16) Montgomery affine, finite;
+    scalars: int64 (N, 16) canonical. T[j] = j Q for j = 0..15, then per
+    window (MSB first) 4 doublings and one add of T[d]; the windows before
+    the first nonzero digit of the batch are skipped (`_first_live_window`)."""
+    table = _table(FQ2, x, y, 16)
+    acc = G.jac_zero(FQ2, (x.shape[0],), x.device)
+    digits = scalar_windows_msb(scalars)
+    for d in digits[_first_live_window(digits) :]:
+        for _ in range(4):
+            acc = G.jac_double(FQ2, acc)
+        acc = G.jac_add(FQ2, acc, _gather(table, d))
+    return acc
+
+
+def batch_exp_g2_windowed(x, y, scalars) -> G.JacobianBatch:
+    """K9: k_i Q_i for G2 points and canonical scalars. CPU tensors take the
+    plain version; CUDA tensors launch csrc/batch_exp_g2_windowed.cu."""
+    if not _build.on_card("batch_exp_g2_windowed", x):
+        return batch_exp_g2_windowed_plain(x, y, scalars)
+    n = x.shape[0]
+    for name, t, shape in (("x", x, (n, 2, 16)), ("y", y, (n, 2, 16)), ("scalars", scalars, (n, 16))):
+        _build.check("batch_exp_g2_windowed", name, t, shape, x.device)
+    out = [torch.empty_like(x) for _ in range(3)]
+    _build.launch("p2_batch_exp_g2_windowed", x.device, x, y, scalars, *out, n)
+    LAUNCHES["batch_exp_g2_windowed"] += 1
     return G.JacobianBatch(*out)

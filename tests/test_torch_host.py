@@ -6,9 +6,11 @@ package. These cases hold each copy against its original on the same inputs
 (seeded): field and curve constants, point bytes both ways, the ChaCha
 stream and the keypair it seeds, `CeremonyParams` geometry, Blake2b file
 hashes, the native codec's digits and bytes, the GLV / GLS splits and
-`same_ratio` on a true and a false pair. The host-only Groth16 and circom
-modules copied unchanged (`COPIES`) must equal their originals' code, every
-docstring left out. Tolerance: exact equality of integers, bytes and code.
+`same_ratio` on a true and a false pair. The host-only Groth16, circom and
+Solidity modules copied unchanged (`COPIES`) must equal their originals'
+code, every docstring left out, and the Solidity template its original's
+text but the two header lines that name its origin. Tolerance: exact
+equality of integers, bytes and code.
 
 `test_port_imports_neither_jax_nor_the_jax_package` reads every module of
 the port and `chip_smoke.py` (ast) and fails on any import of `jax` or of
@@ -166,13 +168,24 @@ def test_same_ratio_matches():
 
 
 # modules of the port that are the JAX package's code unchanged (their
-# docstrings differ: each names its original)
-COPIES = ["groth16/cs.py", "groth16/containers.py", "groth16/source.py", "groth16/verifier.py", "phase2/circom.py"]
+# docstrings differ: each names its original), and the Solidity template
+COPIES = ["groth16/cs.py", "groth16/containers.py", "groth16/source.py", "groth16/verifier.py", "phase2/circom.py",
+          "phase2/solidity.py", "phase2/verifier_template.sol"]
+# the Solidity template's header lines that say where its upstream
+# counterpart lies: the port's copy names it as a path of the upstream
+# repository, the original as a local path; every other line is the same
+TEMPLATE_ORIGIN = slice(3, 5)
 
 
 def _code(path: str) -> str:
-    """The module's ast without docstrings."""
+    """The module's ast without docstrings; the Solidity template's text
+    without its TEMPLATE_ORIGIN comment lines."""
     with open(path) as f:
+        if path.endswith(".sol"):
+            lines = f.read().splitlines(keepends=True)
+            assert all(line.startswith("//") for line in lines[TEMPLATE_ORIGIN])
+            del lines[TEMPLATE_ORIGIN]
+            return "".join(lines)
         tree = ast.parse(f.read(), path)
     for node in ast.walk(tree):
         body = getattr(node, "body", None)

@@ -18,7 +18,8 @@ the JAX package's.
   with the same ChaCha seed for r and s, proof.json and public.json equal
   the JAX package's `filter_params` + `create_random_proof`;
 * `MPCParameters.read(...).write()` gives back the bytes of the JAX
-  package's .params files; `new`, `contribute` and `verify` are not ported.
+  package's .params files, and of the port's own `new` (equal to the JAX
+  package's); the phase-2 ceremony itself is tests/test_torch_phase2.py's.
 
 Tolerance: exact (bytes, JSON text, points).
 """
@@ -49,6 +50,7 @@ from phase2_bn254_tpu_torch.groth16.containers import Parameters
 from phase2_bn254_tpu_torch.groth16.source import ParametersSource
 from phase2_bn254_tpu_torch.groth16.verifier import prepare_verifying_key, verify_proof
 from phase2_bn254_tpu_torch.ops.backend import TorchBackend
+from phase2_bn254_tpu_torch.phase2.circom import CircomCircuit
 from phase2_bn254_tpu_torch.phase2.mpc import MPCParameters
 from phase2_bn254_tpu_torch.refimpl import curve as rc
 from phase2_bn254_tpu_torch.refimpl.field import R_MOD
@@ -227,14 +229,20 @@ def unfiltered_params(tmp_path_factory):
 
 
 def test_mpc_params_round_trip(unfiltered_params):
+    cpu = TorchBackend("cpu")
     for path in (unfiltered_params / "circom.params", os.path.join(REPO, "tests", "fixtures", "golden_params_s3.bin")):
         with open(path, "rb") as f:
             data = f.read()
-        assert MPCParameters.read(data).write() == data
-    params = MPCParameters.read((unfiltered_params / "circom.params").read_bytes()).params
-    assert any(p.is_zero() for p in params.a) and any(p.is_zero() for p in params.b_g1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 11"):
-        MPCParameters.new(None, False, None)
+        assert MPCParameters.read(data, backend=cpu).write() == data
+    params = MPCParameters.read((unfiltered_params / "circom.params").read_bytes(), backend=cpu).params
+    assert bool(params.a.inf.any()) and bool(params.b_g1.inf.any())
+    # the port's own new: its bytes read back and written again unchanged
+    d = unfiltered_params
+    ours = MPCParameters.new(CircomCircuit.from_json(CIRCUIT_JSON), False, lambda exp: str(d / f"phase1radix2m{exp}"), cpu)
+    data = ours.write()
+    assert data == (d / "circom.params").read_bytes()
+    back = MPCParameters.read(data, backend=cpu)
+    assert back == ours and back.write() == data
 
 
 def test_prove_cli_without_jax_matches_jax(unfiltered_params):
