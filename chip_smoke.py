@@ -61,19 +61,39 @@ phases:
    rejected; `prove` on the result verifies; K9 and S1 against their plain
    versions on the sets `new` took (plain on a prefix); scripts/fixtures'
    circuit: `new` + `contribute` on the card equal the plain versions' on
-   the CPU, byte for byte.
+   the CPU, byte for byte (run last, after phase 15: its CPU half takes
+   minutes);
+14. K7 (the unsigned GLV ladder), K8 (the plain G1 ladder) and K10 (the
+   unsigned GLS ladder) against their plain versions at 2^16 points with
+   the edge scalars (the Babai tie among them) first: limb for limb on the
+   first PLAIN_LADDER_N lanes, which the plain versions take; time per call
+   and bound;
+15. the ceremony's other ladder configurations end to end, selected as the
+   JAX package selects them (PHASE2_TPU_NO_SIGNED5: K7 + K10;
+   PHASE2_TPU_NO_GLV + PHASE2_TPU_NO_GLS: K8 + K9): compute_constrained at
+   size 21, batch 2^16, from phase 5's challenge and seed, gives phase 5's
+   response hash with the configuration's kernels launched once per chunk
+   call and the default ones never; wall time and ladder device time; and
+   `new` at 2^18 constraints under PHASE2_TPU_NO_SIGNED5 (the G1 terms on
+   K7) writes phase 13's .params bytes; K7 against its plain version on the
+   set `new` took (plain on its first PLAIN_SCAN_N lanes).
 
 Each kernel's bound is the larger of two times: the bytes of its inputs and
 outputs over the card's memory rate, and its 32-bit integer multiplies over
 the card's multiply rate (132 SMs x 64 per SM per clock x the SM clock
 nvidia-smi reads). The multiplies are those the function needs on this
 run's inputs, at the costs of the kernels' field code (MULS_PER_FQ_PRODUCT,
-FQ_PRODUCTS; an Fr product costs what an Fq product does): a ladder from
-each scalar's first nonzero window with the multiples its digits use
-(_k1_products, _k2_products, _k9_products), one add per finite term after
-the first of its segment (_s1_products), the products of an NTT
-(_ntt_products); the kernel's own count stands beside each
-(kernel_fq_products, kernel_fr_products).
+FQ_PRODUCTS; an Fr product costs what an Fq product does). For a ladder
+(k P for canonical scalars k) that is, lane by lane, the fewest that any of
+the port's ladders for the same function takes on this data
+(_function_products: K1, K7, K8 on G1; K2, K10, K9 on G2), each counted
+from a scalar's first nonzero window with the multiples its digits use
+(_k1_products, _k2_products, _k7_products, _k10_products,
+_windowed_products); this ladder's own count stands beside it
+(ladder_fq_products). Then one add per finite term after the first of its
+segment (_s1_products), the products of an NTT (_ntt_products); the
+kernel's own count stands beside each (kernel_fq_products,
+kernel_fr_products).
 
 Prints one JSON line of the kernels' results, the card's nvidia-smi line,
 and last `{"ok": true, "device": {...}}`. Needs no network; starts no
@@ -239,33 +259,33 @@ def _edge_scalars(n: int, rng: random.Random) -> list[int]:
     return edge + [rng.randrange(R_MOD) for _ in range(n - len(edge))]
 
 
-def _ladder_doublings(nonzero, bits: int) -> int:
-    """Doublings a windowed ladder needs over windows nonzero (W, N), most
-    significant first: `bits` for each window below a point's first nonzero
-    one (a point without one needs none)."""
+def _ladder_doublings(nonzero, bits: int):
+    """Doublings (N,) a windowed ladder needs over windows nonzero (W, N),
+    most significant first: `bits` for each window below a point's first
+    nonzero one (a point without one needs none)."""
     first = nonzero.int().argmax(0)
-    return bits * int(((nonzero.shape[0] - 1 - first) * nonzero.any(0)).sum())
+    return bits * (nonzero.shape[0] - 1 - first) * nonzero.any(0)
 
 
-def _table_products(ops: dict, top) -> int:
-    """Fq products of the multiples jP, j = 2..top (N,), the largest digit
-    magnitude each point uses: 2P through the doubling branch, then one add
-    each."""
+def _table_products(ops: dict, top):
+    """Fq products (N,) of the multiples jP, j = 2..top (N,), the largest
+    digit magnitude each point uses: 2P through the doubling branch, then one
+    add each."""
     more = (top - 1).clamp(min=0)
-    return int(((more > 0) * (ops["add_head"] + ops["dbl"]) + (more - 1).clamp(min=0) * ops["add"]).sum())
+    return (more > 0) * (ops["add_head"] + ops["dbl"]) + (more - 1).clamp(min=0) * ops["add"]
 
 
-def _k1_products(d1, d2) -> int:
-    """Fq products k P needs on these GLV digits (signed base 32, MSB first)
-    by K1's ladder, as far as this data needs it: the multiples up to each
-    point's largest digit magnitude (with their beta x where d2 has a nonzero
-    digit), 5 doublings per window after the first nonzero one, one add per
-    nonzero digit after the first."""
+def _k1_products(d1, d2):
+    """Fq products (N,) k P takes on these GLV digits (signed base 32, MSB
+    first) by K1's ladder, as far as this data needs it: the multiples up to
+    each point's largest digit magnitude (with their beta x where d2 has a
+    nonzero digit), 5 doublings per window after the first nonzero one, one
+    add per nonzero digit after the first."""
     ops = FQ_PRODUCTS["g1"]
     nz1, nz2 = d1 != 0, d2 != 0
     top = d1.abs().amax(0).maximum(d2.abs().amax(0))
-    adds = int((nz1.sum(0) + nz2.sum(0) - 1).clamp(min=0).sum())
-    return (_table_products(ops, top) + int((top * nz2.any(0)).sum()) + _ladder_doublings(nz1 | nz2, 5) * ops["dbl"]
+    adds = (nz1.sum(0) + nz2.sum(0) - 1).clamp(min=0)
+    return (_table_products(ops, top) + top * nz2.any(0) + _ladder_doublings(nz1 | nz2, 5) * ops["dbl"]
             + adds * ops["add"])
 
 
@@ -281,16 +301,16 @@ def _k1_kernel_products(d1, d2) -> int:
     return n * (table + nw * 5 * ops["dbl"]) + adds * ops["add"]
 
 
-def _k2_products(digits) -> int:
-    """Fq products k Q needs on these GLS digits (4, W, N) by K2's ladder, as
-    far as this data needs it: the multiples up to each point's largest digit
-    magnitude, psi, psi^2, psi^3 (6, 4, 6) of each nonzero digit of parts 1,
-    2, 3, 5 doublings per window after the first nonzero one, one add per
-    nonzero digit after the first."""
+def _k2_products(digits):
+    """Fq products (N,) k Q takes on these GLS digits (4, W, N) by K2's
+    ladder, as far as this data needs it: the multiples up to each point's
+    largest digit magnitude, psi, psi^2, psi^3 (6, 4, 6) of each nonzero
+    digit of parts 1, 2, 3, 5 doublings per window after the first nonzero
+    one, one add per nonzero digit after the first."""
     ops = FQ_PRODUCTS["g2"]
     nz = digits != 0
-    psi = 6 * int(nz[1].sum()) + 4 * int(nz[2].sum()) + 6 * int(nz[3].sum())
-    adds = int((nz.sum((0, 1)) - 1).clamp(min=0).sum())
+    psi = 6 * nz[1].sum(0) + 4 * nz[2].sum(0) + 6 * nz[3].sum(0)
+    adds = (nz.sum((0, 1)) - 1).clamp(min=0)
     return (_table_products(ops, digits.abs().amax((0, 1))) + psi + _ladder_doublings(nz.any(0), 5) * ops["dbl"]
             + adds * ops["add"])
 
@@ -305,6 +325,22 @@ def _k2_kernel_products(digits) -> int:
     table = ops["add_head"] + ops["dbl"] + 14 * ops["add"]
     adds = int(((digits != 0).sum((0, 1)) - 1).clamp(min=0).sum())
     return n * (table + nw * (5 * ops["dbl"] + 16)) + adds * ops["add"]
+
+
+def _function_products(group: str, scalars) -> int:
+    """Fq products k P needs on `group` for these canonical scalars (N, 16):
+    lane by lane the fewest that any of the port's ladders for that function
+    takes on this data (G1: K1 on the signed GLV split, K7 on the unsigned
+    one, K8 on the scalar; G2: K2, K10, K9). Every ladder's bound counts
+    these, whichever ladder it is."""
+    import torch
+    from phase2_bn254_tpu_torch.ops import gls, glv
+
+    if group == "g1":
+        counts = [_k1_products(*glv.decompose_signed(scalars)), _k7_products(*glv.decompose(scalars))]
+    else:
+        counts = [_k2_products(gls.decompose_signed(scalars)), _k10_products(*gls.decompose(scalars))]
+    return int(torch.stack(counts + [_windowed_products(group, scalars)]).amin(0).sum())
 
 
 def phase_kernels(card: Card, n: int = KERNEL_N) -> list[dict]:
@@ -330,7 +366,8 @@ def phase_kernels(card: Card, n: int = KERNEL_N) -> list[dict]:
     for name, group, f, kernel, plain, split, products, kernel_products, source, replaces in cases:
         pts, _ = _tiled_points(group, n, dev, rng)
         x, y = pts.x, pts.y
-        digits = split(convert.ints_to_limbs(_edge_scalars(n, rng), dev))
+        k = convert.ints_to_limbs(_edge_scalars(n, rng), dev)
+        digits = split(k)
         got = kernel(x, y, *digits)
         want, plain_ms = once_ms(lambda: plain(x, y, *digits))
         same_jac = all(torch.equal(a, b) for a, b in zip(got, want))
@@ -339,13 +376,13 @@ def phase_kernels(card: Card, n: int = KERNEL_N) -> list[dict]:
         if err != 0 or not torch.equal(ga.inf, wa.inf):
             raise AssertionError(f"{name}: kernel and plain version differ (max abs limb error {err})")
         ms = cuda_ms(lambda: kernel(x, y, *digits), 5)
-        need, does = products(*digits), kernel_products(*digits)
+        need, own, does = _function_products(group, k), int(products(*digits).sum()), kernel_products(*digits)
         rec = record(card, name, source, replaces, err, ms, plain_ms, (nbytes(x, y, *digits, *got), need),
-                     fq_products=need, kernel_fq_products=does)
+                     fq_products=need, ladder_fq_products=own, kernel_fq_products=does)
         log(f"phase 2 {name}: N={n} kernel == plain (Jacobian identical: {same_jac}, "
             f"{int(ga.inf.sum())} at infinity); kernel {ms:.3f} ms/call, plain {plain_ms:.3f} ms/call, "
-            f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}: {need / n:.0f} Fq products/point; the kernel does "
-            f"{does / n:.0f})")
+            f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}: {need / n:.0f} Fq products/point; this ladder "
+            f"needs {own / n:.0f}, the kernel does {does / n:.0f})")
         records.append(rec)
     return records
 
@@ -522,7 +559,8 @@ def _spot_check(response: str, params, key, rng: random.Random) -> int:
     return checked
 
 
-def phase_contribute(workdir: str, records: list[dict], size: int = SMOKE_SIZE, batch: int = SMOKE_BATCH) -> None:
+def phase_contribute(workdir: str, records: list[dict], size: int = SMOKE_SIZE, batch: int = SMOKE_BATCH) -> bytes:
+    """Phase 5; returns the response hash."""
     import torch
     from phase2_bn254_tpu_torch.ceremony.keypair import keypair
     from phase2_bn254_tpu_torch.ceremony.params import HASH_SIZE, CeremonyParams
@@ -555,9 +593,7 @@ def phase_contribute(workdir: str, records: list[dict], size: int = SMOKE_SIZE, 
         timers.restore()
     launches = dict(batch_exp.LAUNCHES)
 
-    low = len(list(params.chunks("low")))
-    high = len(list(params.chunks("high")))
-    want = {"batch_exp_glv_signed": 3 * low + high, "batch_exp_gls_signed": low, "batch_exp_g2_windowed": 0}
+    want = _chunk_launches(params, "batch_exp_glv_signed", "batch_exp_gls_signed")
     if launches != want:
         raise AssertionError(f"kernel launches {launches}, want {want} (one per chunk call)")
     for r in records:
@@ -590,6 +626,18 @@ def phase_contribute(workdir: str, records: list[dict], size: int = SMOKE_SIZE, 
     log(f"  hash chain ok; {checked} spot checks == refimpl ({t_check:.1f} s)")
     for group in ("g1", "g2"):
         _profile_contribute_chunk(group, batch)
+    return response_hash
+
+
+def _chunk_launches(params, g1: str, g2: str) -> dict:
+    """The ladder launches of one contribution: one per chunk call of the
+    G1 wrapper g1 (tau_g1 in both sections, alpha_g1 and beta_g1 in the low
+    one) and of the G2 wrapper g2 (tau_g2), none of the others."""
+    from phase2_bn254_tpu_torch.ops import batch_exp
+
+    low = len(list(params.chunks("low")))
+    high = len(list(params.chunks("high")))
+    return {**dict.fromkeys(batch_exp.LAUNCHES, 0), g1: 3 * low + high, g2: low}
 
 
 def _profile(fn, kinds) -> str:
@@ -1506,35 +1554,42 @@ def phase_fixture_proof(workdir: str) -> None:
 # ---------------------------------------------------------------------------
 
 CEREMONY_EXP = 18  # phase 13's domain: phase 10's circuit, an eighth of the reference's design depth 2^21
-PLAIN_SCAN_N = 1 << 17  # the prefix of a captured set the plain S1 is held to (lane i needs lanes <= i only)
+# the prefix of a captured set the plain S1 and K7 are held to (a scan's lane i
+# needs lanes <= i only, a ladder's lane itself)
+PLAIN_SCAN_N = 1 << 17
 
 
-def _k9_products(scalars) -> int:
-    """Fq products k Q needs on these scalars by K9's ladder, as far as this
-    data needs it: the multiples up to each point's largest 4-bit window, 4
-    doublings per window after the first nonzero one, one add per nonzero
-    window after the first (k = 1 needs none)."""
+def _windowed_products(group: str, scalars):
+    """Fq products (N,) k P takes on these scalars by the plain windowed
+    ladder (K8 on G1, K9 on G2), as far as this data needs it: the multiples
+    up to each point's largest 4-bit window, 4 doublings per window after
+    the first nonzero one, one add per nonzero window after the first (k = 1
+    needs none)."""
     from phase2_bn254_tpu_torch.ops import batch_exp
 
-    ops = FQ_PRODUCTS["g2"]
+    ops = FQ_PRODUCTS[group]
     win = batch_exp.scalar_windows_msb(scalars)
     nz = win != 0
-    adds = int((nz.sum(0) - 1).clamp(min=0).sum())
+    adds = (nz.sum(0) - 1).clamp(min=0)
     return _table_products(ops, win.amax(0)) + _ladder_doublings(nz, 4) * ops["dbl"] + adds * ops["add"]
 
 
-def _k9_kernel_products(scalars) -> int:
-    """Fq products K9 (csrc/batch_exp_g2_windowed.cu) does on these scalars:
-    the table (2Q through the doubling branch, 3Q..15Q), 4 doublings per
-    window (64), and one add per nonzero digit after the first (an add into
-    infinity or of T[0] costs none)."""
+def _windowed_kernel_products(group: str, scalars) -> int:
+    """Fq products K8 / K9 (csrc/ladders.cuh windowed_ladder_point) do on
+    these scalars: the table (2P through the doubling branch, 3P..15P), 4
+    doublings per window (64), and one add per nonzero digit after the first
+    (an add into infinity or of T[0] costs none)."""
     from phase2_bn254_tpu_torch.ops import batch_exp
 
-    ops = FQ_PRODUCTS["g2"]
+    ops = FQ_PRODUCTS[group]
     n = scalars.shape[0]
     table = ops["add_head"] + ops["dbl"] + 13 * ops["add"]
     adds = int(((batch_exp.scalar_windows_msb(scalars) != 0).sum(0) - 1).clamp(min=0).sum())
     return n * (table + batch_exp.N_WINDOWS * 4 * ops["dbl"]) + adds * ops["add"]
+
+
+def _k9_kernel_products(scalars) -> int:
+    return _windowed_kernel_products("g2", scalars)
 
 
 def _s1_products(group: str, jac, starts) -> int:
@@ -1608,7 +1663,8 @@ def _k9_case(x, y, scalars, plain_n: int | None = None) -> dict:
                              f"(max abs limb error {err})")
     ms = cuda_ms(lambda: batch_exp.batch_exp_g2_windowed(x, y, scalars), 3)
     return {"ms": ms, "plain_ms": plain_ms, "plain_n": plain_n, "err": err, "n": n,
-            "work": (nbytes(x, y, scalars, *got), _k9_products(scalars)),
+            "work": (nbytes(x, y, scalars, *got), _function_products("g2", scalars)),
+            "ladder_fq_products": int(_windowed_products("g2", scalars).sum()),
             "kernel_fq_products": _k9_kernel_products(scalars)}
 
 
@@ -1648,7 +1704,8 @@ def phase_segsum_kernels(card: Card, records: list[dict], n: int = KERNEL_N) -> 
     b, by = card.bound(*k9["work"])
     log(f"phase 12 K9 (batch_exp_g2_windowed): N={n} G2 points, edge scalars first: kernel == plain limb for limb; "
         f"kernel {k9['ms']:.3f} ms/call, plain {k9['plain_ms']:.3f} ms, bound {b:.3f} ms ({by}: "
-        f"{k9['work'][1] / n:.0f} Fq products/point; the kernel does {k9['kernel_fq_products'] / n:.0f})")
+        f"{k9['work'][1] / n:.0f} Fq products/point; this ladder needs {k9['ladder_fq_products'] / n:.0f}, the "
+        f"kernel does {k9['kernel_fq_products'] / n:.0f})")
     scans = {}
     for group in ("g1", "g2"):
         jac, starts, seg_ids, nseg = _skewed_terms(group, n, rng)
@@ -1663,7 +1720,7 @@ def phase_segsum_kernels(card: Card, records: list[dict], n: int = KERNEL_N) -> 
     records.append(record(card, "batch_exp_g2_windowed", "phase2_bn254_tpu_torch/csrc/batch_exp_g2_windowed.cu",
                           "phase2_bn254_tpu/ops/pallas_exp.py:449", k9["err"], k9["ms"], k9["plain_ms"], k9["work"],
                           shape=f"N={n} G2 points, edge and random scalars", fq_products=k9["work"][1],
-                          kernel_fq_products=k9["kernel_fq_products"]))
+                          ladder_fq_products=k9["ladder_fq_products"], kernel_fq_products=k9["kernel_fq_products"]))
     g2 = scans["g2"]
     b2, by2 = card.bound(*g2["work"])
     records.append(record(card, "segmented_scan", "phase2_bn254_tpu_torch/csrc/segsum.cu",
@@ -1778,6 +1835,7 @@ def phase_ceremony(card: Card, workdir: str, records: list[dict], exp: int = CER
         if name == "new":  # keep the sets new's kernels took; the wrappers add no time of their own
             timers.args_of("k1", batch_exp, "batch_exp_glv_signed", kept)
             timers.args_of("k9", batch_exp, "batch_exp_g2_windowed", kept)
+            timers.args_of("terms", segsum, "term_products", kept)  # the G1 terms' scalars
             timers.args_of("s1", segsum, "segmented_scan", kept)
         try:
             with open(tool_log, "a") as out, contextlib.redirect_stdout(out):
@@ -1844,19 +1902,23 @@ def phase_ceremony(card: Card, workdir: str, records: list[dict], exp: int = CER
 
     # K1, K9 and S1 on the sets new took
     (x, y, d1, d2), = kept["k1"]
+    coeffs, = (a[2] for a in kept["terms"] if a[0].x.dim() == 2)
     k1_ms = cuda_ms(lambda: batch_exp.batch_exp_glv_signed(x, y, d1, d2), 3)
-    k1_need, k1_does = _k1_products(d1, d2), _k1_kernel_products(d1, d2)
+    k1_need, k1_own = _function_products("g1", coeffs), int(_k1_products(d1, d2).sum())
+    k1_does = _k1_kernel_products(d1, d2)
     k1_bound, k1_by = card.bound(nbytes(x, y, d1, d2) + 3 * nbytes(x), k1_need)
     k1 = {"n": x.shape[0], "ms": k1_ms, "bound_ms": k1_bound, "bound_by": k1_by, "fq_products": k1_need,
-          "kernel_fq_products": k1_does}
+          "ladder_fq_products": k1_own, "kernel_fq_products": k1_does}
     log(f"  K1 on new's G1 terms: N={x.shape[0]}, kernel {k1_ms:.3f} ms, bound {k1_bound:.3f} ms ({k1_by}: {k1_need} "
-        f"Fq products; the kernel does {k1_does}; K1 was held to its plain version in phase 2)")
+        f"Fq products; this ladder needs {k1_own}, the kernel does {k1_does}; K1 was held to its plain version in "
+        f"phase 2)")
     (x, y, k), = kept["k9"]
     k9 = _k9_case(x, y, k, plain_n=KERNEL_N)
     b, by = card.bound(*k9["work"])
     log(f"  K9 on new's G2 terms: N={k9['n']}, kernel == plain limb for limb on the first {k9['plain_n']}; kernel "
         f"{k9['ms']:.3f} ms, plain {k9['plain_ms']:.3f} ms ({k9['plain_n']} points), bound {b:.3f} ms ({by}: "
-        f"{k9['work'][1]} Fq products; the kernel does {k9['kernel_fq_products']})")
+        f"{k9['work'][1]} Fq products; this ladder needs {k9['ladder_fq_products']}, the kernel does "
+        f"{k9['kernel_fq_products']})")
     per = {}
     for jac, starts in kept["s1"]:
         group = "g1" if jac.x.dim() == 2 else "g2"
@@ -1875,6 +1937,7 @@ def phase_ceremony(card: Card, workdir: str, records: list[dict], exp: int = CER
             r["launches"] = launches["new"]["batch_exp_g2_windowed"]
             r["new_shape"] = {"n": k9["n"], "ms": k9["ms"], "bound_ms": card.bound(*k9["work"])[0],
                               "plain_ms": k9["plain_ms"], "plain_n": k9["plain_n"], "fq_products": k9["work"][1],
+                              "ladder_fq_products": k9["ladder_fq_products"],
                               "kernel_fq_products": k9["kernel_fq_products"]}
         elif r["name"] == "batch_exp_glv_signed":
             r["new_shape"] = k1
@@ -1969,12 +2032,242 @@ def phase_fixture_ceremony(workdir: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phases 14 and 15: the other ladder configurations
+# ---------------------------------------------------------------------------
+
+PLAIN_LADDER_N = 1 << 14  # the prefix of phase 14's lanes the plain K7, K8, K10 are held to
+LADDER_VARIABLES = ("PHASE2_TPU_NO_GLV", "PHASE2_TPU_NO_GLS", "PHASE2_TPU_NO_SIGNED5")
+
+
+def _k7_products(d1, d2, negs):
+    """Fq products (N,) k P takes on these unsigned GLV windows by K7's
+    ladder, as far as this data needs it: the multiples up to each point's
+    largest digit (with their beta x where d2 has a nonzero digit), 4
+    doublings per window after the first nonzero one, one add per nonzero
+    digit after the first; the signs cost none."""
+    ops = FQ_PRODUCTS["g1"]
+    nz1, nz2 = d1 != 0, d2 != 0
+    top = d1.amax(0).maximum(d2.amax(0))
+    adds = (nz1.sum(0) + nz2.sum(0) - 1).clamp(min=0)
+    return (_table_products(ops, top) + top * nz2.any(0) + _ladder_doublings(nz1 | nz2, 4) * ops["dbl"]
+            + adds * ops["add"])
+
+
+def _k7_kernel_products(d1, d2, negs) -> int:
+    """Fq products K7 (csrc/batch_exp_glv.cu) does: the table (15 beta x, 2P
+    through the doubling branch, 3P..15P), 4 doublings per window, one add
+    per nonzero digit after the first."""
+    ops = FQ_PRODUCTS["g1"]
+    nw, n = d1.shape
+    table = 15 + ops["add_head"] + ops["dbl"] + 13 * ops["add"]
+    adds = int(((d1 != 0).sum(0) + (d2 != 0).sum(0) - 1).clamp(min=0).sum())
+    return n * (table + nw * 4 * ops["dbl"]) + adds * ops["add"]
+
+
+def _k8_kernel_products(scalars) -> int:
+    return _windowed_kernel_products("g1", scalars)
+
+
+def _k10_products(digits, negs):
+    """Fq products (N,) k Q takes on these unsigned GLS windows (4, W, N) by
+    K10's ladder, as far as this data needs it: the multiples up to each
+    point's largest digit, psi, psi^2, psi^3 (6, 4, 6) of each nonzero digit
+    of parts 1, 2, 3, 4 doublings per window after the first nonzero one,
+    one add per nonzero digit after the first."""
+    ops = FQ_PRODUCTS["g2"]
+    nz = digits != 0
+    psi = 6 * nz[1].sum(0) + 4 * nz[2].sum(0) + 6 * nz[3].sum(0)
+    adds = (nz.sum((0, 1)) - 1).clamp(min=0)
+    return (_table_products(ops, digits.amax((0, 1))) + psi + _ladder_doublings(nz.any(0), 4) * ops["dbl"]
+            + adds * ops["add"])
+
+
+def _k10_kernel_products(digits, negs) -> int:
+    """Fq products K10 (csrc/batch_exp_gls.cu) does: the table (2Q through
+    the doubling branch, 3Q..15Q), per window 4 doublings and psi, psi^2,
+    psi^3 of the gathered entries (6 + 4 + 6), one add per nonzero digit
+    after the first."""
+    ops = FQ_PRODUCTS["g2"]
+    _, nw, n = digits.shape
+    table = ops["add_head"] + ops["dbl"] + 13 * ops["add"]
+    adds = int(((digits != 0).sum((0, 1)) - 1).clamp(min=0).sum())
+    return n * (table + nw * (4 * ops["dbl"] + 16)) + adds * ops["add"]
+
+
+# wrapper name -> (tag, group, the module whose `decompose` splits its scalars
+# (None: it takes them whole), its ladder's products, its kernel's, source,
+# the TPU kernel it replaces)
+LADDER_CASES = {
+    "batch_exp_glv": ("K7", "g1", "glv", _k7_products, _k7_kernel_products,
+                      "phase2_bn254_tpu_torch/csrc/batch_exp_glv.cu", "phase2_bn254_tpu/ops/pallas_exp.py:571"),
+    "batch_exp_g1_windowed": ("K8", "g1", None, lambda k: _windowed_products("g1", k), _k8_kernel_products,
+                              "phase2_bn254_tpu_torch/csrc/batch_exp_g1_windowed.cu",
+                              "phase2_bn254_tpu/ops/pallas_exp.py:358"),
+    "batch_exp_gls": ("K10", "g2", "gls", _k10_products, _k10_kernel_products,
+                      "phase2_bn254_tpu_torch/csrc/batch_exp_gls.cu", "phase2_bn254_tpu/ops/pallas_exp.py:933"),
+}
+
+
+def _ladder_case(name: str, x, y, k, plain_n: int, reps: int) -> dict:
+    """One of K7, K8, K10 (LADDER_CASES) on points x, y and canonical scalars
+    k: the kernel against its plain version on the first plain_n lanes (a
+    lane's split is its own), limb for limb; time per call; the work."""
+    from phase2_bn254_tpu_torch.ops import batch_exp, gls, glv
+
+    tag, group, split, products, kernel_products, _, _ = LADDER_CASES[name]
+    split = {"glv": glv.decompose, "gls": gls.decompose}.get(split, lambda k: (k,))
+    kernel, plain = getattr(batch_exp, name), getattr(batch_exp, name + "_plain")
+    n, pn = x.shape[0], min(plain_n, x.shape[0])
+    inputs = split(k)
+    got = kernel(x, y, *inputs)
+    want, plain_ms = once_ms(lambda: plain(x[:pn], y[:pn], *split(k[:pn])))
+    err = max_limb_err([t[:pn] for t in got], want)
+    if err:
+        raise AssertionError(f"{tag} {name}: kernel and plain version differ on the first {pn} lanes "
+                             f"(max abs limb error {err})")
+    return {"tag": tag, "group": group, "n": n, "plain_n": pn, "err": err, "plain_ms": plain_ms,
+            "ms": cuda_ms(lambda: kernel(x, y, *inputs), reps),
+            "work": (nbytes(x, y, *inputs, *got), _function_products(group, k)),
+            "ladder_fq_products": int(products(*inputs).sum()), "kernel_fq_products": kernel_products(*inputs)}
+
+
+def _ladder_log(c: dict, bound_ms: float, bound_by: str) -> str:
+    need, n = c["work"][1], c["n"]
+    return (f"kernel == plain limb for limb on the first {c['plain_n']} lanes; kernel {c['ms']:.3f} ms/call, plain "
+            f"{c['plain_ms']:.3f} ms ({c['plain_n']} lanes), bound {bound_ms:.3f} ms ({bound_by}: {need / n:.0f} Fq "
+            f"products/point; this ladder needs {c['ladder_fq_products'] / n:.0f}, the kernel does "
+            f"{c['kernel_fq_products'] / n:.0f})")
+
+
+def phase_ladder_kernels(card: Card, records: list[dict], n: int = KERNEL_N) -> None:
+    """Phase 14: K7, K8 and K10 against their plain versions on the card."""
+    import torch
+    from phase2_bn254_tpu_torch import convert
+
+    dev = torch.device(DEVICE)
+    rng = random.Random(14)
+    for name, (tag, group, _, _, _, source, replaces) in LADDER_CASES.items():
+        pts, _ = _tiled_points(group, n, dev, rng)
+        k = convert.ints_to_limbs(_edge_scalars(n, rng), dev)
+        c = _ladder_case(name, pts.x, pts.y, k, PLAIN_LADDER_N, 5)
+        rec = record(card, name, source, replaces, c["err"], c["ms"], c["plain_ms"], c["work"],
+                     shape=f"N={n} {group.upper()} points, edge and random scalars", plain_n=c["plain_n"],
+                     fq_products=c["work"][1], ladder_fq_products=c["ladder_fq_products"],
+                     kernel_fq_products=c["kernel_fq_products"])
+        log(f"phase 14 {tag} ({name}): N={n}, edge scalars first: " + _ladder_log(c, rec["bound_ms"], rec["bound_by"]))
+        records.append(rec)
+
+
+@contextlib.contextmanager
+def _ladder_env(names):
+    """The ladder variables (PHASE2_TPU_NO_*) named set to 1, the others
+    unset, for the duration."""
+    saved = {v: os.environ.pop(v, None) for v in LADDER_VARIABLES}
+    os.environ.update({f"PHASE2_TPU_NO_{v}": "1" for v in names})
+    try:
+        yield
+    finally:
+        for v, value in saved.items():
+            os.environ.pop(v, None)
+            if value is not None:
+                os.environ[v] = value
+
+
+def phase_configurations(card: Card, workdir: str, records: list[dict], response_hash: bytes,
+                         size: int = SMOKE_SIZE, batch: int = SMOKE_BATCH, exp: int = CEREMONY_EXP) -> None:
+    """Phase 15: phase 5's contribution and phase 13's `new` under the JAX
+    package's other ladder switches, through the CLI functions, and K7
+    against its plain version on the set `new` took."""
+    import torch
+    from phase2_bn254_tpu_torch.ceremony.params import CeremonyParams
+    from phase2_bn254_tpu_torch.cli import phase1
+    from phase2_bn254_tpu_torch.cli import phase2 as cli2
+    from phase2_bn254_tpu_torch.crypto.chacha import ChaChaRng
+    from phase2_bn254_tpu_torch.ops import batch_exp, segsum
+
+    params = CeremonyParams(size, batch)
+    configs = {"NO_SIGNED5": (("SIGNED5",), "batch_exp_glv", "batch_exp_gls"),
+               "NO_GLV + NO_GLS": (("GLV", "GLS"), "batch_exp_g1_windowed", "batch_exp_g2_windowed")}
+    launches = {}
+    for label, (names, g1, g2) in configs.items():
+        response = os.path.join(workdir, f"response_{size}_config")
+        _zero_counts()
+        timers = _Timers()
+        for name in batch_exp.LAUNCHES:
+            timers.device_of("ladders", batch_exp, name)
+        try:
+            with _ladder_env(names):
+                t0 = time.time()
+                got = phase1.compute_constrained(_challenge(workdir, size, batch), response, size, batch,
+                                                 ChaChaRng.from_digest_be(SEED), DEVICE)
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+        finally:
+            timers.restore()
+        os.remove(response)
+        launches[label] = dict(batch_exp.LAUNCHES)
+        want = _chunk_launches(params, g1, g2)
+        if launches[label] != want:
+            raise AssertionError(f"PHASE2_TPU_{label}: kernel launches {launches[label]}, want {want}")
+        if got != response_hash:
+            raise AssertionError(f"PHASE2_TPU_{label}: response hash {got.hex()[:16]} differs from phase 5's "
+                                 f"{response_hash.hex()[:16]}")
+        log(f"phase 15 PHASE2_TPU_{label}: size {size} batch {batch} response == phase 5's (blake2b "
+            f"{got.hex()[:16]}); {g1} launches {want[g1]}, {g2} launches {want[g2]}, the default ladders none; "
+            f"wall {wall:.3f} s, ladder kernels {timers.device_s('ladders'):.3f} s device (CUDA events)")
+        for r in records:
+            if r["name"] in (g1, g2):
+                r.setdefault("launches_by_path", {})[f"compute_constrained size {size}, PHASE2_TPU_{label}"] = \
+                    want[r["name"]]
+                r["contribute_wall_s"] = wall
+
+    circuit_json = os.path.join(workdir, f"circuit_{exp}.json")
+    out = os.path.join(workdir, "circom1_no_signed5.params")
+    _zero_counts()
+    timers, kept = _Timers(), {}
+    timers.args_of("k7", batch_exp, "batch_exp_glv", kept)  # the wrappers add no time of their own
+    timers.args_of("terms", segsum, "term_products", kept)  # the G1 terms' scalars
+    try:
+        with _ladder_env(("SIGNED5",)), open(os.path.join(workdir, "ceremony_tools.log"), "a") as f, \
+                contextlib.redirect_stdout(f):
+            t0 = time.time()
+            cli2.main_new([circuit_json, out, os.path.join(workdir, "radix"), "--device", DEVICE])
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+    finally:
+        timers.restore()
+    got = dict(batch_exp.LAUNCHES)
+    if not (got["batch_exp_glv"] == 1 and got["batch_exp_glv_signed"] == 0 and got["batch_exp_g2_windowed"] == 1):
+        raise AssertionError(f"new under PHASE2_TPU_NO_SIGNED5: want one K7 and one K9 launch and no K1, got {got}")
+    if _read(out) != _read(os.path.join(workdir, "circom1.params")):
+        raise AssertionError("new under PHASE2_TPU_NO_SIGNED5 differs from phase 13's .params")
+    log(f"phase 15 new at 2^{exp} constraints under PHASE2_TPU_NO_SIGNED5: .params == phase 13's "
+        f"({os.path.getsize(out)} bytes); K7 launches 1, K1 0, K9 1; wall {wall:.3f} s")
+    (x, y, *_), = kept["k7"]
+    coeffs, = (a[2] for a in kept["terms"] if a[0].x.dim() == 2)
+    del kept
+    c = _ladder_case("batch_exp_glv", x, y, coeffs, PLAIN_SCAN_N, 3)
+    b, by = card.bound(*c["work"])
+    log(f"  K7 on new's G1 terms: N={c['n']}, " + _ladder_log(c, b, by))
+    for r in records:
+        if r["name"] == "batch_exp_glv":
+            r["launches_by_path"][f"new 2^{exp}, PHASE2_TPU_NO_SIGNED5"] = got["batch_exp_glv"]
+            r["new_wall_s"] = wall
+            r["new_shape"] = {"n": c["n"], "max_abs_err": c["err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
+                              "plain_n": c["plain_n"], "bound_ms": b, "bound_by": by, "fq_products": c["work"][1],
+                              "ladder_fq_products": c["ladder_fq_products"],
+                              "kernel_fq_products": c["kernel_fq_products"]}
+        if r["name"] in ("batch_exp_glv", "batch_exp_gls", "batch_exp_g1_windowed"):
+            r["launches"] = sum(r["launches_by_path"].values())
+
+
+# ---------------------------------------------------------------------------
 
 def run_phases(card: Card, workdir: str, records: list[dict]) -> None:
-    """Phases 3-13 (phases 1 and 2 run before the working directory exists)."""
+    """Phases 3-15 (phases 1 and 2 run before the working directory exists)."""
     phase_golden(workdir)
     phase_parity(workdir)
-    phase_contribute(workdir, records)
+    response_hash = phase_contribute(workdir, records)
     phase_msm_kernels(card, records)
     phase_verify_small(workdir)
     phase_verify(workdir, records)
@@ -1983,6 +2276,8 @@ def run_phases(card: Card, workdir: str, records: list[dict]) -> None:
     phase_fixture_proof(workdir)
     phase_segsum_kernels(card, records)
     phase_ceremony(card, workdir, records)
+    phase_ladder_kernels(card, records)
+    phase_configurations(card, workdir, records, response_hash)
     phase_fixture_ceremony(workdir)
 
 

@@ -5,8 +5,10 @@ multihost, sharded and default-backend code).
 
 The ceremony "API" is files on disk: challenge/response with a 64-byte
 Blake2b hash-chain header (the reference's powersoftau binaries). The point
-math runs on `TorchBackend(device)`; the argv entry points take the JAX
-CLI's arguments plus `--device` (default `cuda`, which raises without a GPU:
+math runs on `TorchBackend(device)` with the ladders that the JAX
+package's PHASE2_TPU_NO_GLV / NO_GLS / NO_SIGNED5 variables select
+(`ops.backend.Ladders.from_env`); the argv entry points take the JAX CLI's
+arguments plus `--device` (default `cuda`, which raises without a GPU:
 nothing falls back to the CPU).
 """
 

@@ -1,7 +1,8 @@
 """The port's phase-2 tools (counterpart of `phase2_bn254_tpu/cli/phase2.py`,
 the reference's phase2 binaries), with the JAX CLI's positional arguments:
 
-* the ceremony, on `TorchBackend(device)`: `new` (the QAP evaluation on the
+* the ceremony, on `TorchBackend(device)` with the ladders the environment
+  selects (`ops.backend.Ladders.from_env`): `new` (the QAP evaluation on the
   device, where the JAX `main_new` runs it on the host: the same bytes),
   `contribute`, `beacon` and `verify_contribution` (`phase2/mpc.py`);
 * `prove`: reads the circuit and witness (circom JSON) and a .params file,

@@ -1,0 +1,64 @@
+// K8: plain windowed ladder for BN254 G1, one thread per point.
+//
+// Replaces the TPU kernel phase2_bn254_tpu/ops/pallas_exp.py
+// pallas_batch_exp (_batch_exp_kernel): out[i] = k_i * P_i for canonical
+// scalars k_i, without an endomorphism split: T[j] = j P for j = 0..15, then
+// for each of the 64 4-bit windows of k, most significant first, 4 doublings
+// and one add of T[d]. The per-point ladder is ladders.cuh's
+// windowed_ladder_point, the one K9 runs over Fq2; it is a template over the
+// field type, as the TPU kernel is generic in its limb count, and is
+// instantiated here for BN254 Fq only. The windows are cut from the scalar's
+// 16-bit digits (the TPU kernel reads a 64 x N digit array).
+// In: x, y int64 (N, 16) Montgomery affine, finite points; k int64 (N, 16)
+// canonical 16-bit digits. Out: x, y, z int64 (N, 16), Jacobian, Montgomery,
+// fully reduced (k = 0 gives z = 0). The ceremony runs it for G1 under
+// PHASE2_TPU_NO_GLV (ops/backend.py Ladders).
+//
+// What bounds it on the card: 32-bit integer multiply throughput, about
+// 2,900 Fq products a point (256 doublings of 7, up to 63 adds of 16, the
+// table), some 1.5 times K1's, which halves the ladder with the GLV split and
+// widens its windows. The per-thread table of 16 Jacobian points (1.5 KB)
+// lives in local memory and is read once per window. The design is K1's and
+// K9's: one point per thread, no cross-thread carries.
+//
+// Outside nvcc (no __CUDACC__) only the per-point function is compiled, so a
+// host C++ compiler can run the arithmetic on the CPU.
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#endif
+
+#include "ladders.cuh"
+
+// Point i of the batch.
+__device__ void batch_exp_g1_windowed_point(const int64_t* x, const int64_t* y, const int64_t* k,
+                                            int64_t* ox, int64_t* oy, int64_t* oz, int i) {
+  windowed_ladder_point<Fp>(x, y, k, ox, oy, oz, i);
+}
+
+#ifdef __CUDACC__
+namespace {
+
+constexpr int kThreads = 128;
+
+__global__ void __launch_bounds__(kThreads)
+batch_exp_g1_windowed_kernel(const int64_t* __restrict__ x, const int64_t* __restrict__ y,
+                             const int64_t* __restrict__ k, int64_t* __restrict__ ox,
+                             int64_t* __restrict__ oy, int64_t* __restrict__ oz, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) batch_exp_g1_windowed_point(x, y, k, ox, oy, oz, i);
+}
+
+}  // namespace
+
+// Launches K8 on `stream`; returns cudaGetLastError() after the launch.
+extern "C" int p2_batch_exp_g1_windowed(const void* x, const void* y, const void* k, void* ox, void* oy,
+                                        void* oz, int n, void* stream) {
+  if (n > 0) {
+    int blocks = (n + kThreads - 1) / kThreads;
+    batch_exp_g1_windowed_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int64_t*)x, (const int64_t*)y, (const int64_t*)k, (int64_t*)ox, (int64_t*)oy,
+        (int64_t*)oz, n);
+  }
+  return (int)cudaGetLastError();
+}
+#endif  // __CUDACC__

@@ -5,11 +5,8 @@
 // k_i * Q_i with k_i = sum_c k_c L^c split by ops/gls.py into four rows of
 // signed base-32 digits in [-16, 16], most significant window first. Each
 // window does 5 doublings, then for c = 0..3 adds sign(d_c) psi^c(T[|d_c|]),
-// T[j] = j Q. psi^c is applied to the gathered entry first and y is negated
-// after it, with
-//   psi^1(x, y, z) = (conj(x) C1,  conj(y) C2,  conj(z))
-//   psi^2(x, y, z) = (x N1,        y N2,        z)        N1, N2 in Fq
-//   psi^3(x, y, z) = (conj(x) C31, conj(y) C32, conj(z))
+// T[j] = j Q. psi^c (ladders.cuh psi_pow) is applied to the gathered entry
+// first and y is negated after it.
 // In: x, y int64 (N, 2, 16) Montgomery affine ([c0, c1]); digits int64
 // (4, W, N). Out: x, y, z int64 (N, 2, 16), Jacobian, Montgomery, reduced.
 //
@@ -25,25 +22,7 @@
 #include <cuda_runtime.h>
 #endif
 
-#include "field.cuh"
-
-__device__ __forceinline__ Fp2 load_fp2(const int64_t* d) { return {load_fp(d), load_fp(d + 16)}; }
-
-__device__ __forceinline__ void store_fp2(int64_t* d, const Fp2& a) {
-  store_fp(d, a.c0);
-  store_fp(d + 16, a.c1);
-}
-
-__device__ __forceinline__ Jac<Fp2> psi_pow(int c, const Jac<Fp2>& e) {
-  if (c == 1)
-    return {mul(conj(e.x), fp2_from_const(GLS_C1_C0, GLS_C1_C1)),
-            mul(conj(e.y), fp2_from_const(GLS_C2_C0, GLS_C2_C1)), conj(e.z)};
-  if (c == 2) return {mul_fp(e.x, fp_from_const(GLS_N1)), mul_fp(e.y, fp_from_const(GLS_N2)), e.z};
-  if (c == 3)
-    return {mul(conj(e.x), fp2_from_const(GLS_C31_C0, GLS_C31_C1)),
-            mul(conj(e.y), fp2_from_const(GLS_C32_C0, GLS_C32_C1)), conj(e.z)};
-  return e;
-}
+#include "ladders.cuh"
 
 // Point i of the batch (W = nw windows).
 __device__ void batch_exp_gls_signed_point(const int64_t* x, const int64_t* y, const int64_t* digits,
@@ -51,7 +30,9 @@ __device__ void batch_exp_gls_signed_point(const int64_t* x, const int64_t* y, c
                                            int nw) {
   Jac<Fp2> table[17];
   table[0] = jac_infinity<Fp2>();
-  table[1] = {load_fp2(x + 32 * (int64_t)i), load_fp2(y + 32 * (int64_t)i), fp2_one()};
+  load_el(x + 32 * (int64_t)i, table[1].x);
+  load_el(y + 32 * (int64_t)i, table[1].y);
+  table[1].z = fp2_one();
   for (int k = 2; k < 17; ++k) table[k] = jac_add(table[k - 1], table[1]);  // k = 2 is Q + Q
 
   Jac<Fp2> acc = jac_infinity<Fp2>();
@@ -64,9 +45,9 @@ __device__ void batch_exp_gls_signed_point(const int64_t* x, const int64_t* y, c
       acc = jac_add(acc, e);
     }
   }
-  store_fp2(ox + 32 * (int64_t)i, acc.x);
-  store_fp2(oy + 32 * (int64_t)i, acc.y);
-  store_fp2(oz + 32 * (int64_t)i, acc.z);
+  store_el(ox + 32 * (int64_t)i, acc.x);
+  store_el(oy + 32 * (int64_t)i, acc.y);
+  store_el(oz + 32 * (int64_t)i, acc.z);
 }
 
 #ifdef __CUDACC__

@@ -7,7 +7,9 @@
 // doubling branch); then for each of the 64 4-bit windows of k, most
 // significant first, 4 doublings and one add of T[d]. The windows are cut
 // here from the scalar's 16-bit digits (the TPU kernel reads a 64 x N digit
-// array); they are the digits of ops/batch_exp.scalar_windows_msb.
+// array); they are the digits of ops/batch_exp.scalar_windows_msb. The
+// per-point ladder is ladders.cuh's windowed_ladder_point, which K8 runs
+// over Fq.
 // In: x, y int64 (N, 2, 16) Montgomery affine ([c0, c1]), finite points;
 // k int64 (N, 16) canonical 16-bit digits. Out: x, y, z int64 (N, 2, 16),
 // Jacobian, Montgomery, fully reduced (k = 0 gives z = 0).
@@ -26,28 +28,12 @@
 #include <cuda_runtime.h>
 #endif
 
-#include "field.cuh"
+#include "ladders.cuh"
 
 // Point i of the batch.
 __device__ void batch_exp_g2_windowed_point(const int64_t* x, const int64_t* y, const int64_t* k,
                                             int64_t* ox, int64_t* oy, int64_t* oz, int i) {
-  Jac<Fp2> table[16];
-  table[0] = jac_infinity<Fp2>();
-  table[1] = {{load_fp(x + 32 * (int64_t)i), load_fp(x + 32 * (int64_t)i + 16)},
-              {load_fp(y + 32 * (int64_t)i), load_fp(y + 32 * (int64_t)i + 16)},
-              fp2_one()};
-  for (int j = 2; j < 16; ++j) table[j] = jac_add(table[j - 1], table[1]);  // j = 2 is Q + Q
-
-  const int64_t* s = k + 16 * (int64_t)i;
-  Jac<Fp2> acc = jac_infinity<Fp2>();
-  for (int w = 63; w >= 0; --w) {  // window w holds bits 4w .. 4w + 3
-    for (int t = 0; t < 4; ++t) acc = jac_double(acc);
-    int d = (int)((s[w >> 2] >> (4 * (w & 3))) & 0xF);
-    acc = jac_add(acc, table[d]);
-  }
-  store_el(ox + 32 * (int64_t)i, acc.x);
-  store_el(oy + 32 * (int64_t)i, acc.y);
-  store_el(oz + 32 * (int64_t)i, acc.z);
+  windowed_ladder_point<Fp2>(x, y, k, ox, oy, oz, i);
 }
 
 #ifdef __CUDACC__

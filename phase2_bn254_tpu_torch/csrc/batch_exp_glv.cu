@@ -1,0 +1,94 @@
+// K7: unsigned GLV double ladder for BN254 G1, one thread per point.
+//
+// Replaces the TPU kernel phase2_bn254_tpu/ops/pallas_exp.py
+// pallas_batch_exp_glv (_batch_exp_glv_kernel): out[i] = k_i * P_i with
+// k_i = k1 + k2 * lambda split by ops/glv.py `decompose` into 4-bit windows
+// of |k1| and |k2| (33 each, most significant first) and one sign flag per
+// component and lane. T[j] = j P for j = 0..15 (T[0] = infinity) and the
+// beta x of each entry, phi(x, y) = (beta x, y); each window does 4
+// doublings, then adds s1 T[d1] and s2 phi(T[d2]), where s_c = -1 for the
+// lanes with k_c < 0 whatever the digit (T[0] negated is still infinity).
+// The per-point code is a template over the field type, as the TPU kernel is
+// generic in its limb count; it is instantiated here for BN254 Fq only.
+// In: x, y int64 (N, 16) Montgomery affine; d1, d2 int64 (W, N); negs int64
+// (2, N). Out: x, y, z int64 (N, 16), Jacobian, Montgomery, fully reduced.
+// The ceremony runs it for G1 under PHASE2_TPU_NO_SIGNED5 (ops/backend.py
+// Ladders), the phase-2 QAP terms included.
+//
+// What bounds it on the card: 32-bit integer multiply throughput, about
+// 2,200 Fq products a point (33 windows of 4 doublings and up to 2 adds,
+// against K1's 26 of 5 and 2: some 10% more), and the per-thread table of
+// 16 Jacobian points plus 16 beta x planes (2 KB) in local memory, read
+// twice per window. The design is K1's: one point per thread, no
+// cross-thread carries, the table in local memory.
+//
+// Outside nvcc (no __CUDACC__) only the per-point function is compiled, so a
+// host C++ compiler can run the arithmetic on the CPU.
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#endif
+
+#include "field.cuh"
+
+// Point i of the batch (W = nw windows); beta in Montgomery form.
+template <class F>
+__device__ void batch_exp_glv_point(const int64_t* x, const int64_t* y, const int64_t* d1, const int64_t* d2,
+                                    const int64_t* negs, const F& beta, int64_t* ox, int64_t* oy,
+                                    int64_t* oz, int i, int n, int nw) {
+  Jac<F> table[16];
+  F beta_x[16];
+  table[0] = jac_infinity<F>();
+  beta_x[0] = table[0].x;  // zero
+  load_el(x + kDigits<F> * (int64_t)i, table[1].x);
+  load_el(y + kDigits<F> * (int64_t)i, table[1].y);
+  table[1].z = table[0].y;  // one
+  beta_x[1] = mul(table[1].x, beta);
+  for (int k = 2; k < 16; ++k) {
+    table[k] = jac_add(table[k - 1], table[1]);  // k = 2 is P + P
+    beta_x[k] = mul(table[k].x, beta);
+  }
+
+  const bool neg1 = negs[i] != 0, neg2 = negs[n + i] != 0;
+  Jac<F> acc = jac_infinity<F>();
+  for (int w = 0; w < nw; ++w) {
+    for (int s = 0; s < 4; ++s) acc = jac_double(acc);
+    int da = (int)d1[(int64_t)w * n + i];
+    Jac<F> e = table[da];
+    if (neg1) e.y = neg(e.y);
+    acc = jac_add(acc, e);
+    int db = (int)d2[(int64_t)w * n + i];
+    e = {beta_x[db], table[db].y, table[db].z};
+    if (neg2) e.y = neg(e.y);
+    acc = jac_add(acc, e);
+  }
+  store_jac(ox, oy, oz, (int64_t)i, acc);
+}
+
+#ifdef __CUDACC__
+namespace {
+
+constexpr int kThreads = 128;
+
+__global__ void __launch_bounds__(kThreads)
+batch_exp_glv_kernel(const int64_t* __restrict__ x, const int64_t* __restrict__ y,
+                     const int64_t* __restrict__ d1, const int64_t* __restrict__ d2,
+                     const int64_t* __restrict__ negs, int64_t* __restrict__ ox, int64_t* __restrict__ oy,
+                     int64_t* __restrict__ oz, int n, int nw) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) batch_exp_glv_point<Fp>(x, y, d1, d2, negs, fp_from_const(GLV_BETA), ox, oy, oz, i, n, nw);
+}
+
+}  // namespace
+
+// Launches K7 on `stream`; returns cudaGetLastError() after the launch.
+extern "C" int p2_batch_exp_glv(const void* x, const void* y, const void* d1, const void* d2, const void* negs,
+                                void* ox, void* oy, void* oz, int n, int nw, void* stream) {
+  if (n > 0) {
+    int blocks = (n + kThreads - 1) / kThreads;
+    batch_exp_glv_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int64_t*)x, (const int64_t*)y, (const int64_t*)d1, (const int64_t*)d2, (const int64_t*)negs,
+        (int64_t*)ox, (int64_t*)oy, (int64_t*)oz, n, nw);
+  }
+  return (int)cudaGetLastError();
+}
+#endif  // __CUDACC__

@@ -1,6 +1,7 @@
 // BN254 Fq, Fq2 and Fr arithmetic and the Jacobian group law, one thread per
 // point or per lane, for the kernels of this directory (batch_exp_g1.cu,
-// batch_exp_g2.cu, batch_exp_g2_windowed.cu, msm.cu, decompress.cu,
+// batch_exp_g2.cu, batch_exp_g2_windowed.cu, batch_exp_g1_windowed.cu,
+// batch_exp_glv.cu, batch_exp_gls.cu, msm.cu, decompress.cu,
 // segsum.cu; Fr for ntt.cu).
 //
 // An Fq element (Fp) or an Fr element (Fr) is 8 little-endian 32-bit limbs

@@ -27,9 +27,9 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("batch_exp_g1.cu", "batch_exp_g2.cu", "batch_exp_g2_windowed.cu", "msm.cu", "decompress.cu", "ntt.cu",
-           "segsum.cu")
-HEADERS = ("field.cuh", "constants.cuh")
+SOURCES = ("batch_exp_g1.cu", "batch_exp_g2.cu", "batch_exp_g2_windowed.cu", "batch_exp_g1_windowed.cu",
+           "batch_exp_glv.cu", "batch_exp_gls.cu", "msm.cu", "decompress.cu", "ntt.cu", "segsum.cu")
+HEADERS = ("field.cuh", "constants.cuh", "ladders.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,6 +39,9 @@ ENTRY_POINTS = {
     "p2_batch_exp_glv_signed": (7, 2),
     "p2_batch_exp_gls_signed": (6, 2),
     "p2_batch_exp_g2_windowed": (6, 1),
+    "p2_batch_exp_g1_windowed": (6, 1),
+    "p2_batch_exp_glv": (8, 2),
+    "p2_batch_exp_gls": (7, 2),
     **{f"p2_bucket_accumulate_{g}": (11, 4) for g in ("g1", "g2")},
     **{f"p2_bucket_reduce_{g}": (7, 3) for g in ("g1", "g2")},
     **{f"p2_combine_windows_{g}": (6, 3) for g in ("g1", "g2")},

@@ -4,11 +4,12 @@ Groth16 prover's query MSMs go through `msm_async` / `msm_wait`).
 
 Contribute: `ceremony.accumulator.transform` calls, per chunk and kind,
 `decode`, then `pow_mul` (point i times coeff * tau^(start + i)), then
-`encode`. Here `pow_mul` runs the tau powers, the GLV / GLS split, the
-ladder kernel (K1 for G1, K2 for G2) and the device half of the batched
-normalization, and returns without waiting for the device: the product
-total of the Montgomery trick travels to pinned host memory behind an event,
-and `encode` inverts it on the host and finishes. So `transform`'s pipeline
+`encode`. Here `pow_mul` runs the tau powers, the scalar split, the
+ladder kernel that the backend's `Ladders` name (by default K1 for G1, K2
+for G2) and the device half of the batched normalization, and returns
+without waiting for the device: the product total of the Montgomery trick
+travels to pinned host memory behind an event, and `encode` inverts it on
+the host and finishes. So `transform`'s pipeline
 (decode and launch chunk i+1 before encoding chunk i) keeps the device busy.
 
 Verify: `ceremony.accumulator.verify_transformation` decodes each compressed
@@ -23,7 +24,9 @@ generator points; the output bytes are the same).
 
 from __future__ import annotations
 
+import os
 import secrets
+from collections.abc import Mapping
 from dataclasses import dataclass
 
 import numpy as np
@@ -36,7 +39,7 @@ from ..field import fp
 from ..field.fq2 import FQ, FQ2
 from ..refimpl import curve as rc
 from ..refimpl.field import Fq2, R_MOD
-from . import batch_exp, gls, glv
+from . import batch_exp
 from . import msm as M
 
 
@@ -57,6 +60,33 @@ def _fr_mont(vals, device) -> torch.Tensor:
     return convert.ints_to_limbs([fp.FR_CTX.to_mont_int(v % R_MOD) for v in vals], device)
 
 
+@dataclass(frozen=True)
+class Ladders:
+    """The ladder kernels of `pow_mul` and of the phase-2 QAP terms (JAX
+    `ops/backend.py:133-172`, `ops/segsum.py:104-121`):
+
+    * g1: "glv_signed" (K1, the default), "glv" (K7) or "windowed" (K8);
+    * g2: "gls_signed" (K2, the default), "gls" (K10) or "windowed" (K9);
+    * terms_g1, the G1 ladder of `ops.segsum.term_products`: "glv_signed"
+      (K1) or "glv" (K7). Its G2 terms always take K9."""
+
+    g1: str = "glv_signed"
+    g2: str = "gls_signed"
+    terms_g1: str = "glv_signed"
+
+    @classmethod
+    def from_env(cls, environ: Mapping[str, str]) -> "Ladders":
+        """The JAX package's switches, with its precedence: PHASE2_TPU_NO_GLV
+        takes G1 to K8 and PHASE2_TPU_NO_GLS G2 to K9, before
+        PHASE2_TPU_NO_SIGNED5 takes them to K7 and K10; the QAP terms follow
+        PHASE2_TPU_NO_SIGNED5 only. A variable counts when it is set and not
+        empty. The port reads them nowhere else."""
+        no_glv, no_gls, no_signed5 = (bool(environ.get(f"PHASE2_TPU_NO_{v}")) for v in ("GLV", "GLS", "SIGNED5"))
+        return cls(g1="windowed" if no_glv else "glv" if no_signed5 else "glv_signed",
+                   g2="windowed" if no_gls else "gls" if no_signed5 else "gls_signed",
+                   terms_g1="glv" if no_signed5 else "glv_signed")
+
+
 def check_device(device) -> torch.device:
     """The torch device named by `device`; a CUDA device raises when CUDA is
     not available (nothing falls back to the CPU)."""
@@ -68,13 +98,16 @@ def check_device(device) -> torch.device:
 
 class TorchBackend:
     """Contribute- and verify-slice backend on one torch device ("cuda",
-    "cuda:1" or "cpu"). A CUDA device that is not there raises; nothing
-    falls back."""
+    "cuda:1" or "cpu") with its ladder kernels: `ladders`, by default those
+    that the environment selects (`Ladders.from_env`), as the JAX package
+    reads its switches on every path. A CUDA device that is not there
+    raises; nothing falls back."""
 
     name = "torch"
 
-    def __init__(self, device):
+    def __init__(self, device, ladders: Ladders | None = None):
         self.device = check_device(device)
+        self.ladders = Ladders.from_env(os.environ) if ladders is None else ladders
 
     # -- the contribute protocol -------------------------------------------
     def decode(self, raw: bytes, group: str, count: int, compressed: bool, check: bool,
@@ -94,12 +127,9 @@ class TorchBackend:
         )[: ps.n]
         pts = self._affine(ps)
         if ps.group == "g1":
-            f = FQ
-            d1, d2 = glv.decompose_signed(scalars)
-            jac = batch_exp.batch_exp_glv_signed(pts.x, pts.y, d1, d2)
+            f, jac = FQ, batch_exp.batch_exp_g1(self.ladders.g1, pts.x, pts.y, scalars)
         else:
-            f = FQ2
-            jac = batch_exp.batch_exp_gls_signed(pts.x, pts.y, gls.decompose_signed(scalars))
+            f, jac = FQ2, batch_exp.batch_exp_g2(self.ladders.g2, pts.x, pts.y, scalars)
         pend = G.jac_normalize_start(f, jac)
         out = PointSet(ps.group, ps.n, pending=pend)
         if self.device.type == "cuda":

@@ -10,6 +10,18 @@
   windows of the canonical scalar and no endomorphism (pallas_exp.py:391-476),
   kernel in csrc/batch_exp_g2_windowed.cu; the phase-2 QAP evaluation's G2
   terms (`ops/segsum.py`).
+* K8 `batch_exp_g1_windowed`: the same ladder on G1 (pallas_exp.py:310-388),
+  kernel in csrc/batch_exp_g1_windowed.cu.
+* K7 `batch_exp_glv`: the unsigned base-16 GLV double ladder on G1, 4-bit
+  windows of |k1|, |k2| with a sign flag per lane (pallas_exp.py:503-613),
+  kernel in csrc/batch_exp_glv.cu.
+* K10 `batch_exp_gls`: the unsigned GLS quad ladder on G2, 4-bit windows of
+  |k0..k3| with a sign flag per lane (pallas_exp.py:845-963), kernel in
+  csrc/batch_exp_gls.cu.
+
+`batch_exp_g1` / `batch_exp_g2` pick one of these by name from canonical
+scalars, splitting them as the ladder needs (the choice is
+`ops.backend.Ladders`, JAX `ops/backend.py:133-172`).
 
 Each kernel has a wrapper, a plain PyTorch version of the same function and
 a launch count (`LAUNCHES[<wrapper name>]`, raised by one per kernel launch). The
@@ -29,7 +41,7 @@ from ..field import fp
 from ..field.fq2 import FQ, FQ2
 from ..refimpl.gls import G2C1, G2C2
 from ..refimpl.glv import BETA
-from . import _build
+from . import _build, gls, glv
 from .gls import GLS_WINDOWS5
 from .glv import BN_PLAN
 
@@ -37,7 +49,8 @@ G1_WINDOWS = BN_PLAN.windows5  # 26
 G2_WINDOWS = GLS_WINDOWS5  # 14
 
 # kernel launches by wrapper name; only a launch of the kernel counts
-LAUNCHES = {"batch_exp_glv_signed": 0, "batch_exp_gls_signed": 0, "batch_exp_g2_windowed": 0}
+LAUNCHES = {"batch_exp_glv_signed": 0, "batch_exp_gls_signed": 0, "batch_exp_g2_windowed": 0,
+            "batch_exp_g1_windowed": 0, "batch_exp_glv": 0, "batch_exp_gls": 0}
 N_WINDOWS = 64  # 4-bit windows of a canonical scalar (K9)
 
 
@@ -78,9 +91,9 @@ def _first_live_window(*digits: torch.Tensor) -> int:
     return int(live.nonzero()[0]) if bool(live.any()) else live.shape[0]
 
 
-def _signed_add(f, acc: G.JacobianBatch, e: G.JacobianBatch, d: torch.Tensor) -> G.JacobianBatch:
-    e = G.JacobianBatch(e.x, f.select(d < 0, f.neg(e.y), e.y), e.z)
-    return G.jac_add(f, acc, e)
+def _add_neg(f, acc: G.JacobianBatch, e: G.JacobianBatch, neg: torch.Tensor) -> G.JacobianBatch:
+    """acc + e, with e's y negated in the lanes where neg is true."""
+    return G.jac_add(f, acc, e._replace(y=f.select(neg, f.neg(e.y), e.y)))
 
 
 # ---------------------------------------------------------------------------
@@ -98,8 +111,8 @@ def batch_exp_glv_signed_plain(x, y, d1, d2) -> G.JacobianBatch:
     for w in range(_first_live_window(d1, d2), d1.shape[0]):
         for _ in range(5):
             acc = G.jac_double(FQ, acc)
-        acc = _signed_add(FQ, acc, _gather(table, d1[w].abs()), d1[w])
-        acc = _signed_add(FQ, acc, _gather(table._replace(x=beta_x), d2[w].abs()), d2[w])  # phi
+        acc = _add_neg(FQ, acc, _gather(table, d1[w].abs()), d1[w] < 0)
+        acc = _add_neg(FQ, acc, _gather(table._replace(x=beta_x), d2[w].abs()), d2[w] < 0)  # phi
     return acc
 
 
@@ -157,7 +170,7 @@ def batch_exp_gls_signed_plain(x, y, digits) -> G.JacobianBatch:
             acc = G.jac_double(FQ2, acc)
         for c in range(4):
             d = digits[c, w]
-            acc = _signed_add(FQ2, acc, _psi_pow(c, _gather(table, d.abs()), consts), d)
+            acc = _add_neg(FQ2, acc, _psi_pow(c, _gather(table, d.abs()), consts), d < 0)
     return acc
 
 
@@ -182,23 +195,27 @@ def batch_exp_gls_signed(x, y, digits) -> G.JacobianBatch:
 def scalar_windows_msb(scalars: torch.Tensor) -> torch.Tensor:
     """Canonical scalars int64 (N, 16) -> int64 (64, N) 4-bit windows, most
     significant first (JAX `pallas_exp.scalar_windows_t_msb`)."""
-    w = torch.arange(N_WINDOWS - 1, -1, -1, device=scalars.device)
-    return (scalars[:, w // 4] >> (4 * (w % 4))).T & 0xF
+    return glv.windows4(scalars, N_WINDOWS)
 
 
-def batch_exp_g2_windowed_plain(x, y, scalars) -> G.JacobianBatch:
-    """Plain PyTorch K9. x, y: int64 (N, 2, 16) Montgomery affine, finite;
-    scalars: int64 (N, 16) canonical. T[j] = j Q for j = 0..15, then per
+def _windowed_plain(f, x, y, scalars) -> G.JacobianBatch:
+    """Plain K8 (f = FQ) and K9 (f = FQ2). x, y: Montgomery affine, finite;
+    scalars: int64 (N, 16) canonical. T[j] = j P for j = 0..15, then per
     window (MSB first) 4 doublings and one add of T[d]; the windows before
     the first nonzero digit of the batch are skipped (`_first_live_window`)."""
-    table = _table(FQ2, x, y, 16)
-    acc = G.jac_zero(FQ2, (x.shape[0],), x.device)
+    table = _table(f, x, y, 16)
+    acc = G.jac_zero(f, (x.shape[0],), x.device)
     digits = scalar_windows_msb(scalars)
     for d in digits[_first_live_window(digits) :]:
         for _ in range(4):
-            acc = G.jac_double(FQ2, acc)
-        acc = G.jac_add(FQ2, acc, _gather(table, d))
+            acc = G.jac_double(f, acc)
+        acc = G.jac_add(f, acc, _gather(table, d))
     return acc
+
+
+def batch_exp_g2_windowed_plain(x, y, scalars) -> G.JacobianBatch:
+    """Plain PyTorch K9. x, y: int64 (N, 2, 16); scalars: int64 (N, 16)."""
+    return _windowed_plain(FQ2, x, y, scalars)
 
 
 def batch_exp_g2_windowed(x, y, scalars) -> G.JacobianBatch:
@@ -213,3 +230,130 @@ def batch_exp_g2_windowed(x, y, scalars) -> G.JacobianBatch:
     _build.launch("p2_batch_exp_g2_windowed", x.device, x, y, scalars, *out, n)
     LAUNCHES["batch_exp_g2_windowed"] += 1
     return G.JacobianBatch(*out)
+
+
+# ---------------------------------------------------------------------------
+# K8: G1 plain windowed ladder
+# ---------------------------------------------------------------------------
+
+def batch_exp_g1_windowed_plain(x, y, scalars) -> G.JacobianBatch:
+    """Plain PyTorch K8. x, y: int64 (N, 16) Montgomery affine, finite;
+    scalars: int64 (N, 16) canonical."""
+    return _windowed_plain(FQ, x, y, scalars)
+
+
+def batch_exp_g1_windowed(x, y, scalars) -> G.JacobianBatch:
+    """K8: k_i P_i for G1 points and canonical scalars. CPU tensors take the
+    plain version; CUDA tensors launch csrc/batch_exp_g1_windowed.cu."""
+    if not _build.on_card("batch_exp_g1_windowed", x):
+        return batch_exp_g1_windowed_plain(x, y, scalars)
+    n = x.shape[0]
+    for name, t in (("x", x), ("y", y), ("scalars", scalars)):
+        _build.check("batch_exp_g1_windowed", name, t, (n, 16), x.device)
+    out = [torch.empty_like(x) for _ in range(3)]
+    _build.launch("p2_batch_exp_g1_windowed", x.device, x, y, scalars, *out, n)
+    LAUNCHES["batch_exp_g1_windowed"] += 1
+    return G.JacobianBatch(*out)
+
+
+# ---------------------------------------------------------------------------
+# K7: G1 unsigned GLV double ladder
+# ---------------------------------------------------------------------------
+
+def batch_exp_glv_plain(x, y, d1, d2, negs) -> G.JacobianBatch:
+    """Plain PyTorch K7. x, y: int64 (N, 16) Montgomery affine; d1, d2: int64
+    (W, N) 4-bit windows of |k1|, |k2|, MSB first; negs: int64 (2, N), 1
+    where k_i < 0. T[j] = j P for j = 0..15; per window 4 doublings, then
+    +-T[d1] and +-phi(T[d2]), the sign that of the lane's k_i whatever the
+    digit (T[0] negated is still infinity). The windows before the first
+    nonzero digit of the batch are skipped (`_first_live_window`)."""
+    beta = fp.FQ_CTX.const(BETA, x.device)
+    table = _table(FQ, x, y, 16)
+    phi = table._replace(x=FQ.mul(table.x, beta))
+    neg1, neg2 = negs[0] != 0, negs[1] != 0
+    acc = G.jac_zero(FQ, (x.shape[0],), x.device)
+    for w in range(_first_live_window(d1, d2), d1.shape[0]):
+        for _ in range(4):
+            acc = G.jac_double(FQ, acc)
+        acc = _add_neg(FQ, acc, _gather(table, d1[w]), neg1)
+        acc = _add_neg(FQ, acc, _gather(phi, d2[w]), neg2)
+    return acc
+
+
+def batch_exp_glv(x, y, d1, d2, negs) -> G.JacobianBatch:
+    """K7: k_i P_i for G1 points. CPU tensors take the plain version; CUDA
+    tensors launch csrc/batch_exp_glv.cu."""
+    if not _build.on_card("batch_exp_glv", x):
+        return batch_exp_glv_plain(x, y, d1, d2, negs)
+    n, w = x.shape[0], d1.shape[0]
+    for name, t, shape in (("x", x, (n, 16)), ("y", y, (n, 16)), ("d1", d1, (w, n)), ("d2", d2, (w, n)),
+                           ("negs", negs, (2, n))):
+        _build.check("batch_exp_glv", name, t, shape, x.device)
+    out = [torch.empty_like(x) for _ in range(3)]
+    _build.launch("p2_batch_exp_glv", x.device, x, y, d1, d2, negs, *out, n, w)
+    LAUNCHES["batch_exp_glv"] += 1
+    return G.JacobianBatch(*out)
+
+
+# ---------------------------------------------------------------------------
+# K10: G2 unsigned GLS quad ladder
+# ---------------------------------------------------------------------------
+
+def batch_exp_gls_plain(x, y, digits, negs) -> G.JacobianBatch:
+    """Plain PyTorch K10. x, y: int64 (N, 2, 16) Montgomery affine; digits:
+    int64 (4, W, N) 4-bit windows of |k_c|, MSB first; negs: int64 (4, N), 1
+    where k_c < 0. T[j] = j Q for j = 0..15; per window 4 doublings, then
+    for c = 0..3 psi^c(T[d_c]) with y negated after psi where k_c < 0. The
+    windows before the first nonzero digit of the batch are skipped."""
+    consts = _gls_consts(x.device)
+    table = _table(FQ2, x, y, 16)
+    acc = G.jac_zero(FQ2, (x.shape[0],), x.device)
+    for w in range(_first_live_window(digits.transpose(0, 1)), digits.shape[1]):
+        for _ in range(4):
+            acc = G.jac_double(FQ2, acc)
+        for c in range(4):
+            acc = _add_neg(FQ2, acc, _psi_pow(c, _gather(table, digits[c, w]), consts), negs[c] != 0)
+    return acc
+
+
+def batch_exp_gls(x, y, digits, negs) -> G.JacobianBatch:
+    """K10: k_i Q_i for G2 points. CPU tensors take the plain version; CUDA
+    tensors launch csrc/batch_exp_gls.cu."""
+    if not _build.on_card("batch_exp_gls", x):
+        return batch_exp_gls_plain(x, y, digits, negs)
+    n, w = x.shape[0], digits.shape[1]
+    for name, t, shape in (("x", x, (n, 2, 16)), ("y", y, (n, 2, 16)), ("digits", digits, (4, w, n)),
+                           ("negs", negs, (4, n))):
+        _build.check("batch_exp_gls", name, t, shape, x.device)
+    out = [torch.empty_like(x) for _ in range(3)]
+    _build.launch("p2_batch_exp_gls", x.device, x, y, digits, negs, *out, n, w)
+    LAUNCHES["batch_exp_gls"] += 1
+    return G.JacobianBatch(*out)
+
+
+# ---------------------------------------------------------------------------
+# the ladders by name
+# ---------------------------------------------------------------------------
+
+def batch_exp_g1(ladder: str, x, y, scalars) -> G.JacobianBatch:
+    """k_i P_i for G1 points and canonical scalars (N, 16) by the named
+    ladder: "glv_signed" (K1), "glv" (K7) or "windowed" (K8)."""
+    if ladder == "glv_signed":
+        return batch_exp_glv_signed(x, y, *glv.decompose_signed(scalars))
+    if ladder == "glv":
+        return batch_exp_glv(x, y, *glv.decompose(scalars))
+    if ladder == "windowed":
+        return batch_exp_g1_windowed(x, y, scalars)
+    raise ValueError(f"no G1 ladder {ladder!r}")
+
+
+def batch_exp_g2(ladder: str, x, y, scalars) -> G.JacobianBatch:
+    """k_i Q_i for G2 points and canonical scalars (N, 16) by the named
+    ladder: "gls_signed" (K2), "gls" (K10) or "windowed" (K9)."""
+    if ladder == "gls_signed":
+        return batch_exp_gls_signed(x, y, gls.decompose_signed(scalars))
+    if ladder == "gls":
+        return batch_exp_gls(x, y, *gls.decompose(scalars))
+    if ladder == "windowed":
+        return batch_exp_g2_windowed(x, y, scalars)
+    raise ValueError(f"no G2 ladder {ladder!r}")

@@ -8,8 +8,12 @@ k = k1 + k2 * LAMBDA (mod r) by Barrett-rounded lattice reduction:
 
 in 16-bit digit arithmetic, mod 2^192 (two's complement; |ki| < 2^131).
 The Barrett reciprocals make the same rounding as the JAX package, so the
-digits agree exactly. Output: signed base-32 digits in [-16, 16], most
-significant first, with the sign of each k_i folded in.
+digits agree exactly. Two outputs, each most significant first:
+
+* `decompose_signed` (K1): signed base-32 digits in [-16, 16], the sign of
+  each k_i folded in (JAX `decompose_signed_device_t`);
+* `decompose` (K7): 4-bit windows of |k1|, |k2| and one sign flag per k_i
+  and lane (JAX `decompose_device_t`, glv_device.py:357-399).
 
 Digits sit on the last axis here, (N, D); the outputs are (W, N) as in JAX.
 """
@@ -24,6 +28,10 @@ from ..refimpl.field import R_MOD
 
 KDIG = 12  # two's-complement width of k1, k2 in digits (192 bits >> 2^131)
 TDIG = 25  # Barrett shift in digits (400 bits)
+# 4-bit windows of |k_i| (K7), the JAX `decompose_plan_t`'s count: 132 bits,
+# a window above the 128 that |k_i| < GlvPlan's bound takes, so the digit
+# rows equal JAX's row for row
+WINDOWS4 = 33
 
 
 def _ndigits(v: int) -> int:
@@ -72,6 +80,13 @@ def twos_complement_abs(v: torch.Tensor):
     return torch.where(neg[:, None], _carry(negate(v)), v), neg
 
 
+def windows4(mag: torch.Tensor, nwin: int) -> torch.Tensor:
+    """|v| digits (N, D) -> int64 (nwin, N) unsigned 4-bit windows, most
+    significant first."""
+    w = torch.arange(nwin - 1, -1, -1, device=mag.device)
+    return ((mag[:, w // 4] >> (4 * (w % 4))).T & 0xF).contiguous()
+
+
 def signed_windows5(mag: torch.Tensor, neg: torch.Tensor, nwin: int) -> torch.Tensor:
     """|v| digits (N, D) + sign -> int64 (nwin, N) signed base-32 digits in
     [-16, 15] MSB first, the sign folded in (so -16 may become +16)."""
@@ -118,16 +133,29 @@ class GlvPlan:
 BN_PLAN = GlvPlan(R_MOD, rglv._A1, rglv._B1, rglv._A2, rglv._B2)
 
 
-def decompose_signed(scalars: torch.Tensor, plan: GlvPlan = BN_PLAN):
-    """Canonical Fr scalars int64 (N, 16) -> (d1, d2), each int64
-    (plan.windows5, N) signed base-32 digits, MSB first (JAX
-    `decompose_signed_device_t`, which takes the transposed (16, N))."""
+def components(scalars: torch.Tensor, plan: GlvPlan = BN_PLAN):
+    """Canonical Fr scalars int64 (N, 16) -> [(|k1| digits, k1 < 0), (|k2|
+    digits, k2 < 0)], each magnitude (N, KDIG) (JAX glv_device.py:361-377)."""
     k = scalars
     round_bit = LIMB_BITS * TDIG - 1
     c1 = mul_const(k, plan.m1, KDIG + TDIG, round_bit)[:, TDIG:]
     c2 = mul_const(k, plan.m2, KDIG + TDIG, round_bit)[:, TDIG:]
-    out = []
-    for acc, terms in ((k[:, :KDIG], plan.k1_terms), (torch.zeros_like(k[:, :KDIG]), plan.k2_terms)):
-        v = signed_sum(acc, [(sign, mul_const(c, mag, KDIG)) for c, (sign, mag) in zip((c1, c2), terms)])
-        out.append(signed_windows5(*twos_complement_abs(v), plan.windows5))
-    return out[0], out[1]
+    return [twos_complement_abs(signed_sum(acc, [(sign, mul_const(c, mag, KDIG))
+                                                 for c, (sign, mag) in zip((c1, c2), terms)]))
+            for acc, terms in ((k[:, :KDIG], plan.k1_terms), (torch.zeros_like(k[:, :KDIG]), plan.k2_terms))]
+
+
+def decompose_signed(scalars: torch.Tensor, plan: GlvPlan = BN_PLAN):
+    """Canonical Fr scalars int64 (N, 16) -> (d1, d2), each int64
+    (plan.windows5, N) signed base-32 digits, MSB first (JAX
+    `decompose_signed_device_t`, which takes the transposed (16, N))."""
+    (m1, n1), (m2, n2) = components(scalars, plan)
+    return signed_windows5(m1, n1, plan.windows5), signed_windows5(m2, n2, plan.windows5)
+
+
+def decompose(scalars: torch.Tensor, plan: GlvPlan = BN_PLAN):
+    """Canonical Fr scalars int64 (N, 16) -> (d1, d2, negs): d1, d2 int64
+    (WINDOWS4, N) 4-bit windows of |k1|, |k2|, MSB first; negs int64
+    (2, N), 1 where k_i < 0 (JAX `decompose_plan_t` / `decompose_device_t`)."""
+    (m1, n1), (m2, n2) = components(scalars, plan)
+    return windows4(m1, WINDOWS4), windows4(m2, WINDOWS4), torch.stack([n1, n2]).to(m1.dtype)

@@ -7,9 +7,11 @@ points: out[s] = sum of coeff_t * basis[base_t] over the terms t of segment
 
 1. the term bases are gathered from the basis, which stays decoded on the
    device;
-2. one batch scalar multiplication covers all terms: K1 (the GLV split and
-   `batch_exp.batch_exp_glv_signed`) on G1, K9
-   (`batch_exp.batch_exp_g2_windowed`) on G2;
+2. one batch scalar multiplication covers all terms: on G1 the ladder that
+   the caller names, K1 (`batch_exp.batch_exp_glv_signed`, the default) or
+   K7 (`batch_exp.batch_exp_glv`, under PHASE2_TPU_NO_SIGNED5, as JAX
+   `segsum.py:104-115` chooses), and K9 (`batch_exp.batch_exp_g2_windowed`)
+   on G2;
 3. S1 `segmented_scan`: a segmented Hillis-Steele inclusive scan of the
    products (log2 N full-width rounds, one kernel launch each,
    csrc/segsum.cu), and a gather of each segment's last lane; an empty
@@ -31,7 +33,7 @@ import torch
 
 from ..curve import group as G
 from ..field.fq2 import FQ, FQ2
-from . import _build, batch_exp, glv
+from . import _build, batch_exp
 
 # kernel launches by wrapper name; only a launch of the kernel counts
 LAUNCHES = {"segmented_scan": 0}
@@ -98,22 +100,25 @@ def segment_sums(jac: G.JacobianBatch, seg_ids: torch.Tensor, n_segments: int) -
     return ends._replace(z=f.select(empty, torch.zeros_like(ends.z), ends.z))
 
 
-def term_products(basis: G.AffineBatch, base_idx: torch.Tensor, coeffs: torch.Tensor) -> G.JacobianBatch:
-    """coeffs[t] * basis[base_idx[t]] for every term (N,), Jacobian: K1 on
-    G1, K9 on G2. basis: finite Montgomery affine points; base_idx int64
-    (N,); coeffs canonical Fr int64 (N, 16)."""
+def term_products(basis: G.AffineBatch, base_idx: torch.Tensor, coeffs: torch.Tensor,
+                  g1_ladder: str = "glv_signed") -> G.JacobianBatch:
+    """coeffs[t] * basis[base_idx[t]] for every term (N,), Jacobian: on G1
+    the ladder g1_ladder names ("glv_signed" K1 or "glv" K7,
+    `backend.Ladders.terms_g1`), K9 on G2. basis: finite Montgomery affine
+    points; base_idx int64 (N,); coeffs canonical Fr int64 (N, 16)."""
     x, y = basis.x[base_idx].contiguous(), basis.y[base_idx].contiguous()
     if x.dim() == 2:
-        return batch_exp.batch_exp_glv_signed(x, y, *glv.decompose_signed(coeffs))
+        return batch_exp.batch_exp_g1(g1_ladder, x, y, coeffs)
     return batch_exp.batch_exp_g2_windowed(x, y, coeffs)
 
 
 def segmented_msm(basis: G.AffineBatch, base_idx: torch.Tensor, coeffs: torch.Tensor, seg_ids: torch.Tensor,
-                  n_segments: int) -> G.JacobianBatch:
+                  n_segments: int, g1_ladder: str = "glv_signed") -> G.JacobianBatch:
     """out[s] = sum of coeffs[t] * basis[base_idx[t]] over the terms t with
     seg_ids[t] == s (JAX `segmented_msm`, on term arrays): Jacobian (n_segments,)
     on the basis' device, without waiting for the device. seg_ids int64
-    (N,) sorted ascending; empty segments give infinity."""
+    (N,) sorted ascending; empty segments give infinity. g1_ladder: as
+    `term_products` takes it."""
     if base_idx.shape[0] == 0:
         return G.jac_zero(_field(basis.x), (n_segments,), basis.x.device)
-    return segment_sums(term_products(basis, base_idx, coeffs), seg_ids, n_segments)
+    return segment_sums(term_products(basis, base_idx, coeffs, g1_ladder), seg_ids, n_segments)

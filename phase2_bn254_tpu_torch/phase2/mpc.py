@@ -12,8 +12,9 @@ objects (a few points) and the five queries h, l, a, b_g1, b_g2 as device
 through the device codec, never as host Points:
 
 * `new`: the QAP evaluated at tau from the phase-1 radix file, one G1 and
-  one G2 segmented multiply-and-sum (`ops/segsum.py`: K1 on G1, K9 on G2,
-  the segmented scan S1) on term arrays built with numpy;
+  one G2 segmented multiply-and-sum (`ops/segsum.py`: on G1 the backend's
+  `ladders.terms_g1`, K1 or K7, K9 on G2, the segmented scan S1) on term
+  arrays built with numpy;
 * `contribute`: delta^-1 applied to every point of h and l (K1, the GLV
   split of the one scalar broadcast over the batch); keypair and
   `vk.delta_*` on the host;
@@ -233,9 +234,10 @@ class MPCParameters:
         the inputs, l for the aux) = A.beta_coeffs_g1 + B.alpha_coeffs_g1 +
         C.coeffs_g1. The JAX package runs six segmented sums per section;
         here the G1 ones of both sections are one segmented sum with the
-        segments offset (one K1 launch, one scan), and b_g2 another (one K9
+        segments offset (one K1 or K7 launch, one scan), and b_g2 another (one K9
         launch, one scan): the same points."""
-        dev = _backend(backend).device
+        backend = _backend(backend)
+        dev = backend.device
         assembly = KeypairAssembly()
         assembly.alloc_input()  # the "one" variable
         circuit.synthesize(assembly)
@@ -267,7 +269,7 @@ class MPCParameters:
         sums = []
         for basis, (idx, segs, pick), nseg in ((basis_g1, g1_terms, 3 * nv), (coeffs_g2, g2_terms, nv)):
             sums.append(segsum.segmented_msm(basis, convert.to_device(idx, dev), coeffs[convert.to_device(pick, dev)],
-                                             convert.to_device(segs, dev), nseg))
+                                             convert.to_device(segs, dev), nseg, backend.ladders.terms_g1))
         g1, b_g2 = G.jac_normalize(FQ, sums[0]), G.jac_normalize(FQ2, sums[1])
         a_g1, b_g1, ic, l = (G.AffineBatch(*(t[lo:hi] for t in g1))
                              for lo, hi in ((0, nv), (nv, 2 * nv), (2 * nv, 2 * nv + ninp), (2 * nv + ninp, 3 * nv)))
