@@ -24,7 +24,9 @@ phases:
    and a torch.profiler breakdown of one chunk of each group;
 6. K3, K4, K5 (the Pippenger MSM) and D1 (decompression) against their plain
    versions on the card at the verify chunk shape (2^16 points, c = 9), G1
-   and G2, uniform and all-equal scalars; time per call and bound;
+   and G2, uniform and all-equal scalars; time per call and bound; K3 at
+   the sub-run lengths of SUBRUN_SWEEP; K3's and K4's launch geometry and
+   ptxas registers and spills;
 7. verify the golden size-4 pair (new challenge == the exact host
    backend's), a size-10 response (passes), and that response with one
    valid but wrong point (rejected);
@@ -44,8 +46,8 @@ phases:
    counts of `prove` as a user runs it, then a second run with every part
    timed, the witness' share of 0 and 1 scalars, and a torch.profiler
    breakdown of the h pipeline; K3, K4, K5 against their plain versions on
-   the sets that run's MSMs took (K4, K5 on the prover's own buckets, K3
-   with bucket runs capped at HOT_N points);
+   the sets that run's MSMs took (K3 on those sets, the witness' ones and
+   all; K4, K5 on the prover's own buckets);
 11. scripts/fixtures' circuit and witness with fixed r and s: the proof on
    the card equals the plain versions' proof on the CPU, byte for byte;
    the witness' share of 0 and 1 scalars;
@@ -91,9 +93,10 @@ from a scalar's first nonzero window with the multiples its digits use
 (_k1_products, _k2_products, _k7_products, _k10_products,
 _windowed_products); this ladder's own count stands beside it
 (ladder_fq_products). Then one add per finite term after the first of its
-segment (_s1_products), the products of an NTT (_ntt_products); the
-kernel's own count stands beside each (kernel_fq_products,
-kernel_fr_products).
+segment (_s1_products), the products of an NTT (_ntt_products), a mixed
+add per point of a bucket after its first (_k3_products), the adds of a
+serial running sum over the buckets (_k4_products); the kernel's own count
+stands beside each (kernel_fq_products, kernel_fr_products).
 
 Prints one JSON line of the kernels' results, the card's nvidia-smi line,
 and last `{"ok": true, "device": {...}}`. Needs no network; starts no
@@ -118,10 +121,8 @@ DEVICE = "cuda"  # every phase runs on the card
 SEED = bytes(range(64))
 SMOKE_SIZE, SMOKE_BATCH = 21, 1 << 16
 KERNEL_N = 1 << 16  # the contribute and verify chunk shape
-# the longest bucket run the plain K3 is held to: it adds one point per lane
-# per step, so its limb checks run on all-equal scalars at this N, and on the
-# prover's sets with longer runs cut to this length
-HOT_N = 1 << 9
+# K3's sub-run lengths L timed beside the module's (phase 6)
+SUBRUN_SWEEP = (16, 32, 64)
 NONRESIDUES = 16  # D1 inputs whose x^3 + b has no square root
 
 # Peak rates of the card the bounds are taken against
@@ -697,29 +698,78 @@ def _profile_contribute_chunk(group: str, n: int) -> None:
 # ---------------------------------------------------------------------------
 
 def _k3_products(group: str, prep, nsets: int) -> int:
-    """Fq products of K3: one mixed add per point of a lane's run after its
-    first (the first lands on infinity); the inputs hold no point at
-    infinity."""
+    """Fq products of the function K3 computes: one mixed add per point of a
+    bucket after its first (the first lands on infinity); the inputs hold no
+    point at infinity."""
+    return nsets * int((prep.counts - 1).clamp(min=0).sum()) * FQ_PRODUCTS[group]["madd"]
+
+
+def _k3_kernel_products(group: str, prep, nsets: int) -> int:
+    """Fq products K3 does: a mixed add per point of a sub-run after its
+    first, and a tree add per sub-run of a bucket after its first."""
     from phase2_bn254_tpu_torch.ops import msm as M
 
-    _, length = M.lane_runs(prep.starts, prep.counts, prep.groups)
-    return nsets * int((length - 1).clamp(min=0).sum()) * FQ_PRODUCTS[group]["madd"]
+    nsub = (prep.counts + M.SUBRUN - 1) // M.SUBRUN
+    ops = FQ_PRODUCTS[group]
+    madds, adds = int((prep.counts - nsub).sum()), int((nsub - 1).clamp(min=0).sum())
+    return nsets * (madds * ops["madd"] + adds * ops["add"])
 
 
-def _k4_products(group: str, buckets, groups) -> int:
-    """Fq products of K4's serial running sum over lanes B-1..1: an add per
-    finite bucket after the first, and an add into the total at each weight
-    step where the running sum is finite, after the first."""
-    import torch
+def _k4_products(group: str, buckets) -> int:
+    """Fq products of the function K4 computes, as a serial running sum over
+    lanes B-1..1 does it: an add per finite bucket after the first, and an
+    add into the total at each lane where the running sum is finite, after
+    the first."""
     from phase2_bn254_tpu_torch.field.fq2 import FQ, FQ2
 
     f = FQ if group == "g1" else FQ2
     finite = ~f.is_zero(buckets.z)[..., 1:]  # (S, nwin, B - 1), lanes 1..B-1
     running = finite.flip(-1).cumsum(-1).flip(-1) > 0
-    lane = torch.arange(1, finite.shape[-1] + 1, device=finite.device)
-    step = (lane[None, :] % groups[:, None]) == 0
-    adds = (finite.sum(-1) - 1).clamp(min=0) + ((running & step).sum(-1) - 1).clamp(min=0)
+    adds = (finite.sum(-1) - 1).clamp(min=0) + (running.sum(-1) - 1).clamp(min=0)
     return int(adds.sum()) * FQ_PRODUCTS[group]["add"]
+
+
+def _k4_kernel_products(group: str, buckets) -> int:
+    """Fq products K4 does (csrc/msm.cu's schedule, followed on finiteness
+    flags): an add of two finite points costs a full add (a sum that
+    cancels is taken as finite), an add with infinity nothing, and every
+    thread's log2(B / T) doublings their full cost."""
+    import torch
+    from phase2_bn254_tpu_torch.field.fq2 import FQ, FQ2
+    from phase2_bn254_tpu_torch.ops import msm as M
+
+    f = FQ if group == "g1" else FQ2
+    rows, b = buckets.z.shape[0] * buckets.z.shape[1], buckets.z.shape[2]
+    nt = M.reduce_threads(b)
+    m = b // nt
+    fin = (~f.is_zero(buckets.z)).reshape(rows, nt, m)
+    adds = 0
+    run = torch.zeros((rows, nt), dtype=torch.bool, device=fin.device)
+    wsum = torch.zeros_like(run)
+    for i in range(m - 1, 0, -1):
+        adds += int((run & fin[..., i]).sum())
+        run |= fin[..., i]
+        adds += int((wsum & run).sum())
+        wsum |= run
+    adds += int((run & fin[..., 0]).sum())
+    run |= fin[..., 0]
+    k = 1
+    while k < nt:
+        up = torch.zeros_like(run)
+        up[:, : nt - k] = run[:, k:]
+        adds += int((run & up).sum())
+        run = run | up
+        k *= 2
+    run[:, 0] = False
+    adds += int((wsum & run).sum())
+    terms = wsum | run
+    stride = nt // 2
+    while stride >= 1:
+        adds += int((terms[:, :stride] & terms[:, stride : 2 * stride]).sum())
+        terms[:, :stride] |= terms[:, stride : 2 * stride]
+        stride //= 2
+    ops = FQ_PRODUCTS[group]
+    return adds * ops["add"] + rows * nt * (m.bit_length() - 1) * ops["dbl"]
 
 
 def _k5_products(group: str, sums, c: int) -> int:
@@ -766,10 +816,10 @@ def _jac_points(group: str, jac) -> list:
     return convert.affine_to_points(G.jac_normalize(FQ if group == "g1" else FQ2, jac), group)
 
 
-def _msm_case(group: str, n: int, scalars: list[int], rng: random.Random, plain_k3: bool) -> dict:
+def _msm_case(group: str, n: int, scalars: list[int], rng: random.Random) -> dict:
     """One power_pairs-shaped MSM (n scalars, n + 1 tiled points, shifts 0
-    and 1) through K3, K4, K5 on the card, each against its plain version
-    (K3 only when plain_k3), and the results against refimpl."""
+    and 1) through K3, K4, K5 on the card, each against its plain version,
+    and the results against refimpl."""
     import torch
     from phase2_bn254_tpu_torch import convert
     from phase2_bn254_tpu_torch.curve import group as G
@@ -783,28 +833,28 @@ def _msm_case(group: str, n: int, scalars: list[int], rng: random.Random, plain_
     c = M.pick_window(n)
     prep = M.prep_windows(k, c)
     shifts = torch.tensor([0, 1], device=dev)
-    args = (pts.x, pts.y, pts.inf, shifts, prep.orders, prep.starts, prep.counts, prep.groups)
+    args = (pts.x, pts.y, pts.inf, shifts, *prep[:5])
     out = {"c": c}
 
     buckets = M.bucket_accumulate(*args)
-    reps = 2 if plain_k3 else 1
-    out["k3_ms"] = cuda_ms(lambda: M.bucket_accumulate(*args), reps)
+    out["k3_ms"] = cuda_ms(lambda: M.bucket_accumulate(*args), 3)
     out["k3_work"] = (nbytes(*args, *buckets), _k3_products(group, prep, 2))
-    if plain_k3:
-        want, out["k3_plain_ms"] = once_ms(lambda: M.bucket_accumulate_plain(*args))
-        out["k3_err"] = max_limb_err(buckets, want)
-        if out["k3_err"]:
-            raise AssertionError(f"K3 {group}: kernel and plain version differ (max abs limb error {out['k3_err']})")
+    out["k3_kernel_products"] = _k3_kernel_products(group, prep, 2)
+    want, out["k3_plain_ms"] = once_ms(lambda: M.bucket_accumulate_plain(*args))
+    out["k3_err"] = max_limb_err(buckets, want)
+    if out["k3_err"]:
+        raise AssertionError(f"K3 {group}: kernel and plain version differ (max abs limb error {out['k3_err']})")
 
-    sums = M.bucket_reduce(buckets, prep.groups)
-    out["k4_ms"] = cuda_ms(lambda: M.bucket_reduce(buckets, prep.groups), 3)
-    want, out["k4_plain_ms"] = once_ms(lambda: M.bucket_reduce_plain(buckets, prep.groups))
+    sums = M.bucket_reduce(buckets)
+    out["k4_ms"] = cuda_ms(lambda: M.bucket_reduce(buckets), 3)
+    want, out["k4_plain_ms"] = once_ms(lambda: M.bucket_reduce_plain(buckets))
     flat = [G.JacobianBatch(*(t.reshape(-1, *t.shape[2:]) for t in s)) for s in (sums, want)]
     got_aff, want_aff = (G.jac_normalize(f, s) for s in flat)
     out["k4_err"] = max_limb_err(got_aff, want_aff)
     if out["k4_err"]:
         raise AssertionError(f"K4 {group}: kernel and plain version differ on the affine window sums")
-    out["k4_work"] = (nbytes(*buckets, prep.groups, *sums), _k4_products(group, buckets, prep.groups))
+    out["k4_work"] = (nbytes(*buckets, *sums), _k4_products(group, buckets))
+    out["k4_kernel_products"] = _k4_kernel_products(group, buckets)
 
     res = M.combine_windows(sums, c)
     out["k5_ms"] = cuda_ms(lambda: M.combine_windows(sums, c), 3)
@@ -818,6 +868,25 @@ def _msm_case(group: str, n: int, scalars: list[int], rng: random.Random, plain_
     for s in (0, 1):
         if got[s] != _msm_reference(group, logs, scalars, s, n):
             raise AssertionError(f"MSM {group} set {s}: differs from refimpl")
+    out["args"], out["scalars"] = args, k
+    return out
+
+
+def _subrun_sweep(case: dict) -> dict:
+    """K3's ms per call (prep included, as msm_sets runs it) at each sub-run
+    length L of SUBRUN_SWEEP on a case's inputs; the module's constant is
+    restored after."""
+    from phase2_bn254_tpu_torch.ops import msm as M
+
+    x, y, inf, shifts = case["args"][:4]
+    kept, out = M.SUBRUN, {}
+    try:
+        for length in SUBRUN_SWEEP:
+            M.SUBRUN = length
+            out[length] = cuda_ms(lambda: M.bucket_accumulate(x, y, inf, shifts,
+                                                              *M.prep_windows(case["scalars"], case["c"])[:5]), 3)
+    finally:
+        M.SUBRUN = kept
     return out
 
 
@@ -889,36 +958,76 @@ def _d1_case(group: str, n: int, rng: random.Random) -> dict:
             "work": (nbytes(x, greatest, *got[:2], valid), _d1_products(group, n))}
 
 
+def _ptxas_of(keys) -> list[str]:
+    """The ptxas report (-Xptxas -v, kept by _build.build) of the kernels
+    whose names hold one of keys: each entry's name, its spills and its
+    registers."""
+    from phase2_bn254_tpu_torch.ops import _build
+
+    out, keep = [], False
+    with open(os.path.join(_build.BUILD_DIR, f"ptxas_{_build._source_hash()}.log")) as f:
+        for line in f:
+            if "Compiling entry function" in line:
+                keep = any(k in line for k in keys)
+                if keep:
+                    out.append(line.split("'")[1])
+            elif keep and ("registers" in line or "spill" in line):
+                out.append("    " + line.strip().removeprefix("ptxas info    : "))
+    return out
+
+
+def _msm_geometry(n: int, c: int, nsets: int, reduce_sets: int | None = None) -> str:
+    """K3's launches for one call on n scalars and nsets shifts, and K4's for
+    reduce_sets (by default nsets) sets: blocks x threads."""
+    from phase2_bn254_tpu_torch.ops import msm as M
+
+    nwin, b = M.num_windows(c), 1 << c
+    reduce_sets = nsets if reduce_sets is None else reduce_sets
+    parts, buckets = nsets * nwin * M.subruns(n, c), nsets * nwin * b
+
+    def grid(threads):
+        return f"{-(-threads // 128)} x 128"
+
+    return (f"K3 pass A {grid(parts)} (one thread per set, window and sub-run: {M.subruns(n, c)} sub-runs a "
+            f"window, at most {M.SUBRUN} points each), {M.tree_levels(n)} tree launches of {grid(parts)}, collect "
+            f"{grid(buckets)}; K4 {reduce_sets * nwin} x {M.reduce_threads(b)} (one block per set and window)")
+
+
 def phase_msm_kernels(card: Card, records: list[dict], n: int = KERNEL_N) -> None:
+    from phase2_bn254_tpu_torch.ops import msm as M
     from phase2_bn254_tpu_torch.refimpl.field import R_MOD
 
     rng = random.Random(99)
     res = {}
     for group in ("g1", "g2"):
-        uniform = _msm_case(group, n, _edge_scalars(n, rng), rng, plain_k3=True)
-        hot_scalar = rng.randrange(R_MOD)
-        hot = _msm_case(group, n, [hot_scalar] * n, rng, plain_k3=False)
-        hot_small = _msm_case(group, HOT_N, [hot_scalar] * HOT_N, rng, plain_k3=True)
+        uniform = _msm_case(group, n, _edge_scalars(n, rng), rng)
+        hot = _msm_case(group, n, [rng.randrange(R_MOD)] * n, rng)
+        sweep = {"uniform": _subrun_sweep(uniform), "all-equal": _subrun_sweep(hot)}
         d1 = _d1_case(group, n, rng)
-        res[group] = uniform, hot, hot_small, d1
+        res[group] = uniform, hot, sweep, d1
         c = uniform["c"]
         log(f"phase 6 MSM {group}: N={n} (+1 points, 2 sets), c={c}: K3, K5 == plain limb for limb, K4 == plain "
-            f"after normalizing; results == refimpl; uniform scalars: K3 {uniform['k3_ms']:.3f} ms "
-            f"(plain {uniform['k3_plain_ms']:.3f}), K4 {uniform['k4_ms']:.3f} ms (plain {uniform['k4_plain_ms']:.3f}), "
-            f"K5 {uniform['k5_ms']:.3f} ms (plain {uniform['k5_plain_ms']:.3f})")
-        log(f"  all-equal scalars: K3 {hot['k3_ms']:.3f} ms (one lane per window adds all {n} points; limb check "
-            f"vs plain at N={HOT_N}: K3 {hot_small['k3_ms']:.3f} ms, plain {hot_small['k3_plain_ms']:.3f} ms), "
-            f"K4 {hot['k4_ms']:.3f} ms (plain {hot['k4_plain_ms']:.3f}), K5 {hot['k5_ms']:.3f} ms "
-            f"(plain {hot['k5_plain_ms']:.3f}); results == refimpl")
-        for key, what in (("k3", "K3"), ("k4", "K4"), ("k5", "K5")):
-            for label, case in (("uniform", uniform), ("all-equal", hot)):
+            f"after normalizing, on uniform and all-equal scalars; results == refimpl")
+        for label, case in (("uniform", uniform), ("all-equal", hot)):
+            log(f"  {label} scalars: K3 {case['k3_ms']:.3f} ms (plain {case['k3_plain_ms']:.3f}), K4 "
+                f"{case['k4_ms']:.3f} ms (plain {case['k4_plain_ms']:.3f}), K5 {case['k5_ms']:.3f} ms (plain "
+                f"{case['k5_plain_ms']:.3f})")
+            for key, what in (("k3", "K3"), ("k4", "K4"), ("k5", "K5")):
                 b, by = card.bound(*case[f"{key}_work"])
-                log(f"  bound {what} {label}: {b:.3f} ms ({by}; {case[f'{key}_work'][1]} Fq products, "
-                    f"{case[f'{key}_work'][0]} bytes)")
+                own = case.get(f"{key}_kernel_products")
+                log(f"    bound {what}: {b:.3f} ms ({by}; {case[f'{key}_work'][1]} Fq products, "
+                    f"{case[f'{key}_work'][0]} bytes" + (f"; the kernel does {own} Fq products)" if own else ")"))
+        for label, times in sweep.items():
+            log(f"  K3 with its sub-run table at L = " + ", ".join(f"{k}: {v:.3f} ms" for k, v in times.items())
+                + f" ({label} scalars, prep included; L = {M.SUBRUN} is the module's)")
         b, by = card.bound(*d1["work"])
         log(f"phase 6 D1 {group}: N={n} ({NONRESIDUES} without a root, flags random): kernel == plain limb for limb "
             f"and mask; mask == host residuosity; 64 points == refimpl; a non-residue through decode_batch raises; "
             f"kernel {d1['ms']:.3f} ms, plain {d1['plain_ms']:.3f} ms, bound {b:.3f} ms ({by})")
+    geometry = _msm_geometry(n, res["g1"][0]["c"], 2)
+    log(f"  launches of one call at N={n}: {geometry}")
+    for line in _ptxas_of(("bucket_accumulate", "bucket_reduce")):
+        log(f"  ptxas: {line}")
 
     sources = "phase2_bn254_tpu_torch/csrc/msm.cu"
     for name, key, replaces in (("bucket_accumulate", "k3", "phase2_bn254_tpu/ops/pallas_msm.py:198"),
@@ -926,14 +1035,25 @@ def phase_msm_kernels(card: Card, records: list[dict], n: int = KERNEL_N) -> Non
                                 ("combine_windows", "k5", "phase2_bn254_tpu/ops/pallas_msm.py:591")):
         per = {}
         for group in ("g1", "g2"):
-            uniform = res[group][0]
+            uniform, hot, sweep = res[group][:3]
             bound_ms, bound_by = card.bound(*uniform[f"{key}_work"])
             per[group] = {"ms": uniform[f"{key}_ms"], "plain_ms": uniform[f"{key}_plain_ms"],
-                          "max_abs_err": uniform[f"{key}_err"], "bound_ms": bound_ms, "bound_by": bound_by,
-                          "all_equal_ms": res[group][1][f"{key}_ms"]}
+                          "max_abs_err": max(uniform[f"{key}_err"], hot[f"{key}_err"]), "bound_ms": bound_ms,
+                          "bound_by": bound_by, "fq_products": uniform[f"{key}_work"][1],
+                          "all_equal": {"ms": hot[f"{key}_ms"], "plain_ms": hot[f"{key}_plain_ms"],
+                                        "bound_ms": card.bound(*hot[f"{key}_work"])[0]}}
+            if f"{key}_kernel_products" in uniform:
+                per[group]["kernel_fq_products"] = uniform[f"{key}_kernel_products"]
+                per[group]["all_equal"]["kernel_fq_products"] = hot[f"{key}_kernel_products"]
+            if key == "k3":
+                per[group]["subrun_ms"] = sweep
         g1 = per["g1"]
+        extra = {}
+        if key in ("k3", "k4"):
+            extra = {"fq_products": g1["fq_products"], "kernel_fq_products": g1["kernel_fq_products"],
+                     "geometry": geometry}
         records.append(record(card, name, sources, replaces, max(p["max_abs_err"] for p in per.values()), g1["ms"],
-                              g1["plain_ms"], res["g1"][0][f"{key}_work"], g2=per["g2"],
+                              g1["plain_ms"], res["g1"][0][f"{key}_work"], g2=per["g2"], **extra,
                               shape=f"N={n}, c={res['g1'][0]['c']}, 2 sets, uniform scalars; g2 and all-equal beside"))
     per = {}
     for group in ("g1", "g2"):
@@ -1052,11 +1172,11 @@ def phase_verify(workdir: str, records: list[dict], size: int = SMOKE_SIZE, batc
         M.LAUNCHES[name] = 0
     timers.device_of("d1", D, "decompress")
     D.LAUNCHES["decompress"] = 0
-    pp_calls = [0]
+    pp_sizes = []  # scalars of each power_pairs call
     counted = B.TorchBackend.power_pairs
 
     def power_pairs(self, ps):
-        pp_calls[0] += 1
+        pp_sizes.append(ps.n - 1)
         return counted(self, ps)
 
     B.TorchBackend.power_pairs = power_pairs
@@ -1073,12 +1193,14 @@ def phase_verify(workdir: str, records: list[dict], size: int = SMOKE_SIZE, batc
     low = len(list(params.chunks("low")))
     high = len(list(params.chunks("high")))
     want_pp = 4 * low + high + 1  # every chunk of every kind, and the seam
-    if pp_calls[0] != want_pp:
-        raise AssertionError(f"{pp_calls[0]} power_pairs calls, want {want_pp}")
-    want = {**dict.fromkeys(M.LAUNCHES, want_pp), "decompress": 2 * (4 * low + high)}
+    if len(pp_sizes) != want_pp:
+        raise AssertionError(f"{len(pp_sizes)} power_pairs calls, want {want_pp}")
+    want = {**dict.fromkeys(M.LAUNCHES, want_pp), "decompress": 2 * (4 * low + high),
+            "bucket_accumulate": sum(M.accumulate_launches(n) for n in pp_sizes)}
     if launches != want:
-        raise AssertionError(f"kernel launches {launches}, want {want} (K3-K5: one per power_pairs, which runs its "
-                             f"two MSMs as two sets; D1: one per compressed chunk decode, verify and decompress)")
+        raise AssertionError(f"kernel launches {launches}, want {want} (K3: one call of accumulate_launches(N) "
+                             f"launches, K4, K5: one launch per power_pairs, which runs its two MSMs as two sets; "
+                             f"D1: one per compressed chunk decode, verify and decompress)")
     for r in records:
         if r["name"] in launches:
             r["launches"] = launches[r["name"]]
@@ -1098,7 +1220,8 @@ def phase_verify(workdir: str, records: list[dict], size: int = SMOKE_SIZE, batc
     top = ("decode", "power_pairs", "ratios", "pairings", "encode", "hashing")
     other = total - sum(w[k] for k in top)
     log(f"phase 8 verify: size {size} batch {batch}: passes; {want_pp} power_pairs ({2 * want_pp} MSMs) -> K3, K4, K5 "
-        f"launches {launches['bucket_accumulate']}, {launches['bucket_reduce']}, {launches['combine_windows']}; "
+        f"launches {launches['bucket_accumulate']} ({want_pp} calls; {M.accumulate_launches(batch)} launches a call "
+        f"at N={batch}), {launches['bucket_reduce']}, {launches['combine_windows']}; "
         f"D1 launches {launches['decompress']} (== compressed chunk decodes)")
     log(f"  wall s: total {total:.3f} | decode (codec, D1, valid-mask sync) {w['decode']:.3f} | power_pairs "
         f"{w['power_pairs']:.3f} (of it coefficients {w['coefficients']:.3f}, prep enqueue {w['prep']:.3f}; the rest "
@@ -1306,49 +1429,33 @@ def _shares_text(shares: dict) -> str:
                      for name, (zero, one, n) in shares.items())
 
 
-def _cap_runs(scalars, c: int, cap: int):
-    """The scalars with every one zeroed that lies beyond the first `cap`
-    points of a bucket run longer than cap, so that the plain K3 takes at
-    most cap waves. Zeroed scalars only leave runs: no run grows."""
-    import torch
-    from phase2_bn254_tpu_torch.ops import msm as M
-
-    prep = M.prep_windows(scalars, c)
-    lo, length = M.lane_runs(prep.starts, prep.counts, prep.groups)
-    out = scalars.clone()
-    for w, lane in (length > cap).nonzero().tolist():
-        first = int(lo[w, lane]) + cap
-        out[prep.orders[w, first : int(lo[w, lane] + length[w, lane])]] = 0
-    return out
-
-
 def _k3_sets(group: str, sets, c: int) -> dict:
     """K3 over each (points, scalars, shifts) set as msm.accumulate_sets
-    launches it, and its plain version: time (CUDA events), work, and the
+    calls it, and its plain version: time (CUDA events), work, and the
     largest limb difference."""
     import torch
     from phase2_bn254_tpu_torch.ops import msm as M
 
-    args, products = [], 0
+    args, products, own = [], 0, 0
     for points, scalars, shifts in sets:
         prep = M.prep_windows(scalars, c)
         shift_t = torch.tensor(shifts, dtype=torch.int64, device=points.x.device)
-        args.append((points.x, points.y, points.inf, shift_t, prep.orders, prep.starts, prep.counts, prep.groups))
+        args.append((points.x, points.y, points.inf, shift_t, *prep[:5]))
         products += _k3_products(group, prep, len(shifts))
+        own += _k3_kernel_products(group, prep, len(shifts))
     parts, ms = once_ms(lambda: [M.bucket_accumulate(*a) for a in args])
     want, plain_ms = once_ms(lambda: [M.bucket_accumulate_plain(*a) for a in args])
     return {"ms": ms, "plain_ms": plain_ms, "err": max(max_limb_err(got, w) for got, w in zip(parts, want)),
-            "work": (sum(nbytes(*a) for a in args) + sum(nbytes(*p) for p in parts), products)}
+            "work": (sum(nbytes(*a) for a in args) + sum(nbytes(*p) for p in parts), products),
+            "kernel_fq_products": own}
 
 
 def _prover_msm_kernels(card: Card, captured: list, records: list[dict]) -> None:
     """K3, K4 and K5 at the prover's own shapes, on the sets its msm_sets
     calls took in the run just made (three G1 sets sharing one K4 and one K5
-    launch, one G2 set): K4 and K5 against their plain versions on the very
-    buckets the prover builds (msm.accumulate_sets, as msm_sets runs it), K3
-    against its plain version on the same sets with every bucket run capped
-    at HOT_N points (the plain version takes one step per point of the
-    longest run)."""
+    launch, one G2 set), each against its plain version: K3 on those sets
+    (the witness' ones and all), K4 and K5 on the very buckets the prover
+    builds (msm.accumulate_sets, as msm_sets runs it)."""
     from phase2_bn254_tpu_torch.curve import group as G
     from phase2_bn254_tpu_torch.field.fq2 import FQ, FQ2
     from phase2_bn254_tpu_torch.ops import msm as M
@@ -1359,14 +1466,13 @@ def _prover_msm_kernels(card: Card, captured: list, records: list[dict]) -> None
         f = FQ if group == "g1" else FQ2
         c = M.pick_window(max(k.shape[0] for _, k, _ in sets))
         sizes = [k.shape[0] for _, k, _ in sets]
-        (buckets, groups), k3_ms = once_ms(lambda: M.accumulate_sets(sets, c))
-        capped_sets = [(p, _cap_runs(k, c, HOT_N), sh) for p, k, sh in sets]
-        capped = _k3_sets(group, capped_sets, c)
-        if capped["err"]:
+        buckets, k3_ms = once_ms(lambda: M.accumulate_sets(sets, c))
+        k3 = _k3_sets(group, sets, c)
+        if k3["err"]:
             raise AssertionError(f"K3 {group} at the prover's shape: kernel and plain version differ "
-                                 f"(max abs limb error {capped['err']})")
-        sums, k4_ms = once_ms(lambda: M.bucket_reduce(buckets, groups))
-        want, k4_plain_ms = once_ms(lambda: M.bucket_reduce_plain(buckets, groups))
+                                 f"(max abs limb error {k3['err']})")
+        sums, k4_ms = once_ms(lambda: M.bucket_reduce(buckets))
+        want, k4_plain_ms = once_ms(lambda: M.bucket_reduce_plain(buckets))
         flat = [G.JacobianBatch(*(t.reshape(-1, *t.shape[2:]) for t in x)) for x in (sums, want)]
         k4_err = max_limb_err(*(G.jac_normalize(f, x) for x in flat))
         if k4_err:
@@ -1378,24 +1484,30 @@ def _prover_msm_kernels(card: Card, captured: list, records: list[dict]) -> None
         if k5_err:
             raise AssertionError(f"K5 {group} at the prover's shape: kernel and plain version differ (max abs limb "
                                  f"error {k5_err})")
-        work = {"bucket_accumulate": capped["work"],
-                "bucket_reduce": (nbytes(*buckets, groups, *sums), _k4_products(group, buckets, groups)),
+        work = {"bucket_accumulate": k3["work"],
+                "bucket_reduce": (nbytes(*buckets, *sums), _k4_products(group, buckets)),
                 "combine_windows": (nbytes(*sums, *res), _k5_products(group, sums, c))}
-        times = {"bucket_accumulate": (capped["ms"], capped["plain_ms"], capped["err"]),
+        own = {"bucket_accumulate": k3["kernel_fq_products"], "bucket_reduce": _k4_kernel_products(group, buckets)}
+        times = {"bucket_accumulate": (k3["ms"], k3["plain_ms"], k3["err"]),
                  "bucket_reduce": (k4_ms, k4_plain_ms, k4_err), "combine_windows": (k5_ms, k5_plain_ms, k5_err)}
         shape = f"{len(sets)} set(s) of {sizes} scalars, c={c}"
         for name, (ms, plain_ms, err) in times.items():
             bound_ms, bound_by = card.bound(*work[name])
             per_kernel[name][group] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "bound_ms": bound_ms,
-                                       "bound_by": bound_by, "shape": shape}
-        per_kernel["bucket_accumulate"][group]["uncapped_ms"] = k3_ms
-        b3 = card.bound(*capped["work"])[0]
-        log(f"phase 10 MSM kernels at the prover's {group} shape ({shape}): K3 == plain limb for limb with runs "
-            f"capped at {HOT_N} points (kernel {capped['ms']:.3f} ms, plain {capped['plain_ms']:.3f} ms, bound "
-            f"{b3:.3f} ms); K3 on the prover's own scalars {k3_ms:.3f} ms (with their digit sort, as msm_sets runs "
-            f"it); on those buckets K4 == plain after "
-            f"normalizing (kernel {k4_ms:.3f} ms, plain {k4_plain_ms:.3f} ms), K5 == plain limb for limb (kernel "
-            f"{k5_ms:.3f} ms, plain {k5_plain_ms:.3f} ms)")
+                                       "bound_by": bound_by, "shape": shape, "fq_products": work[name][1]}
+            if name in own:
+                per_kernel[name][group]["kernel_fq_products"] = own[name]
+        per_kernel["bucket_accumulate"][group]["with_prep_ms"] = k3_ms
+        launches = sum(M.accumulate_launches(n) for n in sizes)
+        log(f"phase 10 MSM kernels at the prover's {group} shape ({shape}): K3 == plain limb for limb (kernel "
+            f"{k3['ms']:.3f} ms in {launches} launches, plain {k3['plain_ms']:.3f} ms, bound "
+            f"{card.bound(*k3['work'])[0]:.3f} ms: {k3['work'][1]} Fq products, the kernel does "
+            f"{k3['kernel_fq_products']}); K3 with its digit sort, as msm_sets runs it, {k3_ms:.3f} ms; on those "
+            f"buckets K4 == plain after normalizing (kernel {k4_ms:.3f} ms, plain {k4_plain_ms:.3f} ms, bound "
+            f"{card.bound(*work['bucket_reduce'])[0]:.3f} ms: {work['bucket_reduce'][1]} Fq products, the kernel "
+            f"does {own['bucket_reduce']}), K5 == plain limb for limb (kernel {k5_ms:.3f} ms, plain "
+            f"{k5_plain_ms:.3f} ms)")
+        log(f"  launches of K3 on the largest set and of K4: {_msm_geometry(max(sizes), c, 1, len(sets))}")
     for r in records:
         if r["name"] in per_kernel:
             r["prove_shape"] = per_kernel[r["name"]]
@@ -1434,15 +1546,28 @@ def phase_prove(card: Card, workdir: str, records: list[dict], exp: int = PROVE_
         for counts in (ntt.LAUNCHES, M.LAUNCHES):
             for name in counts:
                 counts[name] = 0
-        t0 = time.time()
-        cli2.main_prove(argv)
-        torch.cuda.synchronize()
-        total = time.time() - t0
+        k3_sizes = []  # scalars of each K3 call
+        k3 = M.bucket_accumulate
+
+        def counted(*a):
+            k3_sizes.append(a[4].shape[1])
+            return k3(*a)
+
+        M.bucket_accumulate = counted
+        try:
+            t0 = time.time()
+            cli2.main_prove(argv)
+            torch.cuda.synchronize()
+            total = time.time() - t0
+        finally:
+            M.bucket_accumulate = k3
         launches = {**ntt.LAUNCHES, **M.LAUNCHES}
-        want = {"lane_dft": 14, "bucket_accumulate": 4, "bucket_reduce": 2, "combine_windows": 2}
-        if launches != want:
-            raise AssertionError(f"kernel launches {launches}, want {want} (7 NTTs of 2 passes; 3 G1 MSMs sharing "
-                                 f"one K4 and K5 launch, 1 G2 MSM)")
+        want = {"lane_dft": 14, "bucket_accumulate": sum(M.accumulate_launches(n) for n in k3_sizes),
+                "bucket_reduce": 2, "combine_windows": 2}
+        if launches != want or len(k3_sizes) != 4:
+            raise AssertionError(f"kernel launches {launches}, want {want} in 4 K3 calls, got {len(k3_sizes)} (7 "
+                                 f"NTTs of 2 passes; 3 G1 MSMs sharing one K4 and K5 launch, 1 G2 MSM; a K3 call "
+                                 f"makes accumulate_launches(N) launches)")
         return total, launches
 
     total, launches = as_a_user_runs_it()

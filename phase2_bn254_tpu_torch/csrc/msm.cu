@@ -1,5 +1,5 @@
-// K3, K4, K5: the Pippenger multi-scalar multiplication of the verify path,
-// G1 (Fq) and G2 (Fq2), one C entry point per kernel and group.
+// K3, K4, K5: the Pippenger multi-scalar multiplication of the verify and
+// prove paths, G1 (Fq) and G2 (Fq2), one C entry point per kernel and group.
 //
 // Replaces the TPU kernels of phase2_bn254_tpu/ops/pallas_msm.py:
 //   K3 bucket_accumulate  <- _wave_accumulate (_wave_kernel)
@@ -8,87 +8,153 @@
 //                            hot-bucket fold)
 // What the three compute is that of the TPU kernels; the TPU's dense wave
 // grid (packed rows, the kernel-transpose mode, the wave cap and its host
-// sync) is not carried over. ops/msm.py prepares the inputs: for each c-bit
-// window w (least significant first) the point indices sorted by digit
-// (`orders`, (nwin, N)), and each digit's start and count in that order
-// ((nwin, B), B = 2^c). Lane l of window w covers digit l / g_w and
-// sub-range l % g_w of that digit's run (g_w > 1 only in the top window,
-// whose digits have fewer than c bits), as _msm_main assigns them.
+// sync, the hot-bucket dense pass) is not carried over. ops/msm.py prepares
+// the inputs on the device: for each c-bit window w (least significant
+// first) the point indices sorted by digit (`orders`, (nwin, N)); each
+// digit's start and count in that order and the index of its first sub-run
+// ((nwin, B), B = 2^c; digit 0 has count 0); and the digit of each sub-run
+// (`runs`, (nwin, M), B past the last). A sub-run is at most L consecutive
+// points of one digit's run (L = msm.SUBRUN): digit d's i-th sub-run holds
+// its points i L .. min((i + 1) L, count) - 1. M = ceil(N / L) + B bounds
+// the sub-runs of a window whatever the digits, so no shape depends on the
+// data.
 //
 // Every kernel computes S MSMs at once that share the scalars: set s takes
 // the points shifts[s] .. shifts[s] + N - 1 of one array (power_pairs' v[:-1]
 // and v[1:], S = 2).
-// K3: one thread per (set, window, lane), all in one launch. The thread
-//   walks its contiguous run of the sorted order and mixed-adds each affine
-//   point (skipping points at infinity) into a Jacobian accumulator that
-//   starts at infinity; digit-0 lanes stay at infinity. Out: (S, nwin, B)
-//   Jacobian bucket sums.
-// K4: one thread per (set, window): sum_l (l / g_w) S_l by summation by
-//   parts, a serial running suffix sum added into the total at the
-//   weight-step lanes (l % g_w == 0, l != 0). Out: (S, nwin) window sums.
+// K3 (2 + levels launches): pass A, one thread per (set, window, sub-run),
+//   mixed-adds its <= L affine points (skipping points at infinity) into a
+//   Jacobian partial that starts at infinity; then `levels` = ceil(log2(
+//   ceil(N / L))) tree launches, in level k the partial of local index i
+//   (i % 2^(k+1) == 0) of each digit adds the one of index i + 2^k, if the
+//   digit has it; then one thread per (set, window, digit) collects the
+//   digit's first partial (infinity if it has none). Out: (S, nwin, B)
+//   Jacobian bucket sums indexed by digit (the top window's digits have
+//   fewer than c bits; its upper buckets stay at infinity).
+// K4: one block of T threads per (set, window) (T a power of two dividing
+//   B, at most kReduceThreads): sum_l l S_l. Thread j sums its own range of
+//   m = B / T buckets by the running-sum trick (R_j, and W_j = sum (l - j m)
+//   S_l over its range); a suffix scan over the block gives Suf_j = sum_{j'
+//   >= j} R_j', so that sum_l l S_l = sum_j (W_j + m Suf_j [j > 0]); each
+//   thread multiplies its Suf_j by m with log2 m doublings, adds W_j, and a
+//   tree over the block sums the T points. Out: (S, nwin) window sums.
 // K5: one thread per set: sum_w 2^(c w) T_w, most significant window first,
 //   with c doublings and one add per window. Out: (S) Jacobian points.
 // All values Montgomery, fully reduced; int64 16-bit digits as the tensors.
 //
 // What bounds them on this card: 32-bit integer multiply throughput inside
-// long per-thread chains of group operations (11 Montgomery products per
-// mixed add, 16 per add, 7 per doubling). K3 has nwin * B threads (14,848 at
-// the verify chunk's c = 9), fewer than the card holds, so it is bound by
-// the latency of each thread's chain rather than by the multiplier rate;
-// a skewed digit distribution puts long runs on a few threads (correct,
-// only slower). K4 is nwin serial chains of 2 (B - 1) adds and K5 one chain
-// of c * nwin doublings: both are latency-bound by design (simple first).
-// G2 keeps its Jacobian accumulator (192 bytes) in registers. The point
-// gathers of K3 (64 or 128 bytes per point through `orders`) hit the L2
-// cache: a verify chunk's points are 4 or 8 MB.
+// per-thread chains of group operations (11 Montgomery products per mixed
+// add, 16 per add, 7 per doubling), and the latency of those chains where
+// too few threads run. The design bounds every chain whatever the digit
+// distribution: a K3 thread does at most L mixed adds and then at most
+// ceil(log2(N / L)) adds (an all-equal chunk or a witness' ones spread over
+// N / L threads and a tree instead of one thread's run), which gives K3 4x
+// the threads of one thread per bucket on uniform scalars, so the
+// multiplier rate of its field code, not a chain, sets its time (PERF.md).
+// A K4 thread does 2 m - 1 adds, 2 log2 T adds and log2 m doublings (21
+// group operations at c = 9, 52 at c = 12, where one thread per window
+// would do 2 (B - 1)); with a block per window on 132 SMs K4's time is
+// still that chain's latency. K4 keeps one Jacobian point a thread in
+// shared memory (T x 192 bytes for G2, 48 KB at T = 256). The point gathers
+// of K3 (256 or 512 bytes of int64 digits per affine point through
+// `orders`) hit the L2 cache: a verify chunk's points are 16 or 32 MB.
 //
 // Outside nvcc (no __CUDACC__) only the per-thread functions are compiled,
-// so a host C++ compiler can run the arithmetic on the CPU.
+// so a host C++ compiler can run the arithmetic on the CPU, thread by thread
+// in the kernels' order.
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #endif
 
 #include "field.cuh"
 
-// K3, thread t = (s * nwin + w) * b + l
+// K3 pass A, thread t = (s * nwin + w) * m + j: sub-run j of window w
 template <class F>
-__device__ void bucket_accumulate_lane(const int64_t* x, const int64_t* y, const bool* inf, const int64_t* shifts,
-                                       const int64_t* orders, const int64_t* starts, const int64_t* counts,
-                                       const int64_t* groups, int64_t* ox, int64_t* oy, int64_t* oz, int64_t t,
-                                       int n, int nwin, int b) {
-  int64_t l = t % b, w = t / b % nwin, shift = shifts[t / b / nwin];
-  int64_t g = groups[w], d = l / g, gr = l % g;
+__device__ void accumulate_subrun(const int64_t* x, const int64_t* y, const bool* inf, const int64_t* shifts,
+                                  const int64_t* orders, const int64_t* starts, const int64_t* counts,
+                                  const int64_t* first, const int64_t* runs, int64_t* px, int64_t* py, int64_t* pz,
+                                  int64_t t, int n, int nwin, int m, int b, int sub) {
+  int64_t j = t % m, w = t / m % nwin, shift = shifts[t / m / nwin];
+  int64_t d = runs[w * m + j];
   Jac<F> acc = jac_infinity<F>();
-  if (d != 0) {
-    int64_t s = starts[w * b + d], cnt = counts[w * b + d];
-    int64_t sub = (cnt + g - 1) / g;
-    int64_t lo = s + gr * sub;
-    int64_t hi = s + ((gr + 1) * sub < cnt ? (gr + 1) * sub : cnt);
+  if (d < b) {
+    int64_t k = w * b + d, i = j - first[k];
+    int64_t lo = starts[k] + i * sub, end = starts[k] + counts[k];
+    int64_t hi = lo + sub < end ? lo + sub : end;
     const int64_t* order = orders + w * n;
     for (int64_t pos = lo; pos < hi; ++pos) {
-      int64_t i = order[pos] + shift;
-      if (inf[i]) continue;
+      int64_t p = order[pos] + shift;
+      if (inf[p]) continue;
       F qx, qy;
-      load_el(x + kDigits<F> * i, qx);
-      load_el(y + kDigits<F> * i, qy);
+      load_el(x + kDigits<F> * p, qx);
+      load_el(y + kDigits<F> * p, qy);
       acc = jac_madd(acc, qx, qy);
     }
   }
-  store_jac(ox, oy, oz, t, acc);
+  store_jac(px, py, pz, t, acc);
 }
 
-// K4, thread t = s * nwin + w
+// K3 tree level `level`, thread t as in pass A: the partial of local index
+// i adds the one of index i + 2^level (the same digit's) where i is a
+// multiple of 2^(level + 1); no other thread of the level reads or writes
+// either
 template <class F>
-__device__ void bucket_reduce_window(const int64_t* bx, const int64_t* by, const int64_t* bz,
-                                     const int64_t* groups, int64_t* ox, int64_t* oy, int64_t* oz, int64_t t,
-                                     int nwin, int b) {
-  int64_t g = groups[t % nwin];
-  Jac<F> running = jac_infinity<F>(), total = jac_infinity<F>();
-  for (int l = b - 1; l >= 1; --l) {
-    running = jac_add(running, load_jac<F>(bx, by, bz, t * b + l));
-    if (l % g == 0) total = jac_add(total, running);
+__device__ void accumulate_tree_step(int64_t* px, int64_t* py, int64_t* pz, const int64_t* counts,
+                                     const int64_t* first, const int64_t* runs, int64_t t, int nwin, int m, int b,
+                                     int sub, int level) {
+  int64_t j = t % m, w = t / m % nwin;
+  int64_t d = runs[w * m + j];
+  if (d >= b) return;
+  int64_t k = w * b + d, i = j - first[k], nsub = (counts[k] + sub - 1) / sub, half = (int64_t)1 << level;
+  if ((i & (2 * half - 1)) != 0 || i + half >= nsub) return;
+  store_jac(px, py, pz, t, jac_add(load_jac<F>(px, py, pz, t), load_jac<F>(px, py, pz, t + half)));
+}
+
+// K3 collect, thread t = (s * nwin + w) * b + d
+template <class F>
+__device__ void accumulate_collect(const int64_t* px, const int64_t* py, const int64_t* pz, const int64_t* counts,
+                                   const int64_t* first, int64_t* ox, int64_t* oy, int64_t* oz, int64_t t, int nwin,
+                                   int m, int b) {
+  int64_t row = t / b, k = row % nwin * b + t % b;
+  store_jac(ox, oy, oz, t, counts[k] > 0 ? load_jac<F>(px, py, pz, row * m + first[k]) : jac_infinity<F>());
+}
+
+// K4 range pass, thread j of the block of row = s * nwin + w (nt threads):
+// run = R_j, the sum of its m = b / nt buckets, and wsum = W_j = sum_i i
+// S_(j m + i), by the running sum over i = m - 1 .. 0
+template <class F>
+__device__ void reduce_range(const int64_t* bx, const int64_t* by, const int64_t* bz, int64_t row, int b, int nt,
+                             int j, Jac<F>& run, Jac<F>& wsum) {
+  int m = b / nt;
+  int64_t base = row * b + (int64_t)j * m;
+  run = jac_infinity<F>();
+  wsum = jac_infinity<F>();
+  for (int i = m - 1; i >= 1; --i) {
+    run = jac_add(run, load_jac<F>(bx, by, bz, base + i));
+    wsum = jac_add(wsum, run);
   }
-  store_jac(ox, oy, oz, t, total);
+  run = jac_add(run, load_jac<F>(bx, by, bz, base));
+}
+
+// K4 suffix-scan step k (1, 2, 4, .. < nt) of thread j: its value plus the
+// one k threads up, as all threads held them before the step
+template <class F>
+__device__ Jac<F> reduce_suffix_step(const Jac<F>& own, const Jac<F>* held, int j, int k, int nt) {
+  return j + k < nt ? jac_add(own, held[j + k]) : own;
+}
+
+// K4: thread j's term W_j + m Suf_j (Suf_0 has weight 0)
+template <class F>
+__device__ Jac<F> reduce_weigh(const Jac<F>& suffix, const Jac<F>& wsum, int j, int m) {
+  Jac<F> p = j ? suffix : jac_infinity<F>();
+  for (int k = m; k > 1; k >>= 1) p = jac_double(p);
+  return jac_add(wsum, p);
+}
+
+// K4 tree step: thread j < stride adds the term `stride` threads up
+template <class F>
+__device__ void reduce_tree_step(Jac<F>* terms, int j, int stride) {
+  if (j < stride) terms[j] = jac_add(terms[j], terms[j + stride]);
 }
 
 // K5, set s
@@ -107,27 +173,71 @@ __device__ void combine_windows_point(const int64_t* sx, const int64_t* sy, cons
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kReduceThreads = 256;
+static_assert(kReduceThreads * sizeof(Jac<Fp2>) <= 48 * 1024, "K4's shared points must fit the default 48 KB");
 
 template <class F>
 __global__ void __launch_bounds__(kThreads)
 bucket_accumulate_kernel(const int64_t* __restrict__ x, const int64_t* __restrict__ y, const bool* __restrict__ inf,
                          const int64_t* __restrict__ shifts, const int64_t* __restrict__ orders,
                          const int64_t* __restrict__ starts, const int64_t* __restrict__ counts,
-                         const int64_t* __restrict__ groups, int64_t* __restrict__ ox, int64_t* __restrict__ oy,
-                         int64_t* __restrict__ oz, int nsets, int n, int nwin, int b) {
+                         const int64_t* __restrict__ first, const int64_t* __restrict__ runs,
+                         int64_t* __restrict__ px, int64_t* __restrict__ py, int64_t* __restrict__ pz, int64_t total,
+                         int n, int nwin, int m, int b, int sub) {
   int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t < (int64_t)nsets * nwin * b)
-    bucket_accumulate_lane<F>(x, y, inf, shifts, orders, starts, counts, groups, ox, oy, oz, t, n, nwin, b);
+  if (t < total)
+    accumulate_subrun<F>(x, y, inf, shifts, orders, starts, counts, first, runs, px, py, pz, t, n, nwin, m, b, sub);
 }
 
 template <class F>
 __global__ void __launch_bounds__(kThreads)
-bucket_reduce_kernel(const int64_t* __restrict__ bx, const int64_t* __restrict__ by,
-                     const int64_t* __restrict__ bz, const int64_t* __restrict__ groups,
-                     int64_t* __restrict__ ox, int64_t* __restrict__ oy, int64_t* __restrict__ oz, int nsets,
-                     int nwin, int b) {
+bucket_accumulate_tree_kernel(int64_t* __restrict__ px, int64_t* __restrict__ py, int64_t* __restrict__ pz,
+                              const int64_t* __restrict__ counts, const int64_t* __restrict__ first,
+                              const int64_t* __restrict__ runs, int64_t total, int nwin, int m, int b, int sub,
+                              int level) {
   int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t < (int64_t)nsets * nwin) bucket_reduce_window<F>(bx, by, bz, groups, ox, oy, oz, t, nwin, b);
+  if (t < total) accumulate_tree_step<F>(px, py, pz, counts, first, runs, t, nwin, m, b, sub, level);
+}
+
+template <class F>
+__global__ void __launch_bounds__(kThreads)
+bucket_accumulate_collect_kernel(const int64_t* __restrict__ px, const int64_t* __restrict__ py,
+                                 const int64_t* __restrict__ pz, const int64_t* __restrict__ counts,
+                                 const int64_t* __restrict__ first, int64_t* __restrict__ ox,
+                                 int64_t* __restrict__ oy, int64_t* __restrict__ oz, int64_t total, int nwin, int m,
+                                 int b) {
+  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t < total) accumulate_collect<F>(px, py, pz, counts, first, ox, oy, oz, t, nwin, m, b);
+}
+
+// one block per (set, window), blockDim.x = nt threads, nt Jacobian points
+// of dynamic shared memory
+template <class F>
+__global__ void __launch_bounds__(kReduceThreads)
+bucket_reduce_kernel(const int64_t* __restrict__ bx, const int64_t* __restrict__ by,
+                     const int64_t* __restrict__ bz, int64_t* __restrict__ ox, int64_t* __restrict__ oy,
+                     int64_t* __restrict__ oz, int b) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Jac<F>* held = reinterpret_cast<Jac<F>*>(smem);
+  int nt = blockDim.x, j = threadIdx.x;
+  int64_t row = blockIdx.x;
+  Jac<F> run, wsum;
+  reduce_range<F>(bx, by, bz, row, b, nt, j, run, wsum);
+  held[j] = run;
+  __syncthreads();
+  for (int k = 1; k < nt; k <<= 1) {
+    run = reduce_suffix_step<F>(run, held, j, k, nt);
+    __syncthreads();
+    held[j] = run;
+    __syncthreads();
+  }
+  held[j] = reduce_weigh<F>(run, wsum, j, b / nt);
+  __syncthreads();
+  for (int stride = nt / 2; stride >= 1; stride >>= 1) {
+    reduce_tree_step<F>(held, j, stride);
+    __syncthreads();
+  }
+  if (j == 0) store_jac(ox, oy, oz, row, held[0]);
 }
 
 template <class F>
@@ -143,26 +253,38 @@ inline int blocks_for(int64_t threads) { return (int)((threads + kThreads - 1) /
 
 template <class F>
 int launch_accumulate(const void* x, const void* y, const void* inf, const void* shifts, const void* orders,
-                      const void* starts, const void* counts, const void* groups, void* ox, void* oy, void* oz,
-                      int nsets, int n, int nwin, int b, void* stream) {
-  int64_t threads = (int64_t)nsets * nwin * b;
-  if (threads > 0) {
-    bucket_accumulate_kernel<F><<<blocks_for(threads), kThreads, 0, (cudaStream_t)stream>>>(
-        (const int64_t*)x, (const int64_t*)y, (const bool*)inf, (const int64_t*)shifts, (const int64_t*)orders,
-        (const int64_t*)starts, (const int64_t*)counts, (const int64_t*)groups, (int64_t*)ox, (int64_t*)oy,
-        (int64_t*)oz, nsets, n, nwin, b);
+                      const void* starts, const void* counts, const void* first, const void* runs, void* px,
+                      void* py, void* pz, void* ox, void* oy, void* oz, int nsets, int n, int nwin, int m, int b,
+                      int sub, int levels, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  int64_t parts = (int64_t)nsets * nwin * m, buckets = (int64_t)nsets * nwin * b;
+  if (parts <= 0 || buckets <= 0) return (int)cudaGetLastError();
+  bucket_accumulate_kernel<F><<<blocks_for(parts), kThreads, 0, st>>>(
+      (const int64_t*)x, (const int64_t*)y, (const bool*)inf, (const int64_t*)shifts, (const int64_t*)orders,
+      (const int64_t*)starts, (const int64_t*)counts, (const int64_t*)first, (const int64_t*)runs, (int64_t*)px,
+      (int64_t*)py, (int64_t*)pz, parts, n, nwin, m, b, sub);
+  int err = (int)cudaGetLastError();
+  for (int level = 0; level < levels && !err; ++level) {
+    bucket_accumulate_tree_kernel<F><<<blocks_for(parts), kThreads, 0, st>>>(
+        (int64_t*)px, (int64_t*)py, (int64_t*)pz, (const int64_t*)counts, (const int64_t*)first,
+        (const int64_t*)runs, parts, nwin, m, b, sub, level);
+    err = (int)cudaGetLastError();
   }
+  if (err) return err;
+  bucket_accumulate_collect_kernel<F><<<blocks_for(buckets), kThreads, 0, st>>>(
+      (const int64_t*)px, (const int64_t*)py, (const int64_t*)pz, (const int64_t*)counts, (const int64_t*)first,
+      (int64_t*)ox, (int64_t*)oy, (int64_t*)oz, buckets, nwin, m, b);
   return (int)cudaGetLastError();
 }
 
 template <class F>
-int launch_reduce(const void* bx, const void* by, const void* bz, const void* groups, void* ox, void* oy,
-                  void* oz, int nsets, int nwin, int b, void* stream) {
-  int64_t threads = (int64_t)nsets * nwin;
-  if (threads > 0) {
-    bucket_reduce_kernel<F><<<blocks_for(threads), kThreads, 0, (cudaStream_t)stream>>>(
-        (const int64_t*)bx, (const int64_t*)by, (const int64_t*)bz, (const int64_t*)groups, (int64_t*)ox,
-        (int64_t*)oy, (int64_t*)oz, nsets, nwin, b);
+int launch_reduce(const void* bx, const void* by, const void* bz, void* ox, void* oy, void* oz, int nsets, int nwin,
+                  int b, int nt, void* stream) {
+  if (nt < 1 || nt > kReduceThreads || (nt & (nt - 1)) || b % nt) return (int)cudaErrorInvalidValue;
+  int rows = nsets * nwin;
+  if (rows > 0) {
+    bucket_reduce_kernel<F><<<rows, nt, nt * sizeof(Jac<F>), (cudaStream_t)stream>>>(
+        (const int64_t*)bx, (const int64_t*)by, (const int64_t*)bz, (int64_t*)ox, (int64_t*)oy, (int64_t*)oz, b);
   }
   return (int)cudaGetLastError();
 }
@@ -180,18 +302,21 @@ int launch_combine(const void* sx, const void* sy, const void* sz, void* ox, voi
 
 }  // namespace
 
-// Each launches on `stream` and returns cudaGetLastError() after the launch.
+// Each launches on `stream` and returns cudaGetLastError() after the launch
+// (K3: after the first launch that fails, or the last). K3's px, py, pz are
+// its (S, nwin, M) scratch partials.
 #define P2_MSM_ENTRY_POINTS(G, F)                                                                                 \
   extern "C" int p2_bucket_accumulate_##G(const void* x, const void* y, const void* inf, const void* shifts,      \
                                           const void* orders, const void* starts, const void* counts,          \
-                                          const void* groups, void* ox, void* oy, void* oz, int nsets, int n,  \
-                                          int nwin, int b, void* stream) {                                     \
-    return launch_accumulate<F>(x, y, inf, shifts, orders, starts, counts, groups, ox, oy, oz, nsets, n, nwin, b, \
-                                stream);                                                                       \
+                                          const void* first, const void* runs, void* px, void* py, void* pz,   \
+                                          void* ox, void* oy, void* oz, int nsets, int n, int nwin, int m,     \
+                                          int b, int sub, int levels, void* stream) {                          \
+    return launch_accumulate<F>(x, y, inf, shifts, orders, starts, counts, first, runs, px, py, pz, ox, oy, oz,  \
+                                nsets, n, nwin, m, b, sub, levels, stream);                                    \
   }                                                                                                            \
-  extern "C" int p2_bucket_reduce_##G(const void* bx, const void* by, const void* bz, const void* groups,         \
-                                      void* ox, void* oy, void* oz, int nsets, int nwin, int b, void* stream) {  \
-    return launch_reduce<F>(bx, by, bz, groups, ox, oy, oz, nsets, nwin, b, stream);                           \
+  extern "C" int p2_bucket_reduce_##G(const void* bx, const void* by, const void* bz, void* ox, void* oy,         \
+                                      void* oz, int nsets, int nwin, int b, int nt, void* stream) {            \
+    return launch_reduce<F>(bx, by, bz, ox, oy, oz, nsets, nwin, b, nt, stream);                               \
   }                                                                                                            \
   extern "C" int p2_combine_windows_##G(const void* sx, const void* sy, const void* sz, void* ox, void* oy,       \
                                         void* oz, int nsets, int nwin, int c, void* stream) {                  \

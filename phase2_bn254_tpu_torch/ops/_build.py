@@ -42,8 +42,8 @@ ENTRY_POINTS = {
     "p2_batch_exp_g1_windowed": (6, 1),
     "p2_batch_exp_glv": (8, 2),
     "p2_batch_exp_gls": (7, 2),
-    **{f"p2_bucket_accumulate_{g}": (11, 4) for g in ("g1", "g2")},
-    **{f"p2_bucket_reduce_{g}": (7, 3) for g in ("g1", "g2")},
+    **{f"p2_bucket_accumulate_{g}": (15, 7) for g in ("g1", "g2")},
+    **{f"p2_bucket_reduce_{g}": (6, 4) for g in ("g1", "g2")},
     **{f"p2_combine_windows_{g}": (6, 3) for g in ("g1", "g2")},
     **{f"p2_decompress_{g}": (5, 1) for g in ("g1", "g2")},
     "p2_lane_dft": (5, 7),

@@ -11,11 +11,17 @@ package's helpers and refimpl, on the CPU (plain versions).
   with points at infinity, several hot buckets, all zero, and scalars
   >= 2^252 (the grouped top window);
 * `TorchBackend.msm` on host points against the same sum;
-* K3 and K5 plain against a per-lane loop over refimpl points, K4 plain
-  against sum_l (l // g) S_l from refimpl;
+* K3 and K5 plain against a per-bucket loop over refimpl points, K4 plain
+  against sum_l l S_l from refimpl;
+* the sub-run table of `prep_windows` (every digit's run cut into sub-runs
+  of at most SUBRUN points) against the digits;
+* K3's sub-runs and tree at their edges (runs of exactly SUBRUN points, one
+  more, several; equal partials, whose tree add doubles; cancelling
+  partials; points at infinity inside a sub-run; the top window's short
+  digits): bucket sums against refimpl integers, the MSM against refimpl;
 * the kernels' per-thread code (csrc/msm.cu), compiled for the host with
-  g++, against the plain versions (the kernels themselves run only on a
-  GPU: the `gpu` test).
+  g++ and run thread by thread in the kernels' order, against the plain
+  versions (the kernels themselves run only on a GPU: the `gpu` test).
 
 Tolerance: exact. K3 and K5 agree with their plain versions limb for limb;
 K4 adds in another order than its plain version, so those two are compared
@@ -99,8 +105,7 @@ def test_window_helpers_match_jax():
     limbs = convert.ints_to_limbs(vals, "cpu")
     jl = jnp.asarray(limbs.numpy().astype(np.uint32))
     for c in (7, 8, 9, 13):
-        assert M.window_groups(c) == pallas_msm._window_groups(c).tolist()
-        assert M.num_windows(c) == len(M.window_groups(c))
+        assert M.num_windows(c) == len(pallas_msm._window_groups(c))
         for w in range(M.num_windows(c)):
             want = np.asarray(jmsm._window_digits(jl, c, w)).astype(np.int64)
             assert np.array_equal(M.window_digits(limbs, c, w).numpy(), want), (c, w)
@@ -161,8 +166,8 @@ def stages():
     pts = _points("g1", logs)
     prep = M.prep_windows(convert.ints_to_limbs(ks, "cpu"), c)
     shifts = torch.tensor([0, 1])
-    buckets = M.bucket_accumulate(pts.x, pts.y, pts.inf, shifts, *prep[:4])
-    sums = M.bucket_reduce(buckets, prep.groups)
+    buckets = M.bucket_accumulate(pts.x, pts.y, pts.inf, shifts, *prep[:5])
+    sums = M.bucket_reduce(buckets)
     return dict(ks=ks, logs=logs, pts=pts, prep=prep, shifts=shifts, buckets=buckets, sums=sums,
                 out=M.combine_windows(sums, c), c=c, n=n)
 
@@ -174,8 +179,8 @@ def _host(jac, shape):
 
 
 def test_stages_match_per_lane_loops(stages):
-    """K3 plain against each lane's run summed with refimpl; K4 plain
-    against sum_l (l // g) S_l; K5 plain against sum_w 2^(c w) T_w."""
+    """K3 plain against each digit's points summed with refimpl; K4 plain
+    against sum_l l S_l; K5 plain against sum_w 2^(c w) T_w."""
     c, n, prep = stages["c"], stages["n"], stages["prep"]
     nwin, b = prep.starts.shape
     buckets = _host(stages["buckets"], (2, nwin, b))
@@ -183,20 +188,17 @@ def test_stages_match_per_lane_loops(stages):
     for s in (0, 1):
         pts = [GEN["g1"].mul(m) for m in stages["logs"][s : s + n]]
         for w in range(nwin):
-            g = int(prep.groups[w])
-            for d in range(1, b // g):
-                members = [pts[i] for i in range(n) if int(digits[w, i]) == d]
-                sub = -(-len(members) // g)
-                for part in range(g):
-                    want = rc.point_zero("g1")
-                    for p in members[part * sub : (part + 1) * sub]:
-                        want = want.add(p)
-                    assert buckets[s, w, d * g + part] == want, (s, w, d, part)
+            for d in range(b):
+                want = rc.point_zero("g1")
+                for i in range(n):
+                    if d and int(digits[w, i]) == d:
+                        want = want.add(pts[i])
+                assert buckets[s, w, d] == want, (s, w, d)
         sums = _host(stages["sums"], (2, nwin))
         for w in range(nwin):
             want = rc.point_zero("g1")
             for lane in range(b):
-                want = want.add(buckets[s, w, lane].mul(lane // int(prep.groups[w])))
+                want = want.add(buckets[s, w, lane].mul(lane))
             assert sums[s, w] == want
         want = rc.point_zero("g1")
         for w in range(nwin):
@@ -204,36 +206,89 @@ def test_stages_match_per_lane_loops(stages):
         assert _host(stages["out"], (2,))[s] == want == _want("g1", stages["logs"][s : s + n], stages["ks"])
 
 
+@pytest.mark.parametrize("n,c,scalars", [(40, 7, "uniform"), (300, 9, "equal"), (300, 8, "ones"), (0, 7, "none")])
+def test_subrun_table_covers_each_run(n, c, scalars):
+    """Every digit's run of the sorted order, cut in order into sub-runs of
+    at most SUBRUN points, within the static subruns(N, c) a window."""
+    rng = np.random.default_rng(n + c)
+    ks = {"uniform": _uniform(rng, n), "equal": [12345] * n, "ones": [1] * (n // 2) + _uniform(rng, n - n // 2),
+          "none": []}[scalars]
+    prep = M.prep_windows(convert.ints_to_limbs(ks, "cpu").reshape(n, 16), c)
+    digits = M.all_window_digits(convert.ints_to_limbs(ks, "cpu").reshape(n, 16), c).T
+    assert prep.runs.shape == (M.num_windows(c), M.subruns(n, c))
+    lo, length, rank, nsub = M.subrun_table(*prep[1:5])
+    b, L = 1 << c, M.SUBRUN
+    for w in range(M.num_windows(c)):
+        live = prep.runs[w] < b
+        assert int(live.sum()) <= M.subruns(n, c) - 1 and not bool(live[int(live.sum()):].any())
+        got, seen = {}, {}
+        for j in live.nonzero().squeeze(1).tolist():
+            d = int(prep.runs[w, j])
+            assert 0 < int(length[w, j]) <= L and int(rank[w, j]) == seen.get(d, 0)
+            seen[d] = seen.get(d, 0) + 1
+            got.setdefault(d, []).extend(prep.orders[w, lo[w, j] : lo[w, j] + length[w, j]].tolist())
+        want = {}
+        for i, d in enumerate(digits[w].tolist()):
+            if d:
+                want.setdefault(d, []).append(i)
+        assert got == want
+        for d, idx in want.items():
+            assert int(nsub[w, prep.first[w, d]]) == -(-len(idx) // L) == int(-(-prep.counts[w, d] // L))
+
+
 _HOST_SHIM = r"""
 #include <cstdint>
+#include <vector>
 #define __device__
 #define __forceinline__ inline
 #define __noinline__
 #define __constant__
 #include "msm.cu"
+// K3's three passes and K4's steps, thread by thread, in the kernels' order
 template <class F>
 void acc(const int64_t* x, const int64_t* y, const bool* inf, const int64_t* shifts, const int64_t* orders,
-         const int64_t* starts, const int64_t* counts, const int64_t* groups, int64_t* ox, int64_t* oy, int64_t* oz,
-         int nsets, int n, int nwin, int b) {
+         const int64_t* starts, const int64_t* counts, const int64_t* first, const int64_t* runs, int64_t* px,
+         int64_t* py, int64_t* pz, int64_t* ox, int64_t* oy, int64_t* oz, int nsets, int n, int nwin, int m, int b,
+         int sub, int levels) {
+  int64_t parts = (int64_t)nsets * nwin * m;
+  for (int64_t t = 0; t < parts; ++t)
+    accumulate_subrun<F>(x, y, inf, shifts, orders, starts, counts, first, runs, px, py, pz, t, n, nwin, m, b, sub);
+  for (int level = 0; level < levels; ++level)
+    for (int64_t t = 0; t < parts; ++t) accumulate_tree_step<F>(px, py, pz, counts, first, runs, t, nwin, m, b, sub, level);
   for (int64_t t = 0; t < (int64_t)nsets * nwin * b; ++t)
-    bucket_accumulate_lane<F>(x, y, inf, shifts, orders, starts, counts, groups, ox, oy, oz, t, n, nwin, b);
+    accumulate_collect<F>(px, py, pz, counts, first, ox, oy, oz, t, nwin, m, b);
 }
-extern "C" void host_accumulate_g1(const int64_t* x, const int64_t* y, const bool* inf, const int64_t* shifts,
-                                   const int64_t* orders, const int64_t* starts, const int64_t* counts,
-                                   const int64_t* groups, int64_t* ox, int64_t* oy, int64_t* oz, int nsets, int n,
-                                   int nwin, int b) {
-  acc<Fp>(x, y, inf, shifts, orders, starts, counts, groups, ox, oy, oz, nsets, n, nwin, b);
+template <class F>
+void reduce(const int64_t* bx, const int64_t* by, const int64_t* bz, int64_t* ox, int64_t* oy, int64_t* oz, int nsets,
+            int nwin, int b, int nt) {
+  std::vector<Jac<F>> run(nt), wsum(nt), held(nt);
+  for (int64_t row = 0; row < (int64_t)nsets * nwin; ++row) {
+    for (int j = 0; j < nt; ++j) reduce_range<F>(bx, by, bz, row, b, nt, j, run[j], wsum[j]);
+    for (int k = 1; k < nt; k <<= 1) {
+      held = run;  // what every thread holds before the step
+      for (int j = 0; j < nt; ++j) run[j] = reduce_suffix_step<F>(run[j], held.data(), j, k, nt);
+    }
+    for (int j = 0; j < nt; ++j) held[j] = reduce_weigh<F>(run[j], wsum[j], j, b / nt);
+    for (int stride = nt / 2; stride >= 1; stride >>= 1)
+      for (int j = 0; j < nt; ++j) reduce_tree_step<F>(held.data(), j, stride);
+    store_jac(ox, oy, oz, row, held[0]);
+  }
 }
-extern "C" void host_accumulate_g2(const int64_t* x, const int64_t* y, const bool* inf, const int64_t* shifts,
-                                   const int64_t* orders, const int64_t* starts, const int64_t* counts,
-                                   const int64_t* groups, int64_t* ox, int64_t* oy, int64_t* oz, int nsets, int n,
-                                   int nwin, int b) {
-  acc<Fp2>(x, y, inf, shifts, orders, starts, counts, groups, ox, oy, oz, nsets, n, nwin, b);
-}
-extern "C" void host_reduce_g1(const int64_t* bx, const int64_t* by, const int64_t* bz, const int64_t* groups,
-                               int64_t* ox, int64_t* oy, int64_t* oz, int nsets, int nwin, int b) {
-  for (int64_t t = 0; t < (int64_t)nsets * nwin; ++t) bucket_reduce_window<Fp>(bx, by, bz, groups, ox, oy, oz, t, nwin, b);
-}
+#define SHIM(G, F)                                                                                                \
+  extern "C" void host_accumulate_##G(const int64_t* x, const int64_t* y, const bool* inf, const int64_t* shifts, \
+                                      const int64_t* orders, const int64_t* starts, const int64_t* counts,        \
+                                      const int64_t* first, const int64_t* runs, int64_t* px, int64_t* py,        \
+                                      int64_t* pz, int64_t* ox, int64_t* oy, int64_t* oz, int nsets, int n,       \
+                                      int nwin, int m, int b, int sub, int levels) {                              \
+    acc<F>(x, y, inf, shifts, orders, starts, counts, first, runs, px, py, pz, ox, oy, oz, nsets, n, nwin, m, b,  \
+           sub, levels);                                                                                          \
+  }                                                                                                               \
+  extern "C" void host_reduce_##G(const int64_t* bx, const int64_t* by, const int64_t* bz, int64_t* ox,           \
+                                  int64_t* oy, int64_t* oz, int nsets, int nwin, int b, int nt) {                 \
+    reduce<F>(bx, by, bz, ox, oy, oz, nsets, nwin, b, nt);                                                        \
+  }
+SHIM(g1, Fp)
+SHIM(g2, Fp2)
 extern "C" void host_combine_g1(const int64_t* sx, const int64_t* sy, const int64_t* sz, int64_t* ox, int64_t* oy,
                                 int64_t* oz, int nsets, int nwin, int c) {
   for (int64_t s = 0; s < nsets; ++s) combine_windows_point<Fp>(sx, sy, sz, ox, oy, oz, s, nwin, c);
@@ -254,17 +309,40 @@ def _ptrs(*ts):
     return [ctypes.c_void_p(t.data_ptr()) for t in ts]
 
 
+def _host_accumulate(host_lib, group, pts, shifts, prep):
+    """K3's per-thread code on the host: (S, nwin, B) bucket sums."""
+    (nwin, n), b, m = prep.orders.shape, prep.starts.shape[1], prep.runs.shape[1]
+    el = tuple(pts.x.shape[1:])
+    parts = [torch.empty((len(shifts), nwin, m, *el), dtype=torch.int64) for _ in range(3)]
+    out = [torch.empty((len(shifts), nwin, b, *el), dtype=torch.int64) for _ in range(3)]
+    getattr(host_lib, f"host_accumulate_{group}")(*_ptrs(pts.x, pts.y, pts.inf, shifts, *prep[:5], *parts, *out),
+                                                  len(shifts), n, nwin, m, b, M.SUBRUN, M.tree_levels(n))
+    return G.JacobianBatch(*out)
+
+
+def _host_reduce(host_lib, group, buckets):
+    """K4's per-thread code on the host: (S, nwin) window sums."""
+    nsets, nwin, b = buckets.x.shape[:3]
+    out = [torch.empty((nsets, nwin, *buckets.x.shape[3:]), dtype=torch.int64) for _ in range(3)]
+    getattr(host_lib, f"host_reduce_{group}")(*_ptrs(*buckets, *out), nsets, nwin, b, M.reduce_threads(b))
+    return G.JacobianBatch(*out)
+
+
+def _affine(group, jac):
+    """Window sums (S, nwin) -> refimpl points, for comparing Jacobian
+    coordinates that differ (another order of adds)."""
+    return _msm_points(G.JacobianBatch(*(t.reshape(-1, *t.shape[2:]) for t in jac)), group)
+
+
 def test_cuda_sources_arithmetic_on_host_matches_plain(stages, host_lib):
     """csrc/msm.cu's per-thread functions compiled by g++ (CUDA qualifiers
     defined away), run on the CPU: K3 and K5 limb for limb, K4 after
     normalizing."""
     pts, prep, shifts, c = stages["pts"], stages["prep"], stages["shifts"], stages["c"]
-    (nwin, n), b = prep.orders.shape, prep.starts.shape[1]
-    out = [torch.empty_like(t) for t in stages["buckets"]]
-    host_lib.host_accumulate_g1(*_ptrs(pts.x, pts.y, pts.inf, shifts, *prep[:4], *out), 2, n, nwin, b)
+    nwin = prep.orders.shape[0]
+    out = _host_accumulate(host_lib, "g1", pts, shifts, prep)
     assert all(torch.equal(a, w) for a, w in zip(out, stages["buckets"]))
-    sums = [torch.empty_like(t) for t in stages["sums"]]
-    host_lib.host_reduce_g1(*_ptrs(*stages["buckets"], prep.groups, *sums), 2, nwin, b)
+    sums = _host_reduce(host_lib, "g1", stages["buckets"])
     assert _host(sums, (2, nwin)).tolist() == _host(stages["sums"], (2, nwin)).tolist()
     res = [torch.empty_like(t) for t in stages["out"]]
     host_lib.host_combine_g1(*_ptrs(*stages["sums"], *res), 2, nwin, c)
@@ -272,47 +350,136 @@ def test_cuda_sources_arithmetic_on_host_matches_plain(stages, host_lib):
 
 
 def test_cuda_sources_g2_accumulate_on_host_matches_plain(host_lib):
-    """K3 over Fq2 (the G2 template), equal scalars so that the runs are long
-    and hit the doubling and cancelling cases."""
+    """K3 and K4 over Fq2 (the G2 templates), equal scalars so that the runs
+    are long and hit the doubling and cancelling cases."""
     rng = np.random.default_rng(3)
     n, c = 12, 7
     logs = _multiples(rng, n, (1, 2, 3, -6, 5))
     pts = _points("g2", logs)
     prep = M.prep_windows(convert.ints_to_limbs([_uniform(rng, 1)[0]] * n, "cpu"), c)
     shifts = torch.tensor([0])
-    want = M.bucket_accumulate(pts.x, pts.y, pts.inf, shifts, *prep[:4])
-    out = [torch.empty_like(t) for t in want]
-    host_lib.host_accumulate_g2(*_ptrs(pts.x, pts.y, pts.inf, shifts, *prep[:4], *out), 1, n, *prep.starts.shape)
+    want = M.bucket_accumulate(pts.x, pts.y, pts.inf, shifts, *prep[:5])
+    out = _host_accumulate(host_lib, "g2", pts, shifts, prep)
     assert all(torch.equal(a, w) for a, w in zip(out, want))
+    assert _affine("g2", _host_reduce(host_lib, "g2", want)) == _affine("g2", M.bucket_reduce(want))
+
+
+def _digit_runs(rng, L):
+    """Window 0 holds runs of exactly L, L + 1 and 2 L points (digits 5, 6,
+    7) and three others; above it, each scalar is one of three random
+    values."""
+    ds = [5] * L + [6] * (L + 1) + [7] * (2 * L) + [8, 9, 10]
+    high = [v >> 9 << 9 for v in _uniform(rng, 3)]
+    ks = [high[i % 3] + d for i, d in enumerate(ds)]
+    return [ks[i] for i in rng.permutation(len(ks))], _multiples(rng, len(ks)), ()
+
+
+def _equal_partials(rng, L):
+    """4 L copies of one point, one scalar: every partial is L P, so the
+    tree adds P == Q twice (doubling)."""
+    m = _uniform(rng, 1)[0]
+    return [_uniform(rng, 1)[0]] * (4 * L), [m] * (4 * L), ()
+
+
+def _cancelling_partials(rng, L):
+    """One scalar; L points m G, then L points -m G, then L + 1 others: the
+    first two partials cancel (P == -Q), the third adds to infinity."""
+    m = _uniform(rng, 1)[0]
+    return [_uniform(rng, 1)[0]] * (3 * L + 1), [m] * L + [R_MOD - m] * L + _multiples(rng, L + 1), ()
+
+
+def _infinity_inside(rng, L):
+    """One scalar over 2 L + 3 points (3 sub-runs), points at infinity at
+    ranks 0, 3, L - 1 and L, and the whole third sub-run."""
+    n = 2 * L + 3
+    return [_uniform(rng, 1)[0]] * n, _multiples(rng, n + 1), (0, 3, L - 1, L, 2 * L, 2 * L + 1, 2 * L + 2, n)
+
+
+def _top_window(rng, L):
+    """300 scalars t 2^252 + d, t in 1..3 (the top window's 2-bit digits at
+    c = 9: about 100 points each), d in 1..7."""
+    ks = [int(t) * (1 << 252) + int(d) for t, d in zip(rng.integers(1, 4, 300), rng.integers(1, 8, 300))]
+    return ks, _multiples(rng, 300), ()
+
+
+# (name, group, c, shifts, build(rng, L) -> (scalars, point logs, infinity indices))
+EDGES = [
+    ("runs", "g1", 9, (0,), _digit_runs),
+    ("equal_partials", "g1", 8, (0,), _equal_partials),
+    ("cancelling_partials", "g2", 8, (0,), _cancelling_partials),
+    ("infinity_inside", "g1", 9, (0, 1), _infinity_inside),
+    ("top_window", "g2", 9, (0,), _top_window),
+]
+
+
+@pytest.mark.parametrize("name,group,c,shifts,build", EDGES, ids=[e[0] for e in EDGES])
+def test_subrun_edges_match_refimpl(name, group, c, shifts, build, host_lib):
+    """K3 plain at the edges of its sub-runs and tree: each bucket sum
+    against (sum of its points' logs) G, the MSM against refimpl; K3's
+    per-thread code on the host == plain limb for limb, K4's == plain after
+    normalizing."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    ks, logs, inf = build(rng, M.SUBRUN)
+    n = len(ks)
+    assert n <= 300 and len(logs) == n + max(shifts)
+    pts = _points(group, logs)._replace(inf=torch.tensor([i in inf for i in range(len(logs))]))
+    k = convert.ints_to_limbs(ks, "cpu")
+    prep = M.prep_windows(k, c)
+    shift_t = torch.tensor(shifts)
+    buckets = M.bucket_accumulate(pts.x, pts.y, pts.inf, shift_t, *prep[:5])
+    digits = M.all_window_digits(k, c).T.tolist()
+    for s in shifts:
+        want = {}
+        for w, row in enumerate(digits):
+            for i, d in enumerate(row):
+                if d and i + s not in inf:
+                    want[w, d] = (want.get((w, d), 0) + logs[i + s]) % R_MOD
+        z = OPS[group].is_zero(buckets.z[shifts.index(s)])
+        assert sorted(map(tuple, (~z).nonzero().tolist())) == sorted(key for key, v in want.items() if v)
+        live = sorted(key for key, v in want.items() if v)
+        if live:
+            w_idx, d_idx = torch.tensor(live).T
+            got = _msm_points(G.JacobianBatch(*(t[shifts.index(s), w_idx, d_idx] for t in buckets)), group)
+            assert got == [GEN[group].mul(want[key]) for key in live]
+    host = _host_accumulate(host_lib, group, pts, shift_t, prep)
+    assert all(torch.equal(a, w) for a, w in zip(host, buckets))
+    sums = M.bucket_reduce(buckets)
+    assert _affine(group, _host_reduce(host_lib, group, buckets)) == _affine(group, sums)
+    got = _msm_points(M.combine_windows(sums, c), group)
+    assert got == [_want(group, logs[s : s + n], ks, {i - s for i in inf}) for s in shifts]
 
 
 def test_wrappers_take_no_other_device():
     x = torch.zeros((2, 16), dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
-        M.bucket_reduce(G.JacobianBatch(x[None, None], x[None, None], x[None, None]), x[0])
+        M.bucket_reduce(G.JacobianBatch(x[None, None], x[None, None], x[None, None]))
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("scalars", ["uniform", "hot"])
 @pytest.mark.parametrize("group", ["g1", "g2"])
-def test_kernels_match_plain_on_gpu(group):
+def test_kernels_match_plain_on_gpu(group, scalars):
+    """The kernels against their plain versions on the same inputs; "hot":
+    all-equal scalars, one bucket of 300 points a window."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(11)
     n, c = 300, 8
-    ks = _uniform(rng, n - 20) + [9] * 20
+    ks = _uniform(rng, n - 20) + [9] * 20 if scalars == "uniform" else [_uniform(rng, 1)[0]] * n
     logs = _multiples(rng, n + 1, (1, 2, 3, -6, 5))
     pts = _points(group, logs)
     prep = M.prep_windows(convert.ints_to_limbs(ks, "cpu"), c)
     shifts = torch.tensor([0, 1])
-    plain_b = M.bucket_accumulate(pts.x, pts.y, pts.inf, shifts, *prep[:4])
-    plain_s = M.bucket_reduce(plain_b, prep.groups)
+    plain_b = M.bucket_accumulate(pts.x, pts.y, pts.inf, shifts, *prep[:5])
+    plain_s = M.bucket_reduce(plain_b)
     plain_o = M.combine_windows(plain_s, c)
-    cuda = [t.cuda() for t in (pts.x, pts.y, pts.inf, shifts, *prep[:4])]
+    cuda = [t.cuda() for t in (pts.x, pts.y, pts.inf, shifts, *prep[:5])]
     before = dict(M.LAUNCHES)
     got_b = M.bucket_accumulate(*cuda)
-    got_s = M.bucket_reduce(got_b, cuda[-1])
+    got_s = M.bucket_reduce(got_b)
     got_o = M.combine_windows(G.JacobianBatch(*(t.cpu().cuda() for t in plain_s)), c)
-    assert all(M.LAUNCHES[k] == before[k] + 1 for k in before)
+    assert M.LAUNCHES["bucket_accumulate"] == before["bucket_accumulate"] + M.accumulate_launches(n)
+    assert all(M.LAUNCHES[k] == before[k] + 1 for k in ("bucket_reduce", "combine_windows"))
     assert all(torch.equal(a.cpu(), w) for a, w in zip(got_b, plain_b))
     assert _msm_points(G.JacobianBatch(*(t.cpu() for t in got_s)), group) == _msm_points(plain_s, group)
     assert all(torch.equal(a.cpu(), w) for a, w in zip(got_o, plain_o))
