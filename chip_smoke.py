@@ -13,9 +13,12 @@ phases:
 
 1. the card's name, power limit and SM clock; build the kernels (csrc/,
    nvcc, sm_90a);
-2. K1 and K2 against their plain PyTorch versions on the card, at the
-   contribute chunk shape (2^16 points) with the edge scalars in the first
-   lanes: exact equality after normalizing; time per call and bound;
+2. the kernels' field code (csrc/fieldops.cu: the PTX product, square, sum
+   and difference) against field/fp.py on 2^16 Fq and 2^16 Fr pairs, the
+   edge operands first, limb for limb; K1 and K2 against their plain
+   PyTorch versions on the card, at the contribute chunk shape (2^16
+   points) with the edge scalars in the first lanes: exact equality after
+   normalizing; time per call and bound; ptxas registers and spills;
 3. the golden size-4 / batch-16 response, byte for byte;
 4. a size-10 / batch-256 response byte-identical to the exact host backend;
 5. new_constrained + compute_constrained at size 21, batch 2^16 (the
@@ -85,18 +88,20 @@ outputs over the card's memory rate, and its 32-bit integer multiplies over
 the card's multiply rate (132 SMs x 64 per SM per clock x the SM clock
 nvidia-smi reads). The multiplies are those the function needs on this
 run's inputs, at the costs of the kernels' field code (MULS_PER_FQ_PRODUCT,
-FQ_PRODUCTS; an Fr product costs what an Fq product does). For a ladder
+MULS_PER_FQ_SQUARE, FQ_PRODUCTS, FQ_SQUARES, OP_MULS; an Fr product costs
+what an Fq product does), all counted in 32-bit multiplies. For a ladder
 (k P for canonical scalars k) that is, lane by lane, the fewest that any of
 the port's ladders for the same function takes on this data
-(_function_products: K1, K7, K8 on G1; K2, K10, K9 on G2), each counted
+(_function_muls: K1, K7, K8 on G1; K2, K10, K9 on G2), each counted
 from a scalar's first nonzero window with the multiples its digits use
-(_k1_products, _k2_products, _k7_products, _k10_products,
-_windowed_products); this ladder's own count stands beside it
-(ladder_fq_products). Then one add per finite term after the first of its
-segment (_s1_products), the products of an NTT (_ntt_products), a mixed
-add per point of a bucket after its first (_k3_products), the adds of a
-serial running sum over the buckets (_k4_products); the kernel's own count
-stands beside each (kernel_fq_products, kernel_fr_products).
+(_k1_muls, _k2_muls, _k7_muls, _k10_muls,
+_windowed_muls); this ladder's own count stands beside it
+(ladder_muls). Then one add per finite term after the first of its
+segment (_s1_muls), the products of an NTT (_ntt_muls), a mixed
+add per point of a bucket after its first (_k3_muls), the adds of a
+serial running sum over the buckets (_k4_muls); the kernel's own count
+stands beside each (kernel_muls). K5, whose time is a chain's latency,
+also prints its chain in dependent products (_k5_chain).
 
 Prints one JSON line of the kernels' results, the card's nvidia-smi line,
 and last `{"ok": true, "device": {...}}`. Needs no network; starts no
@@ -133,13 +138,27 @@ MULS_PER_SM_PER_CLOCK = 64  # 32-bit integer multiply / multiply-add, compute ca
 # m p_j of 32 x 32 -> 64 bits (a low and a high half each), and 8 low
 # products m = t_0 p'
 MULS_PER_FQ_PRODUCT = 2 * (64 + 64) + 8
-# Fq products per group operation of csrc/field.cuh (an Fq2 product is 3 Fq
-# products, an Fq2 square 2): dbl-2009-l, add-2007-bl, the part of add-2007-bl
-# before its P == Q test (then the doubling), madd-2007-bl
+# ... and of one Fq square, `sqr`: the 28 cross products a_i a_j (i < j)
+# once and the 8 squares a_i^2, then the same reduction
+MULS_PER_FQ_SQUARE = 2 * (36 + 64) + 8
+# Fq products and Fq squares per group operation of csrc/field.cuh:
+# dbl-2009-l, add-2007-bl, the part of add-2007-bl before its P == Q test
+# (then the doubling), madd-2007-bl. An Fq2 product is 3 Fq products, an
+# Fq2 square 2 (its (a0 + a1)(a0 - a1) and a0 a1 are products: G2 has no
+# Fq squares).
 FQ_PRODUCTS = {
-    "g1": {"dbl": 7, "add": 16, "add_head": 8, "madd": 11},
+    "g1": {"dbl": 2, "add": 11, "add_head": 6, "madd": 7},
     "g2": {"dbl": 5 * 2 + 2 * 3, "add": 5 * 2 + 11 * 3, "add_head": 2 * 2 + 6 * 3, "madd": 4 * 2 + 7 * 3},
 }
+FQ_SQUARES = {"g1": {"dbl": 5, "add": 5, "add_head": 2, "madd": 4}, "g2": {"dbl": 0, "add": 0, "add_head": 0, "madd": 0}}
+# 32-bit multiplies per group operation: the unit every bound and count
+# below is in
+OP_MULS = {g: {op: FQ_PRODUCTS[g][op] * MULS_PER_FQ_PRODUCT + FQ_SQUARES[g][op] * MULS_PER_FQ_SQUARE
+               for op in FQ_PRODUCTS[g]} for g in FQ_PRODUCTS}
+# dependent Fq products of a group operation on one thread, and in the
+# levels of independent products K5's warp runs one product a lane
+CHAIN_PRODUCTS = {"g1": {"dbl": 7, "add": 16}, "g2": {"dbl": 16, "add": 43}}
+CHAIN_LEVELS = {"dbl": 3, "add": 5}
 
 
 def log(msg: str) -> None:
@@ -163,11 +182,11 @@ class Card:
         self.sms = torch.cuda.get_device_properties(0).multi_processor_count
         self.muls_per_s = self.sms * MULS_PER_SM_PER_CLOCK * self.sm_mhz * 1e6
 
-    def bound(self, nbytes: int, fq_products: int) -> tuple[float, str]:
-        """(least ms, what bounds it) for moving nbytes and doing
-        fq_products Montgomery products."""
+    def bound(self, nbytes: int, muls: int) -> tuple[float, str]:
+        """(least ms, what bounds it) for moving nbytes and doing muls 32-bit
+        multiplies."""
         t_bytes = nbytes / MEM_BYTES_PER_S
-        t_ops = fq_products * MULS_PER_FQ_PRODUCT / self.muls_per_s
+        t_ops = muls / self.muls_per_s
         return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
 
 
@@ -268,68 +287,73 @@ def _ladder_doublings(nonzero, bits: int):
     return bits * (nonzero.shape[0] - 1 - first) * nonzero.any(0)
 
 
-def _table_products(ops: dict, top):
-    """Fq products (N,) of the multiples jP, j = 2..top (N,), the largest
-    digit magnitude each point uses: 2P through the doubling branch, then one
-    add each."""
+def _table_muls(ops: dict, top, mixed: bool = False):
+    """Multiplies (N,) of the multiples jP, j = 2..top (N,), the largest
+    digit magnitude each point uses: 2P through the add's doubling branch,
+    then one add each; `mixed` (K1's table): 2P by a doubling, then one
+    mixed add of the affine P each."""
     more = (top - 1).clamp(min=0)
+    if mixed:
+        return (more > 0) * ops["dbl"] + (more - 1).clamp(min=0) * ops["madd"]
     return (more > 0) * (ops["add_head"] + ops["dbl"]) + (more - 1).clamp(min=0) * ops["add"]
 
 
-def _k1_products(d1, d2):
-    """Fq products (N,) k P takes on these GLV digits (signed base 32, MSB
+def _k1_muls(d1, d2):
+    """Multiplies (N,) k P takes on these GLV digits (signed base 32, MSB
     first) by K1's ladder, as far as this data needs it: the multiples up to
-    each point's largest digit magnitude (with their beta x where d2 has a
-    nonzero digit), 5 doublings per window after the first nonzero one, one
-    add per nonzero digit after the first."""
-    ops = FQ_PRODUCTS["g1"]
+    each point's largest digit magnitude by a doubling and mixed adds (with
+    their beta x where d2 has a nonzero digit), 5 doublings per window after
+    the first nonzero one, one add per nonzero digit after the first."""
+    ops = OP_MULS["g1"]
     nz1, nz2 = d1 != 0, d2 != 0
     top = d1.abs().amax(0).maximum(d2.abs().amax(0))
     adds = (nz1.sum(0) + nz2.sum(0) - 1).clamp(min=0)
-    return (_table_products(ops, top) + top * nz2.any(0) + _ladder_doublings(nz1 | nz2, 5) * ops["dbl"]
-            + adds * ops["add"])
+    return (_table_muls(ops, top, mixed=True) + top * nz2.any(0) * MULS_PER_FQ_PRODUCT
+            + _ladder_doublings(nz1 | nz2, 5) * ops["dbl"] + adds * ops["add"])
 
 
-def _k1_kernel_products(d1, d2) -> int:
-    """Fq products K1 (csrc/batch_exp_g1.cu) does on these digits: the table
-    (16 beta x, 2P through the doubling branch, 3P..16P), 5 doublings per
-    window, and one add per nonzero digit after the first (an add into
-    infinity or of infinity costs none)."""
-    ops = FQ_PRODUCTS["g1"]
-    nw, n = d1.shape
-    table = 16 + ops["add_head"] + ops["dbl"] + 14 * ops["add"]
-    adds = int(((d1 != 0).sum(0) + (d2 != 0).sum(0) - 1).clamp(min=0).sum())
-    return n * (table + nw * 5 * ops["dbl"]) + adds * ops["add"]
+def _k1_kernel_muls(d1, d2) -> int:
+    """Multiplies K1 (csrc/batch_exp_g1.cu) does on these digits: the table
+    (16 beta x, 2P by a doubling, 3P..16P by mixed adds), 5 doublings per
+    window after each point's first nonzero one, and one add per nonzero
+    digit after the first (an add into infinity or of infinity costs
+    none)."""
+    ops = OP_MULS["g1"]
+    n = d1.shape[1]
+    nz1, nz2 = d1 != 0, d2 != 0
+    table = 16 * MULS_PER_FQ_PRODUCT + ops["dbl"] + 14 * ops["madd"]
+    adds = int((nz1.sum(0) + nz2.sum(0) - 1).clamp(min=0).sum())
+    return n * table + int(_ladder_doublings(nz1 | nz2, 5).sum()) * ops["dbl"] + adds * ops["add"]
 
 
-def _k2_products(digits):
-    """Fq products (N,) k Q takes on these GLS digits (4, W, N) by K2's
+def _k2_muls(digits):
+    """Multiplies (N,) k Q takes on these GLS digits (4, W, N) by K2's
     ladder, as far as this data needs it: the multiples up to each point's
     largest digit magnitude, psi, psi^2, psi^3 (6, 4, 6) of each nonzero
     digit of parts 1, 2, 3, 5 doublings per window after the first nonzero
     one, one add per nonzero digit after the first."""
-    ops = FQ_PRODUCTS["g2"]
+    ops = OP_MULS["g2"]
     nz = digits != 0
-    psi = 6 * nz[1].sum(0) + 4 * nz[2].sum(0) + 6 * nz[3].sum(0)
+    psi = (6 * nz[1].sum(0) + 4 * nz[2].sum(0) + 6 * nz[3].sum(0)) * MULS_PER_FQ_PRODUCT
     adds = (nz.sum((0, 1)) - 1).clamp(min=0)
-    return (_table_products(ops, digits.abs().amax((0, 1))) + psi + _ladder_doublings(nz.any(0), 5) * ops["dbl"]
+    return (_table_muls(ops, digits.abs().amax((0, 1))) + psi + _ladder_doublings(nz.any(0), 5) * ops["dbl"]
             + adds * ops["add"])
 
 
-def _k2_kernel_products(digits) -> int:
-    """Fq products K2 (csrc/batch_exp_g2.cu) does: the table (2Q through the
+def _k2_kernel_muls(digits) -> int:
+    """Multiplies K2 (csrc/batch_exp_g2.cu) does: the table (2Q through the
     doubling branch, 3Q..16Q), per window 5 doublings and psi, psi^2, psi^3
     of the gathered entries (6 + 4 + 6), one add per nonzero digit after the
     first."""
-    ops = FQ_PRODUCTS["g2"]
+    ops = OP_MULS["g2"]
     _, nw, n = digits.shape
     table = ops["add_head"] + ops["dbl"] + 14 * ops["add"]
     adds = int(((digits != 0).sum((0, 1)) - 1).clamp(min=0).sum())
-    return n * (table + nw * (5 * ops["dbl"] + 16)) + adds * ops["add"]
+    return n * (table + nw * (5 * ops["dbl"] + 16 * MULS_PER_FQ_PRODUCT)) + adds * ops["add"]
 
 
-def _function_products(group: str, scalars) -> int:
-    """Fq products k P needs on `group` for these canonical scalars (N, 16):
+def _function_muls(group: str, scalars) -> int:
+    """Multiplies k P needs on `group` for these canonical scalars (N, 16):
     lane by lane the fewest that any of the port's ladders for that function
     takes on this data (G1: K1 on the signed GLV split, K7 on the unsigned
     one, K8 on the scalar; G2: K2, K10, K9). Every ladder's bound counts
@@ -338,10 +362,10 @@ def _function_products(group: str, scalars) -> int:
     from phase2_bn254_tpu_torch.ops import gls, glv
 
     if group == "g1":
-        counts = [_k1_products(*glv.decompose_signed(scalars)), _k7_products(*glv.decompose(scalars))]
+        counts = [_k1_muls(*glv.decompose_signed(scalars)), _k7_muls(*glv.decompose(scalars))]
     else:
-        counts = [_k2_products(gls.decompose_signed(scalars)), _k10_products(*gls.decompose(scalars))]
-    return int(torch.stack(counts + [_windowed_products(group, scalars)]).amin(0).sum())
+        counts = [_k2_muls(gls.decompose_signed(scalars)), _k10_muls(*gls.decompose(scalars))]
+    return int(torch.stack(counts + [_windowed_muls(group, scalars)]).amin(0).sum())
 
 
 def phase_kernels(card: Card, n: int = KERNEL_N) -> list[dict]:
@@ -355,16 +379,16 @@ def phase_kernels(card: Card, n: int = KERNEL_N) -> list[dict]:
     rng = random.Random(2024)
     cases = [
         ("batch_exp_glv_signed", "g1", FQ, batch_exp.batch_exp_glv_signed, batch_exp.batch_exp_glv_signed_plain,
-         lambda k: glv.decompose_signed(k), _k1_products, _k1_kernel_products,
+         lambda k: glv.decompose_signed(k), _k1_muls, _k1_kernel_muls,
          "phase2_bn254_tpu_torch/csrc/batch_exp_g1.cu",
          "phase2_bn254_tpu/ops/pallas_exp.py:728"),
         ("batch_exp_gls_signed", "g2", FQ2, batch_exp.batch_exp_gls_signed, batch_exp.batch_exp_gls_signed_plain,
-         lambda k: (gls.decompose_signed(k),), _k2_products, _k2_kernel_products,
+         lambda k: (gls.decompose_signed(k),), _k2_muls, _k2_kernel_muls,
          "phase2_bn254_tpu_torch/csrc/batch_exp_g2.cu",
          "phase2_bn254_tpu/ops/pallas_exp.py:1073"),
     ]
     records = []
-    for name, group, f, kernel, plain, split, products, kernel_products, source, replaces in cases:
+    for name, group, f, kernel, plain, split, muls, kernel_muls, source, replaces in cases:
         pts, _ = _tiled_points(group, n, dev, rng)
         x, y = pts.x, pts.y
         k = convert.ints_to_limbs(_edge_scalars(n, rng), dev)
@@ -377,15 +401,46 @@ def phase_kernels(card: Card, n: int = KERNEL_N) -> list[dict]:
         if err != 0 or not torch.equal(ga.inf, wa.inf):
             raise AssertionError(f"{name}: kernel and plain version differ (max abs limb error {err})")
         ms = cuda_ms(lambda: kernel(x, y, *digits), 5)
-        need, own, does = _function_products(group, k), int(products(*digits).sum()), kernel_products(*digits)
+        need, own, does = _function_muls(group, k), int(muls(*digits).sum()), kernel_muls(*digits)
         rec = record(card, name, source, replaces, err, ms, plain_ms, (nbytes(x, y, *digits, *got), need),
-                     fq_products=need, ladder_fq_products=own, kernel_fq_products=does)
+                     muls=need, ladder_muls=own, kernel_muls=does)
         log(f"phase 2 {name}: N={n} kernel == plain (Jacobian identical: {same_jac}, "
             f"{int(ga.inf.sum())} at infinity); kernel {ms:.3f} ms/call, plain {plain_ms:.3f} ms/call, "
-            f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}: {need / n:.0f} Fq products/point; this ladder "
+            f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}: {need / n:.0f} multiplies/point; this ladder "
             f"needs {own / n:.0f}, the kernel does {does / n:.0f})")
         records.append(rec)
+    for line in _ptxas_of(("batch_exp_glv_signed_kernel", "batch_exp_gls_signed_kernel")):
+        log(f"  ptxas: {line}")
     return records
+
+
+FIELD_N = 1 << 16  # the pairs of each field phase 2 holds the field code on
+
+
+def phase_field() -> None:
+    """Phase 2, first: the kernels' field code (csrc/fieldops.cu, the PTX of
+    field_ptx.cuh) against field/fp.py on the card, FIELD_N pairs of Fq and
+    of Fr with ops.fieldops.edge_pairs first: a b, a^2, a + b, a - b limb
+    for limb."""
+    from phase2_bn254_tpu_torch import convert
+    from phase2_bn254_tpu_torch.ops import fieldops
+
+    rng = random.Random(2)
+    for field in ("fq", "fr"):
+        p = fieldops.CTXS[field].p
+        pairs = fieldops.edge_pairs(field, rng)
+        edge = len(pairs)
+        pairs += [(rng.randrange(p), rng.randrange(p)) for _ in range(FIELD_N - edge)]
+        a, b = (convert.ints_to_limbs([pair[k] for pair in pairs], DEVICE) for k in (0, 1))
+        got = fieldops.field_ops(a, b, field)
+        err = max_limb_err(got, fieldops.field_ops_plain(a, b, field))
+        if err:
+            raise AssertionError(f"field code {field}: the kernel and field/fp.py differ (max abs limb error {err})")
+        ms = cuda_ms(lambda: fieldops.field_ops(a, b, field), 5)
+        log(f"phase 2 field {field}: {FIELD_N} pairs ({edge} edge pairs first): a b, a^2, a + b, a - b == "
+            f"field/fp.py limb for limb; {ms:.4f} ms a launch")
+    for line in _ptxas_of(("field_ops_kernel",)):
+        log(f"  ptxas: {line}")
 
 
 # ---------------------------------------------------------------------------
@@ -697,26 +752,26 @@ def _profile_contribute_chunk(group: str, n: int) -> None:
 # phase 6
 # ---------------------------------------------------------------------------
 
-def _k3_products(group: str, prep, nsets: int) -> int:
-    """Fq products of the function K3 computes: one mixed add per point of a
+def _k3_muls(group: str, prep, nsets: int) -> int:
+    """Multiplies of the function K3 computes: one mixed add per point of a
     bucket after its first (the first lands on infinity); the inputs hold no
     point at infinity."""
-    return nsets * int((prep.counts - 1).clamp(min=0).sum()) * FQ_PRODUCTS[group]["madd"]
+    return nsets * int((prep.counts - 1).clamp(min=0).sum()) * OP_MULS[group]["madd"]
 
 
-def _k3_kernel_products(group: str, prep, nsets: int) -> int:
-    """Fq products K3 does: a mixed add per point of a sub-run after its
+def _k3_kernel_muls(group: str, prep, nsets: int) -> int:
+    """Multiplies K3 does: a mixed add per point of a sub-run after its
     first, and a tree add per sub-run of a bucket after its first."""
     from phase2_bn254_tpu_torch.ops import msm as M
 
     nsub = (prep.counts + M.SUBRUN - 1) // M.SUBRUN
-    ops = FQ_PRODUCTS[group]
+    ops = OP_MULS[group]
     madds, adds = int((prep.counts - nsub).sum()), int((nsub - 1).clamp(min=0).sum())
     return nsets * (madds * ops["madd"] + adds * ops["add"])
 
 
-def _k4_products(group: str, buckets) -> int:
-    """Fq products of the function K4 computes, as a serial running sum over
+def _k4_muls(group: str, buckets) -> int:
+    """Multiplies of the function K4 computes, as a serial running sum over
     lanes B-1..1 does it: an add per finite bucket after the first, and an
     add into the total at each lane where the running sum is finite, after
     the first."""
@@ -726,11 +781,11 @@ def _k4_products(group: str, buckets) -> int:
     finite = ~f.is_zero(buckets.z)[..., 1:]  # (S, nwin, B - 1), lanes 1..B-1
     running = finite.flip(-1).cumsum(-1).flip(-1) > 0
     adds = (finite.sum(-1) - 1).clamp(min=0) + (running.sum(-1) - 1).clamp(min=0)
-    return int(adds.sum()) * FQ_PRODUCTS[group]["add"]
+    return int(adds.sum()) * OP_MULS[group]["add"]
 
 
-def _k4_kernel_products(group: str, buckets) -> int:
-    """Fq products K4 does (csrc/msm.cu's schedule, followed on finiteness
+def _k4_kernel_muls(group: str, buckets) -> int:
+    """Multiplies K4 does (csrc/msm.cu's schedule, followed on finiteness
     flags): an add of two finite points costs a full add (a sum that
     cancels is taken as finite), an add with infinity nothing, and every
     thread's log2(B / T) doublings their full cost."""
@@ -768,33 +823,61 @@ def _k4_kernel_products(group: str, buckets) -> int:
         adds += int((terms[:, :stride] & terms[:, stride : 2 * stride]).sum())
         terms[:, :stride] |= terms[:, stride : 2 * stride]
         stride //= 2
-    ops = FQ_PRODUCTS[group]
+    ops = OP_MULS[group]
     return adds * ops["add"] + rows * nt * (m.bit_length() - 1) * ops["dbl"]
 
 
-def _k5_products(group: str, sums, c: int) -> int:
+def _k5_windows(group: str, sums):
+    """Per set (S,): the index of its highest finite window sum (-1 if none)
+    and the number of finite window sums below it."""
+    import torch
     from phase2_bn254_tpu_torch.field.fq2 import FQ, FQ2
 
-    f = FQ if group == "g1" else FQ2
-    nsets, nwin = sums.z.shape[:2]
-    finite = int((~f.is_zero(sums.z)).sum())
-    ops = FQ_PRODUCTS[group]
-    return nsets * nwin * c * ops["dbl"] + max(finite - nsets, 0) * ops["add"]
+    finite = ~(FQ if group == "g1" else FQ2).is_zero(sums.z)  # (S, nwin)
+    nwin = finite.shape[1]
+    top = torch.where(finite.any(1), nwin - 1 - finite.flip(1).int().argmax(1), -1)
+    return top, (finite.sum(1) - 1).clamp(min=0)
 
 
-def _d1_products(group: str, n: int) -> int:
-    """Fq products of D1 per point (csrc/decompress.cu), square-and-multiply
-    from the top bit of each public exponent; G2 counts the usual branch
-    (alpha != -1)."""
+def _k5_muls(group: str, sums, c: int) -> int:
+    """Multiplies of the function K5 computes (and does): per set, c
+    doublings per window below its highest finite window sum, and one add
+    per finite window sum below it."""
+    top, adds = _k5_windows(group, sums)
+    ops = OP_MULS[group]
+    return int((c * top.clamp(min=0)).sum()) * ops["dbl"] + int(adds.sum()) * ops["add"]
+
+
+def _k5_chain(group: str, sums, c: int) -> dict:
+    """K5's critical path in dependent Fq products, the longest set's: the
+    one-thread chain from infinity over every window (c nwin doublings, an
+    add per finite window sum after the first; the design before the warp
+    form), the one-thread chain from the highest finite window, and the
+    warp form's levels (3 a doubling, 5 an add, one product's latency each:
+    K5's floor at this design)."""
+    top, adds = _k5_windows(group, sums)
+    nwin = sums.z.shape[1]
+    dbl = (c * top.clamp(min=0)).long()
+    prods = CHAIN_PRODUCTS[group]
+    return {"from_infinity": int((c * nwin * prods["dbl"] + adds * prods["add"]).max()),
+            "one_thread": int((dbl * prods["dbl"] + adds * prods["add"]).max()),
+            "warp_levels": int((dbl * CHAIN_LEVELS["dbl"] + adds * CHAIN_LEVELS["add"]).max())}
+
+
+def _d1_muls(group: str, n: int) -> int:
+    """Multiplies of D1 (csrc/decompress.cu), square-and-multiply from the
+    top bit of each public exponent; G2 counts the usual branch (alpha !=
+    -1) and has no Fq squares."""
     from phase2_bn254_tpu_torch.refimpl.field import Q
 
     def pow_cost(e, sqr, mul):
         return (e.bit_length() - 1) * sqr + (bin(e).count("1") - 1) * mul
 
-    if group == "g1":  # to Montgomery, x^3 + b, the root, two from-Montgomery, y^2 == rhs
-        per = 1 + 2 + pow_cost((Q + 1) // 4, 1, 1) + 2 + 1
+    prod, sq = MULS_PER_FQ_PRODUCT, MULS_PER_FQ_SQUARE
+    if group == "g1":  # to Montgomery, x^2 and x^3, the root, two from-Montgomery, y^2 == rhs
+        per = prod + (sq + prod) + pow_cost((Q + 1) // 4, sq, prod) + 2 * prod + sq
     else:  # to Montgomery, v, a1, alpha, a0, a1 v, (1 + alpha)^((q-1)/2), its product, four from-Montgomery, y^2
-        per = (2 + 5 + pow_cost((Q - 3) // 4, 2, 3) + 5 + 3 + 3 + pow_cost((Q - 1) // 2, 2, 3) + 3 + 4 + 2)
+        per = (2 + 5 + pow_cost((Q - 3) // 4, 2, 3) + 5 + 3 + 3 + pow_cost((Q - 1) // 2, 2, 3) + 3 + 4 + 2) * prod
     return n * per
 
 
@@ -838,8 +921,8 @@ def _msm_case(group: str, n: int, scalars: list[int], rng: random.Random) -> dic
 
     buckets = M.bucket_accumulate(*args)
     out["k3_ms"] = cuda_ms(lambda: M.bucket_accumulate(*args), 3)
-    out["k3_work"] = (nbytes(*args, *buckets), _k3_products(group, prep, 2))
-    out["k3_kernel_products"] = _k3_kernel_products(group, prep, 2)
+    out["k3_work"] = (nbytes(*args, *buckets), _k3_muls(group, prep, 2))
+    out["k3_kernel_muls"] = _k3_kernel_muls(group, prep, 2)
     want, out["k3_plain_ms"] = once_ms(lambda: M.bucket_accumulate_plain(*args))
     out["k3_err"] = max_limb_err(buckets, want)
     if out["k3_err"]:
@@ -853,8 +936,8 @@ def _msm_case(group: str, n: int, scalars: list[int], rng: random.Random) -> dic
     out["k4_err"] = max_limb_err(got_aff, want_aff)
     if out["k4_err"]:
         raise AssertionError(f"K4 {group}: kernel and plain version differ on the affine window sums")
-    out["k4_work"] = (nbytes(*buckets, *sums), _k4_products(group, buckets))
-    out["k4_kernel_products"] = _k4_kernel_products(group, buckets)
+    out["k4_work"] = (nbytes(*buckets, *sums), _k4_muls(group, buckets))
+    out["k4_kernel_muls"] = _k4_kernel_muls(group, buckets)
 
     res = M.combine_windows(sums, c)
     out["k5_ms"] = cuda_ms(lambda: M.combine_windows(sums, c), 3)
@@ -862,7 +945,8 @@ def _msm_case(group: str, n: int, scalars: list[int], rng: random.Random) -> dic
     out["k5_err"] = max_limb_err(res, want)
     if out["k5_err"]:
         raise AssertionError(f"K5 {group}: kernel and plain version differ (max abs limb error {out['k5_err']})")
-    out["k5_work"] = (nbytes(*sums, *res), _k5_products(group, sums, c))
+    out["k5_work"] = (nbytes(*sums, *res), _k5_muls(group, sums, c))
+    out["k5_chain"] = _k5_chain(group, sums, c)
 
     got = _jac_points(group, res)
     for s in (0, 1):
@@ -955,7 +1039,7 @@ def _d1_case(group: str, n: int, rng: random.Random) -> dict:
         raise AssertionError(f"D1 {group}: a compressed x without a square root decoded")
     ms = cuda_ms(lambda: D.decompress(x, greatest, group), 5)
     return {"ms": ms, "plain_ms": plain_ms, "err": err,
-            "work": (nbytes(x, greatest, *got[:2], valid), _d1_products(group, n))}
+            "work": (nbytes(x, greatest, *got[:2], valid), _d1_muls(group, n))}
 
 
 def _ptxas_of(keys) -> list[str]:
@@ -1014,9 +1098,9 @@ def phase_msm_kernels(card: Card, records: list[dict], n: int = KERNEL_N) -> Non
                 f"{case['k5_plain_ms']:.3f})")
             for key, what in (("k3", "K3"), ("k4", "K4"), ("k5", "K5")):
                 b, by = card.bound(*case[f"{key}_work"])
-                own = case.get(f"{key}_kernel_products")
-                log(f"    bound {what}: {b:.3f} ms ({by}; {case[f'{key}_work'][1]} Fq products, "
-                    f"{case[f'{key}_work'][0]} bytes" + (f"; the kernel does {own} Fq products)" if own else ")"))
+                own = case.get(f"{key}_kernel_muls")
+                log(f"    bound {what}: {b:.3f} ms ({by}; {case[f'{key}_work'][1]} multiplies, "
+                    f"{case[f'{key}_work'][0]} bytes" + (f"; the kernel does {own})" if own else ")"))
         for label, times in sweep.items():
             log(f"  K3 with its sub-run table at L = " + ", ".join(f"{k}: {v:.3f} ms" for k, v in times.items())
                 + f" ({label} scalars, prep included; L = {M.SUBRUN} is the module's)")
@@ -1024,9 +1108,17 @@ def phase_msm_kernels(card: Card, records: list[dict], n: int = KERNEL_N) -> Non
         log(f"phase 6 D1 {group}: N={n} ({NONRESIDUES} without a root, flags random): kernel == plain limb for limb "
             f"and mask; mask == host residuosity; 64 points == refimpl; a non-residue through decode_batch raises; "
             f"kernel {d1['ms']:.3f} ms, plain {d1['plain_ms']:.3f} ms, bound {b:.3f} ms ({by})")
+    for group in ("g1", "g2"):
+        case = res[group][0]
+        chain = case["k5_chain"]
+        log(f"  K5 {group} chain (the longest set's, dependent Fq products): {chain['from_infinity']} from infinity "
+            f"over every window on one thread (the design before the warp form), {chain['one_thread']} from the "
+            f"highest finite window on one thread, {chain['warp_levels']} levels in the warp form: "
+            f"{1e3 * case['k5_ms'] / chain['warp_levels']:.3f} us a level; bound "
+            f"{card.bound(*case['k5_work'])[0]:.5f} ms")
     geometry = _msm_geometry(n, res["g1"][0]["c"], 2)
-    log(f"  launches of one call at N={n}: {geometry}")
-    for line in _ptxas_of(("bucket_accumulate", "bucket_reduce")):
+    log(f"  launches of one call at N={n}: {geometry}; K5 one warp per set")
+    for line in _ptxas_of(("bucket_accumulate", "bucket_reduce", "combine_windows")):
         log(f"  ptxas: {line}")
 
     sources = "phase2_bn254_tpu_torch/csrc/msm.cu"
@@ -1039,19 +1131,22 @@ def phase_msm_kernels(card: Card, records: list[dict], n: int = KERNEL_N) -> Non
             bound_ms, bound_by = card.bound(*uniform[f"{key}_work"])
             per[group] = {"ms": uniform[f"{key}_ms"], "plain_ms": uniform[f"{key}_plain_ms"],
                           "max_abs_err": max(uniform[f"{key}_err"], hot[f"{key}_err"]), "bound_ms": bound_ms,
-                          "bound_by": bound_by, "fq_products": uniform[f"{key}_work"][1],
+                          "bound_by": bound_by, "muls": uniform[f"{key}_work"][1],
                           "all_equal": {"ms": hot[f"{key}_ms"], "plain_ms": hot[f"{key}_plain_ms"],
                                         "bound_ms": card.bound(*hot[f"{key}_work"])[0]}}
-            if f"{key}_kernel_products" in uniform:
-                per[group]["kernel_fq_products"] = uniform[f"{key}_kernel_products"]
-                per[group]["all_equal"]["kernel_fq_products"] = hot[f"{key}_kernel_products"]
+            if f"{key}_kernel_muls" in uniform:
+                per[group]["kernel_muls"] = uniform[f"{key}_kernel_muls"]
+                per[group]["all_equal"]["kernel_muls"] = hot[f"{key}_kernel_muls"]
             if key == "k3":
                 per[group]["subrun_ms"] = sweep
         g1 = per["g1"]
         extra = {}
         if key in ("k3", "k4"):
-            extra = {"fq_products": g1["fq_products"], "kernel_fq_products": g1["kernel_fq_products"],
+            extra = {"muls": g1["muls"], "kernel_muls": g1["kernel_muls"],
                      "geometry": geometry}
+        if key == "k5":
+            extra = {"chain": res["g1"][0]["k5_chain"]}
+            per["g2"]["chain"] = res["g2"][0]["k5_chain"]
         records.append(record(card, name, sources, replaces, max(p["max_abs_err"] for p in per.values()), g1["ms"],
                               g1["plain_ms"], res["g1"][0][f"{key}_work"], g2=per["g2"], **extra,
                               shape=f"N={n}, c={res['g1'][0]['c']}, 2 sets, uniform scalars; g2 and all-equal beside"))
@@ -1270,20 +1365,20 @@ def _fr_random(m: int, gen) -> "torch.Tensor":
     return x.to(DEVICE)
 
 
-def _ntt_products(exp: int) -> int:
-    """Fr Montgomery products an N-point four-step NTT needs, N = 2^exp:
-    N/2 log2(N) butterfly products and one inter-twiddle product per
-    element (the iNTT's 1/N folded into the twiddles). The bound counts
-    these."""
-    return (1 << exp) // 2 * exp + (1 << exp)
+def _ntt_muls(exp: int) -> int:
+    """Multiplies of the Fr Montgomery products an N-point four-step NTT
+    needs, N = 2^exp: N/2 log2(N) butterfly products and one inter-twiddle
+    product per element (the iNTT's 1/N folded into the twiddles). The
+    bound counts these."""
+    return ((1 << exp) // 2 * exp + (1 << exp)) * MULS_PER_FQ_PRODUCT
 
 
-def _ntt_kernel_products(exp: int) -> int:
-    """Fr products csrc/ntt.cu does for one `ntt`: the above and one more
-    per element, since it builds each inter-twiddle w^(j1 k2) as tw_lo *
-    tw_hi rather than reading it from an N-entry table. A cost of the
+def _ntt_kernel_muls(exp: int) -> int:
+    """Multiplies csrc/ntt.cu does for one `ntt`: the above and one product
+    more per element, since it builds each inter-twiddle w^(j1 k2) as tw_lo
+    * tw_hi rather than reading it from an N-entry table. A cost of the
     design, recorded beside the bound."""
-    return _ntt_products(exp) + (1 << exp)
+    return _ntt_muls(exp) + (1 << exp) * MULS_PER_FQ_PRODUCT
 
 
 def _ntt_bytes(exp: int) -> int:
@@ -1311,15 +1406,15 @@ def phase_ntt(card: Card, records: list[dict]) -> None:
                 raise AssertionError(f"K6 exp {exp} inverse {inverse}: kernel and plain version differ "
                                      f"(max abs limb error {max_limb_err([got], [want])})")
             ms = cuda_ms(lambda: ntt.ntt(exp, x, inverse), 5)
-            bound_ms, bound_by = card.bound(_ntt_bytes(exp), _ntt_products(exp))
+            bound_ms, bound_by = card.bound(_ntt_bytes(exp), _ntt_muls(exp))
             per[(exp, inverse)] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
         del x, got, want
     log("phase 9 K6 (lane_dft): ntt == ntt_plain limb for limb, forward and inverse, at exp "
         + ", ".join(map(str, NTT_EXPS)) + " (ms per ntt call, 2 launches; exp 1: 1)")
     for (exp, inverse), p in per.items():
         log(f"  exp {exp} {'inverse' if inverse else 'forward'}: kernel {p['ms']:.3f} ms, plain {p['plain_ms']:.3f} ms, "
-            f"bound {p['bound_ms']:.4f} ms ({p['bound_by']}: {_ntt_products(exp)} Fr products, {_ntt_bytes(exp)} bytes; "
-            f"the kernel does {_ntt_kernel_products(exp)} products)")
+            f"bound {p['bound_ms']:.4f} ms ({p['bound_by']}: {_ntt_muls(exp)} multiplies, {_ntt_bytes(exp)} bytes; "
+            f"the kernel does {_ntt_kernel_muls(exp)})")
 
     # the largest domain: round trip, and a sparse input against host integers
     exp, m = NTT_BIG_EXP, 1 << NTT_BIG_EXP
@@ -1344,17 +1439,17 @@ def phase_ntt(card: Card, records: list[dict]) -> None:
             if fp.FR_CTX.from_mont_int(fp.limbs_to_int(limbs)) != want:
                 raise AssertionError(f"K6 exp {exp} inverse {inverse}: output {k} differs from the host DFT")
     del sparse
-    big_bound, big_by = card.bound(_ntt_bytes(exp), _ntt_products(exp))
+    big_bound, big_by = card.bound(_ntt_bytes(exp), _ntt_muls(exp))
     log(f"  exp {exp}: inverse(forward(x)) == x; {len(ks)} outputs of a 4-term input == host DFT, both directions; "
         f"forward kernel {big_ms:.3f} ms, bound {big_bound:.4f} ms ({big_by}); plain not run (its temporaries "
         f"exceed the card's memory)")
     main = per[(PROVE_EXP, False)]
     rec = record(card, "lane_dft", "phase2_bn254_tpu_torch/csrc/ntt.cu", "phase2_bn254_tpu/ops/pallas_ntt.py:229",
-                 0, main["ms"], main["plain_ms"], (_ntt_bytes(PROVE_EXP), _ntt_products(PROVE_EXP)),
+                 0, main["ms"], main["plain_ms"], (_ntt_bytes(PROVE_EXP), _ntt_muls(PROVE_EXP)),
                  shape=f"one ntt() call (2 launches) at 2^{PROVE_EXP}, forward; other exps beside",
                  by_exp={f"{e}{'i' if inv else ''}": p for (e, inv), p in per.items()},
-                 exp24_forward_ms=big_ms, exp24_bound_ms=big_bound, fr_products=_ntt_products(PROVE_EXP),
-                 kernel_fr_products=_ntt_kernel_products(PROVE_EXP))
+                 exp24_forward_ms=big_ms, exp24_bound_ms=big_bound, muls=_ntt_muls(PROVE_EXP),
+                 kernel_muls=_ntt_kernel_muls(PROVE_EXP))
     records.append(rec)
 
 
@@ -1436,18 +1531,18 @@ def _k3_sets(group: str, sets, c: int) -> dict:
     import torch
     from phase2_bn254_tpu_torch.ops import msm as M
 
-    args, products, own = [], 0, 0
+    args, need, own = [], 0, 0
     for points, scalars, shifts in sets:
         prep = M.prep_windows(scalars, c)
         shift_t = torch.tensor(shifts, dtype=torch.int64, device=points.x.device)
         args.append((points.x, points.y, points.inf, shift_t, *prep[:5]))
-        products += _k3_products(group, prep, len(shifts))
-        own += _k3_kernel_products(group, prep, len(shifts))
+        need += _k3_muls(group, prep, len(shifts))
+        own += _k3_kernel_muls(group, prep, len(shifts))
     parts, ms = once_ms(lambda: [M.bucket_accumulate(*a) for a in args])
     want, plain_ms = once_ms(lambda: [M.bucket_accumulate_plain(*a) for a in args])
     return {"ms": ms, "plain_ms": plain_ms, "err": max(max_limb_err(got, w) for got, w in zip(parts, want)),
-            "work": (sum(nbytes(*a) for a in args) + sum(nbytes(*p) for p in parts), products),
-            "kernel_fq_products": own}
+            "work": (sum(nbytes(*a) for a in args) + sum(nbytes(*p) for p in parts), need),
+            "kernel_muls": own}
 
 
 def _prover_msm_kernels(card: Card, captured: list, records: list[dict]) -> None:
@@ -1485,26 +1580,26 @@ def _prover_msm_kernels(card: Card, captured: list, records: list[dict]) -> None
             raise AssertionError(f"K5 {group} at the prover's shape: kernel and plain version differ (max abs limb "
                                  f"error {k5_err})")
         work = {"bucket_accumulate": k3["work"],
-                "bucket_reduce": (nbytes(*buckets, *sums), _k4_products(group, buckets)),
-                "combine_windows": (nbytes(*sums, *res), _k5_products(group, sums, c))}
-        own = {"bucket_accumulate": k3["kernel_fq_products"], "bucket_reduce": _k4_kernel_products(group, buckets)}
+                "bucket_reduce": (nbytes(*buckets, *sums), _k4_muls(group, buckets)),
+                "combine_windows": (nbytes(*sums, *res), _k5_muls(group, sums, c))}
+        own = {"bucket_accumulate": k3["kernel_muls"], "bucket_reduce": _k4_kernel_muls(group, buckets)}
         times = {"bucket_accumulate": (k3["ms"], k3["plain_ms"], k3["err"]),
                  "bucket_reduce": (k4_ms, k4_plain_ms, k4_err), "combine_windows": (k5_ms, k5_plain_ms, k5_err)}
         shape = f"{len(sets)} set(s) of {sizes} scalars, c={c}"
         for name, (ms, plain_ms, err) in times.items():
             bound_ms, bound_by = card.bound(*work[name])
             per_kernel[name][group] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "bound_ms": bound_ms,
-                                       "bound_by": bound_by, "shape": shape, "fq_products": work[name][1]}
+                                       "bound_by": bound_by, "shape": shape, "muls": work[name][1]}
             if name in own:
-                per_kernel[name][group]["kernel_fq_products"] = own[name]
+                per_kernel[name][group]["kernel_muls"] = own[name]
         per_kernel["bucket_accumulate"][group]["with_prep_ms"] = k3_ms
         launches = sum(M.accumulate_launches(n) for n in sizes)
         log(f"phase 10 MSM kernels at the prover's {group} shape ({shape}): K3 == plain limb for limb (kernel "
             f"{k3['ms']:.3f} ms in {launches} launches, plain {k3['plain_ms']:.3f} ms, bound "
-            f"{card.bound(*k3['work'])[0]:.3f} ms: {k3['work'][1]} Fq products, the kernel does "
-            f"{k3['kernel_fq_products']}); K3 with its digit sort, as msm_sets runs it, {k3_ms:.3f} ms; on those "
+            f"{card.bound(*k3['work'])[0]:.3f} ms: {k3['work'][1]} multiplies, the kernel does "
+            f"{k3['kernel_muls']}); K3 with its digit sort, as msm_sets runs it, {k3_ms:.3f} ms; on those "
             f"buckets K4 == plain after normalizing (kernel {k4_ms:.3f} ms, plain {k4_plain_ms:.3f} ms, bound "
-            f"{card.bound(*work['bucket_reduce'])[0]:.3f} ms: {work['bucket_reduce'][1]} Fq products, the kernel "
+            f"{card.bound(*work['bucket_reduce'])[0]:.3f} ms: {work['bucket_reduce'][1]} multiplies, the kernel "
             f"does {own['bucket_reduce']}), K5 == plain limb for limb (kernel {k5_ms:.3f} ms, plain "
             f"{k5_plain_ms:.3f} ms)")
         log(f"  launches of K3 on the largest set and of K4: {_msm_geometry(max(sizes), c, 1, len(sets))}")
@@ -1684,52 +1779,52 @@ CEREMONY_EXP = 18  # phase 13's domain: phase 10's circuit, an eighth of the ref
 PLAIN_SCAN_N = 1 << 17
 
 
-def _windowed_products(group: str, scalars):
-    """Fq products (N,) k P takes on these scalars by the plain windowed
+def _windowed_muls(group: str, scalars):
+    """Multiplies (N,) k P takes on these scalars by the plain windowed
     ladder (K8 on G1, K9 on G2), as far as this data needs it: the multiples
     up to each point's largest 4-bit window, 4 doublings per window after
     the first nonzero one, one add per nonzero window after the first (k = 1
     needs none)."""
     from phase2_bn254_tpu_torch.ops import batch_exp
 
-    ops = FQ_PRODUCTS[group]
+    ops = OP_MULS[group]
     win = batch_exp.scalar_windows_msb(scalars)
     nz = win != 0
     adds = (nz.sum(0) - 1).clamp(min=0)
-    return _table_products(ops, win.amax(0)) + _ladder_doublings(nz, 4) * ops["dbl"] + adds * ops["add"]
+    return _table_muls(ops, win.amax(0)) + _ladder_doublings(nz, 4) * ops["dbl"] + adds * ops["add"]
 
 
-def _windowed_kernel_products(group: str, scalars) -> int:
-    """Fq products K8 / K9 (csrc/ladders.cuh windowed_ladder_point) do on
+def _windowed_kernel_muls(group: str, scalars) -> int:
+    """Multiplies K8 / K9 (csrc/ladders.cuh windowed_ladder_point) do on
     these scalars: the table (2P through the doubling branch, 3P..15P), 4
     doublings per window (64), and one add per nonzero digit after the first
     (an add into infinity or of T[0] costs none)."""
     from phase2_bn254_tpu_torch.ops import batch_exp
 
-    ops = FQ_PRODUCTS[group]
+    ops = OP_MULS[group]
     n = scalars.shape[0]
     table = ops["add_head"] + ops["dbl"] + 13 * ops["add"]
     adds = int(((batch_exp.scalar_windows_msb(scalars) != 0).sum(0) - 1).clamp(min=0).sum())
     return n * (table + batch_exp.N_WINDOWS * 4 * ops["dbl"]) + adds * ops["add"]
 
 
-def _k9_kernel_products(scalars) -> int:
-    return _windowed_kernel_products("g2", scalars)
+def _k9_kernel_muls(scalars) -> int:
+    return _windowed_kernel_muls("g2", scalars)
 
 
-def _s1_products(group: str, jac, starts) -> int:
-    """Fq products a segmented inclusive scan needs on these terms: one add
+def _s1_muls(group: str, jac, starts) -> int:
+    """Multiplies a segmented inclusive scan needs on these terms: one add
     for each lane whose term and whose segment's sum before it are both
     finite (N - segments adds at most)."""
     from phase2_bn254_tpu_torch.field.fq2 import FQ, FQ2
 
     fin = (~(FQ if group == "g1" else FQ2).is_zero(jac.z)).long()
     before = fin.cumsum(0) - fin  # finite terms in the lanes before i
-    return int(((fin > 0) & (before - before[starts] > 0)).sum()) * FQ_PRODUCTS[group]["add"]
+    return int(((fin > 0) & (before - before[starts] > 0)).sum()) * OP_MULS[group]["add"]
 
 
-def _s1_kernel_products(group: str, jac, starts) -> int:
-    """Fq products S1's rounds do on these points: one add per lane and round
+def _s1_kernel_muls(group: str, jac, starts) -> int:
+    """Multiplies S1's rounds do on these points: one add per lane and round
     where i - d lies in i's segment and both partial sums are finite (an add
     with infinity costs none; the rare P == Q doubling is counted as an
     add)."""
@@ -1747,7 +1842,7 @@ def _s1_kernel_products(group: str, jac, starts) -> int:
         adds += int((live & ~inf & ~other).sum())
         inf = torch.where(live, inf & other, inf)
         d *= 2
-    return adds * FQ_PRODUCTS[group]["add"]
+    return adds * OP_MULS[group]["add"]
 
 
 def _scan_case(group: str, jac, starts, plain_n: int | None = None) -> dict:
@@ -1768,8 +1863,8 @@ def _scan_case(group: str, jac, starts, plain_n: int | None = None) -> dict:
     ms = cuda_ms(lambda: segsum.segmented_scan(jac, starts), 3)
     rounds = (n - 1).bit_length()
     return {"ms": ms, "plain_ms": plain_ms, "plain_n": plain_n, "err": err, "n": n, "rounds": rounds,
-            "work": (nbytes(*jac, starts, *got), _s1_products(group, jac, starts)),
-            "kernel_fq_products": _s1_kernel_products(group, jac, starts)}
+            "work": (nbytes(*jac, starts, *got), _s1_muls(group, jac, starts)),
+            "kernel_muls": _s1_kernel_muls(group, jac, starts)}
 
 
 def _k9_case(x, y, scalars, plain_n: int | None = None) -> dict:
@@ -1788,9 +1883,9 @@ def _k9_case(x, y, scalars, plain_n: int | None = None) -> dict:
                              f"(max abs limb error {err})")
     ms = cuda_ms(lambda: batch_exp.batch_exp_g2_windowed(x, y, scalars), 3)
     return {"ms": ms, "plain_ms": plain_ms, "plain_n": plain_n, "err": err, "n": n,
-            "work": (nbytes(x, y, scalars, *got), _function_products("g2", scalars)),
-            "ladder_fq_products": int(_windowed_products("g2", scalars).sum()),
-            "kernel_fq_products": _k9_kernel_products(scalars)}
+            "work": (nbytes(x, y, scalars, *got), _function_muls("g2", scalars)),
+            "ladder_muls": int(_windowed_muls("g2", scalars).sum()),
+            "kernel_muls": _k9_kernel_muls(scalars)}
 
 
 def _skewed_terms(group: str, n: int, rng: random.Random):
@@ -1829,8 +1924,8 @@ def phase_segsum_kernels(card: Card, records: list[dict], n: int = KERNEL_N) -> 
     b, by = card.bound(*k9["work"])
     log(f"phase 12 K9 (batch_exp_g2_windowed): N={n} G2 points, edge scalars first: kernel == plain limb for limb; "
         f"kernel {k9['ms']:.3f} ms/call, plain {k9['plain_ms']:.3f} ms, bound {b:.3f} ms ({by}: "
-        f"{k9['work'][1] / n:.0f} Fq products/point; this ladder needs {k9['ladder_fq_products'] / n:.0f}, the "
-        f"kernel does {k9['kernel_fq_products'] / n:.0f})")
+        f"{k9['work'][1] / n:.0f} multiplies/point; this ladder needs {k9['ladder_muls'] / n:.0f}, the "
+        f"kernel does {k9['kernel_muls'] / n:.0f})")
     scans = {}
     for group in ("g1", "g2"):
         jac, starts, seg_ids, nseg = _skewed_terms(group, n, rng)
@@ -1840,22 +1935,22 @@ def phase_segsum_kernels(card: Card, records: list[dict], n: int = KERNEL_N) -> 
         log(f"phase 12 S1 (segmented_scan) {group}: N={n} terms over {nseg} segments ({int(torch.bincount(seg_ids).max())} "
             f"in the largest, {nseg - int(seg_ids.unique().numel())} empty), coefficients 1, r-1, 0, random: kernel == "
             f"plain limb for limb; kernel {c['ms']:.3f} ms ({c['rounds']} launches), plain {c['plain_ms']:.3f} ms, "
-            f"bound {b:.3f} ms ({by}: {c['work'][1]} Fq products, {c['work'][0]} bytes; the rounds do "
-            f"{c['kernel_fq_products']})")
+            f"bound {b:.3f} ms ({by}: {c['work'][1]} multiplies, {c['work'][0]} bytes; the rounds do "
+            f"{c['kernel_muls']})")
     records.append(record(card, "batch_exp_g2_windowed", "phase2_bn254_tpu_torch/csrc/batch_exp_g2_windowed.cu",
                           "phase2_bn254_tpu/ops/pallas_exp.py:449", k9["err"], k9["ms"], k9["plain_ms"], k9["work"],
-                          shape=f"N={n} G2 points, edge and random scalars", fq_products=k9["work"][1],
-                          ladder_fq_products=k9["ladder_fq_products"], kernel_fq_products=k9["kernel_fq_products"]))
+                          shape=f"N={n} G2 points, edge and random scalars", muls=k9["work"][1],
+                          ladder_muls=k9["ladder_muls"], kernel_muls=k9["kernel_muls"]))
     g2 = scans["g2"]
     b2, by2 = card.bound(*g2["work"])
     records.append(record(card, "segmented_scan", "phase2_bn254_tpu_torch/csrc/segsum.cu",
                           "phase2_bn254_tpu/ops/segsum.py:46 (XLA glue, not a Pallas kernel)",
                           max(c["err"] for c in scans.values()), scans["g1"]["ms"], scans["g1"]["plain_ms"],
                           scans["g1"]["work"], shape=f"N={n} G1 terms, a third in one segment; g2 beside",
-                          fq_products=scans["g1"]["work"][1], kernel_fq_products=scans["g1"]["kernel_fq_products"],
+                          muls=scans["g1"]["work"][1], kernel_muls=scans["g1"]["kernel_muls"],
                           g2={"ms": g2["ms"], "plain_ms": g2["plain_ms"], "bound_ms": b2, "bound_by": by2,
-                              "max_abs_err": g2["err"], "fq_products": g2["work"][1],
-                              "kernel_fq_products": g2["kernel_fq_products"]}))
+                              "max_abs_err": g2["err"], "muls": g2["work"][1],
+                              "kernel_muls": g2["kernel_muls"]}))
 
 
 def write_radix(workdir: str, exp: int, seed: int) -> str:
@@ -2029,41 +2124,41 @@ def phase_ceremony(card: Card, workdir: str, records: list[dict], exp: int = CER
     (x, y, d1, d2), = kept["k1"]
     coeffs, = (a[2] for a in kept["terms"] if a[0].x.dim() == 2)
     k1_ms = cuda_ms(lambda: batch_exp.batch_exp_glv_signed(x, y, d1, d2), 3)
-    k1_need, k1_own = _function_products("g1", coeffs), int(_k1_products(d1, d2).sum())
-    k1_does = _k1_kernel_products(d1, d2)
+    k1_need, k1_own = _function_muls("g1", coeffs), int(_k1_muls(d1, d2).sum())
+    k1_does = _k1_kernel_muls(d1, d2)
     k1_bound, k1_by = card.bound(nbytes(x, y, d1, d2) + 3 * nbytes(x), k1_need)
-    k1 = {"n": x.shape[0], "ms": k1_ms, "bound_ms": k1_bound, "bound_by": k1_by, "fq_products": k1_need,
-          "ladder_fq_products": k1_own, "kernel_fq_products": k1_does}
+    k1 = {"n": x.shape[0], "ms": k1_ms, "bound_ms": k1_bound, "bound_by": k1_by, "muls": k1_need,
+          "ladder_muls": k1_own, "kernel_muls": k1_does}
     log(f"  K1 on new's G1 terms: N={x.shape[0]}, kernel {k1_ms:.3f} ms, bound {k1_bound:.3f} ms ({k1_by}: {k1_need} "
-        f"Fq products; this ladder needs {k1_own}, the kernel does {k1_does}; K1 was held to its plain version in "
+        f"multiplies; this ladder needs {k1_own}, the kernel does {k1_does}; K1 was held to its plain version in "
         f"phase 2)")
     (x, y, k), = kept["k9"]
     k9 = _k9_case(x, y, k, plain_n=KERNEL_N)
     b, by = card.bound(*k9["work"])
     log(f"  K9 on new's G2 terms: N={k9['n']}, kernel == plain limb for limb on the first {k9['plain_n']}; kernel "
         f"{k9['ms']:.3f} ms, plain {k9['plain_ms']:.3f} ms ({k9['plain_n']} points), bound {b:.3f} ms ({by}: "
-        f"{k9['work'][1]} Fq products; this ladder needs {k9['ladder_fq_products']}, the kernel does "
-        f"{k9['kernel_fq_products']})")
+        f"{k9['work'][1]} multiplies; this ladder needs {k9['ladder_muls']}, the kernel does "
+        f"{k9['kernel_muls']})")
     per = {}
     for jac, starts in kept["s1"]:
         group = "g1" if jac.x.dim() == 2 else "g2"
         c = _scan_case(group, jac, starts, plain_n=PLAIN_SCAN_N)
         b, by = card.bound(*c["work"])
         per[group] = {"ms": c["ms"], "plain_ms": c["plain_ms"], "plain_n": c["plain_n"], "n": c["n"],
-                      "launches": c["rounds"], "bound_ms": b, "bound_by": by, "fq_products": c["work"][1],
-                      "kernel_fq_products": c["kernel_fq_products"]}
+                      "launches": c["rounds"], "bound_ms": b, "bound_by": by, "muls": c["work"][1],
+                      "kernel_muls": c["kernel_muls"]}
         log(f"  S1 on new's {group} set: N={c['n']} ({c['rounds']} launches), kernel == plain limb for limb on the "
             f"first {c['plain_n']} lanes; kernel {c['ms']:.3f} ms, plain {c['plain_ms']:.3f} ms ({c['plain_n']} "
-            f"lanes), bound {b:.3f} ms ({by}: {c['work'][1]} Fq products, {c['work'][0]} bytes; the rounds do "
-            f"{c['kernel_fq_products']})")
+            f"lanes), bound {b:.3f} ms ({by}: {c['work'][1]} multiplies, {c['work'][0]} bytes; the rounds do "
+            f"{c['kernel_muls']})")
     del kept
     for r in records:
         if r["name"] == "batch_exp_g2_windowed":
             r["launches"] = launches["new"]["batch_exp_g2_windowed"]
             r["new_shape"] = {"n": k9["n"], "ms": k9["ms"], "bound_ms": card.bound(*k9["work"])[0],
-                              "plain_ms": k9["plain_ms"], "plain_n": k9["plain_n"], "fq_products": k9["work"][1],
-                              "ladder_fq_products": k9["ladder_fq_products"],
-                              "kernel_fq_products": k9["kernel_fq_products"]}
+                              "plain_ms": k9["plain_ms"], "plain_n": k9["plain_n"], "muls": k9["work"][1],
+                              "ladder_muls": k9["ladder_muls"],
+                              "kernel_muls": k9["kernel_muls"]}
         elif r["name"] == "batch_exp_glv_signed":
             r["new_shape"] = k1
         elif r["name"] == "segmented_scan":
@@ -2164,71 +2259,71 @@ PLAIN_LADDER_N = 1 << 14  # the prefix of phase 14's lanes the plain K7, K8, K10
 LADDER_VARIABLES = ("PHASE2_TPU_NO_GLV", "PHASE2_TPU_NO_GLS", "PHASE2_TPU_NO_SIGNED5")
 
 
-def _k7_products(d1, d2, negs):
-    """Fq products (N,) k P takes on these unsigned GLV windows by K7's
+def _k7_muls(d1, d2, negs):
+    """Multiplies (N,) k P takes on these unsigned GLV windows by K7's
     ladder, as far as this data needs it: the multiples up to each point's
     largest digit (with their beta x where d2 has a nonzero digit), 4
     doublings per window after the first nonzero one, one add per nonzero
     digit after the first; the signs cost none."""
-    ops = FQ_PRODUCTS["g1"]
+    ops = OP_MULS["g1"]
     nz1, nz2 = d1 != 0, d2 != 0
     top = d1.amax(0).maximum(d2.amax(0))
     adds = (nz1.sum(0) + nz2.sum(0) - 1).clamp(min=0)
-    return (_table_products(ops, top) + top * nz2.any(0) + _ladder_doublings(nz1 | nz2, 4) * ops["dbl"]
-            + adds * ops["add"])
+    return (_table_muls(ops, top) + top * nz2.any(0) * MULS_PER_FQ_PRODUCT
+            + _ladder_doublings(nz1 | nz2, 4) * ops["dbl"] + adds * ops["add"])
 
 
-def _k7_kernel_products(d1, d2, negs) -> int:
-    """Fq products K7 (csrc/batch_exp_glv.cu) does: the table (15 beta x, 2P
+def _k7_kernel_muls(d1, d2, negs) -> int:
+    """Multiplies K7 (csrc/batch_exp_glv.cu) does: the table (15 beta x, 2P
     through the doubling branch, 3P..15P), 4 doublings per window, one add
     per nonzero digit after the first."""
-    ops = FQ_PRODUCTS["g1"]
+    ops = OP_MULS["g1"]
     nw, n = d1.shape
-    table = 15 + ops["add_head"] + ops["dbl"] + 13 * ops["add"]
+    table = 15 * MULS_PER_FQ_PRODUCT + ops["add_head"] + ops["dbl"] + 13 * ops["add"]
     adds = int(((d1 != 0).sum(0) + (d2 != 0).sum(0) - 1).clamp(min=0).sum())
     return n * (table + nw * 4 * ops["dbl"]) + adds * ops["add"]
 
 
-def _k8_kernel_products(scalars) -> int:
-    return _windowed_kernel_products("g1", scalars)
+def _k8_kernel_muls(scalars) -> int:
+    return _windowed_kernel_muls("g1", scalars)
 
 
-def _k10_products(digits, negs):
-    """Fq products (N,) k Q takes on these unsigned GLS windows (4, W, N) by
+def _k10_muls(digits, negs):
+    """Multiplies (N,) k Q takes on these unsigned GLS windows (4, W, N) by
     K10's ladder, as far as this data needs it: the multiples up to each
     point's largest digit, psi, psi^2, psi^3 (6, 4, 6) of each nonzero digit
     of parts 1, 2, 3, 4 doublings per window after the first nonzero one,
     one add per nonzero digit after the first."""
-    ops = FQ_PRODUCTS["g2"]
+    ops = OP_MULS["g2"]
     nz = digits != 0
-    psi = 6 * nz[1].sum(0) + 4 * nz[2].sum(0) + 6 * nz[3].sum(0)
+    psi = (6 * nz[1].sum(0) + 4 * nz[2].sum(0) + 6 * nz[3].sum(0)) * MULS_PER_FQ_PRODUCT
     adds = (nz.sum((0, 1)) - 1).clamp(min=0)
-    return (_table_products(ops, digits.amax((0, 1))) + psi + _ladder_doublings(nz.any(0), 4) * ops["dbl"]
+    return (_table_muls(ops, digits.amax((0, 1))) + psi + _ladder_doublings(nz.any(0), 4) * ops["dbl"]
             + adds * ops["add"])
 
 
-def _k10_kernel_products(digits, negs) -> int:
-    """Fq products K10 (csrc/batch_exp_gls.cu) does: the table (2Q through
+def _k10_kernel_muls(digits, negs) -> int:
+    """Multiplies K10 (csrc/batch_exp_gls.cu) does: the table (2Q through
     the doubling branch, 3Q..15Q), per window 4 doublings and psi, psi^2,
     psi^3 of the gathered entries (6 + 4 + 6), one add per nonzero digit
     after the first."""
-    ops = FQ_PRODUCTS["g2"]
+    ops = OP_MULS["g2"]
     _, nw, n = digits.shape
     table = ops["add_head"] + ops["dbl"] + 13 * ops["add"]
     adds = int(((digits != 0).sum((0, 1)) - 1).clamp(min=0).sum())
-    return n * (table + nw * (4 * ops["dbl"] + 16)) + adds * ops["add"]
+    return n * (table + nw * (4 * ops["dbl"] + 16 * MULS_PER_FQ_PRODUCT)) + adds * ops["add"]
 
 
 # wrapper name -> (tag, group, the module whose `decompose` splits its scalars
-# (None: it takes them whole), its ladder's products, its kernel's, source,
+# (None: it takes them whole), its ladder's multiplies, its kernel's, source,
 # the TPU kernel it replaces)
 LADDER_CASES = {
-    "batch_exp_glv": ("K7", "g1", "glv", _k7_products, _k7_kernel_products,
+    "batch_exp_glv": ("K7", "g1", "glv", _k7_muls, _k7_kernel_muls,
                       "phase2_bn254_tpu_torch/csrc/batch_exp_glv.cu", "phase2_bn254_tpu/ops/pallas_exp.py:571"),
-    "batch_exp_g1_windowed": ("K8", "g1", None, lambda k: _windowed_products("g1", k), _k8_kernel_products,
+    "batch_exp_g1_windowed": ("K8", "g1", None, lambda k: _windowed_muls("g1", k), _k8_kernel_muls,
                               "phase2_bn254_tpu_torch/csrc/batch_exp_g1_windowed.cu",
                               "phase2_bn254_tpu/ops/pallas_exp.py:358"),
-    "batch_exp_gls": ("K10", "g2", "gls", _k10_products, _k10_kernel_products,
+    "batch_exp_gls": ("K10", "g2", "gls", _k10_muls, _k10_kernel_muls,
                       "phase2_bn254_tpu_torch/csrc/batch_exp_gls.cu", "phase2_bn254_tpu/ops/pallas_exp.py:933"),
 }
 
@@ -2239,7 +2334,7 @@ def _ladder_case(name: str, x, y, k, plain_n: int, reps: int) -> dict:
     lane's split is its own), limb for limb; time per call; the work."""
     from phase2_bn254_tpu_torch.ops import batch_exp, gls, glv
 
-    tag, group, split, products, kernel_products, _, _ = LADDER_CASES[name]
+    tag, group, split, muls, kernel_muls, _, _ = LADDER_CASES[name]
     split = {"glv": glv.decompose, "gls": gls.decompose}.get(split, lambda k: (k,))
     kernel, plain = getattr(batch_exp, name), getattr(batch_exp, name + "_plain")
     n, pn = x.shape[0], min(plain_n, x.shape[0])
@@ -2252,16 +2347,16 @@ def _ladder_case(name: str, x, y, k, plain_n: int, reps: int) -> dict:
                              f"(max abs limb error {err})")
     return {"tag": tag, "group": group, "n": n, "plain_n": pn, "err": err, "plain_ms": plain_ms,
             "ms": cuda_ms(lambda: kernel(x, y, *inputs), reps),
-            "work": (nbytes(x, y, *inputs, *got), _function_products(group, k)),
-            "ladder_fq_products": int(products(*inputs).sum()), "kernel_fq_products": kernel_products(*inputs)}
+            "work": (nbytes(x, y, *inputs, *got), _function_muls(group, k)),
+            "ladder_muls": int(muls(*inputs).sum()), "kernel_muls": kernel_muls(*inputs)}
 
 
 def _ladder_log(c: dict, bound_ms: float, bound_by: str) -> str:
     need, n = c["work"][1], c["n"]
     return (f"kernel == plain limb for limb on the first {c['plain_n']} lanes; kernel {c['ms']:.3f} ms/call, plain "
-            f"{c['plain_ms']:.3f} ms ({c['plain_n']} lanes), bound {bound_ms:.3f} ms ({bound_by}: {need / n:.0f} Fq "
-            f"products/point; this ladder needs {c['ladder_fq_products'] / n:.0f}, the kernel does "
-            f"{c['kernel_fq_products'] / n:.0f})")
+            f"{c['plain_ms']:.3f} ms ({c['plain_n']} lanes), bound {bound_ms:.3f} ms ({bound_by}: {need / n:.0f} "
+            f"multiplies/point; this ladder needs {c['ladder_muls'] / n:.0f}, the kernel does "
+            f"{c['kernel_muls'] / n:.0f})")
 
 
 def phase_ladder_kernels(card: Card, records: list[dict], n: int = KERNEL_N) -> None:
@@ -2277,10 +2372,12 @@ def phase_ladder_kernels(card: Card, records: list[dict], n: int = KERNEL_N) -> 
         c = _ladder_case(name, pts.x, pts.y, k, PLAIN_LADDER_N, 5)
         rec = record(card, name, source, replaces, c["err"], c["ms"], c["plain_ms"], c["work"],
                      shape=f"N={n} {group.upper()} points, edge and random scalars", plain_n=c["plain_n"],
-                     fq_products=c["work"][1], ladder_fq_products=c["ladder_fq_products"],
-                     kernel_fq_products=c["kernel_fq_products"])
+                     muls=c["work"][1], ladder_muls=c["ladder_muls"],
+                     kernel_muls=c["kernel_muls"])
         log(f"phase 14 {tag} ({name}): N={n}, edge scalars first: " + _ladder_log(c, rec["bound_ms"], rec["bound_by"]))
         records.append(rec)
+    for line in _ptxas_of(("batch_exp_glv_kernel", "batch_exp_g1_windowed_kernel", "batch_exp_gls_kernel")):
+        log(f"  ptxas: {line}")
 
 
 @contextlib.contextmanager
@@ -2379,9 +2476,9 @@ def phase_configurations(card: Card, workdir: str, records: list[dict], response
             r["launches_by_path"][f"new 2^{exp}, PHASE2_TPU_NO_SIGNED5"] = got["batch_exp_glv"]
             r["new_wall_s"] = wall
             r["new_shape"] = {"n": c["n"], "max_abs_err": c["err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
-                              "plain_n": c["plain_n"], "bound_ms": b, "bound_by": by, "fq_products": c["work"][1],
-                              "ladder_fq_products": c["ladder_fq_products"],
-                              "kernel_fq_products": c["kernel_fq_products"]}
+                              "plain_n": c["plain_n"], "bound_ms": b, "bound_by": by, "muls": c["work"][1],
+                              "ladder_muls": c["ladder_muls"],
+                              "kernel_muls": c["kernel_muls"]}
         if r["name"] in ("batch_exp_glv", "batch_exp_gls", "batch_exp_g1_windowed"):
             r["launches"] = sum(r["launches_by_path"].values())
 
@@ -2431,6 +2528,7 @@ def main() -> int:
     log(f"card: {card.line}; {torch.cuda.device_count()} CUDA device(s) visible, this smoke drives device 0; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     phase_build(card)
+    phase_field()
     records = phase_kernels(card)
     with tempfile.TemporaryDirectory() as workdir:
         run_phases(card, workdir, records)

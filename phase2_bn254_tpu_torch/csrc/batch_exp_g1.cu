@@ -10,13 +10,20 @@
 // x, y, z int64 (N, 16), Jacobian, Montgomery, fully reduced.
 //
 // What bounds it on the card: 32-bit integer multiply throughput (about
-// 2000 Montgomery products per point, 128 wide multiplies each) and the
+// 1900 Montgomery products per point, half of them squares) and the
 // per-thread table of 17 Jacobian points plus 17 beta x planes (2.2 KB),
 // which lives in local memory and is read twice per window. The design keeps
-// one point per thread (no cross-thread carries), fully unrolled 32-bit CIOS
-// for the multiply, and accepts the table in local memory; the doubling
-// branch for P + P (hit at table step 2) and the cancellation case are
-// per-thread branches rather than masks.
+// one point per thread (no cross-thread carries; 2^16 threads a chunk fill
+// the card), calls field.cuh's PTX product and square out of line through
+// the group operations (inlined, K1 was 40% slower on an H100: PERF.md, PR
+// 9), and does the fewest products this ladder allows: the table
+// 2P..16P is one doubling and 14 mixed adds of the affine P (11 products
+// each, where a general add takes 16; the values are those of general adds,
+// every one fully reduced), and each thread's accumulator starts at its
+// first window with a nonzero digit, with no doublings of infinity before
+// it (the same limbs: an add into infinity returns its other operand). The
+// doubling branch for P + P and the cancellation case are per-thread
+// branches rather than masks.
 //
 // Outside nvcc (no __CUDACC__) only the per-point function is compiled, so a
 // host C++ compiler can run the arithmetic on the CPU.
@@ -34,18 +41,24 @@ __device__ void batch_exp_glv_signed_point(const int64_t* x, const int64_t* y, c
 
   Jac<Fp> table[17];
   Fp beta_x[17];
+  const Fp px = load_fp(x + 16 * (int64_t)i), py = load_fp(y + 16 * (int64_t)i);
   table[0] = jac_infinity<Fp>();
   beta_x[0] = fp_zero();
-  table[1] = {load_fp(x + 16 * (int64_t)i), load_fp(y + 16 * (int64_t)i), fp_one()};
-  beta_x[1] = mul(table[1].x, beta);
-  for (int k = 2; k < 17; ++k) {
-    table[k] = jac_add(table[k - 1], table[1]);  // k = 2 is P + P
+  table[1] = {px, py, fp_one()};
+  beta_x[1] = mul(px, beta);
+  table[2] = jac_double(table[1]);
+  beta_x[2] = mul(table[2].x, beta);
+  for (int k = 3; k < 17; ++k) {
+    table[k] = jac_madd(table[k - 1], px, py);
     beta_x[k] = mul(table[k].x, beta);
   }
 
+  int first = 0;
+  while (first < nw && d1[(int64_t)first * n + i] == 0 && d2[(int64_t)first * n + i] == 0) ++first;
   Jac<Fp> acc = jac_infinity<Fp>();
-  for (int w = 0; w < nw; ++w) {
-    for (int s = 0; s < 5; ++s) acc = jac_double(acc);
+  for (int w = first; w < nw; ++w) {
+    if (w > first)
+      for (int s = 0; s < 5; ++s) acc = jac_double(acc);
     int da = (int)d1[(int64_t)w * n + i];
     Jac<Fp> e = table[da < 0 ? -da : da];
     if (da < 0) e.y = neg(e.y);

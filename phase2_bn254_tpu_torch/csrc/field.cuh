@@ -2,27 +2,41 @@
 // point or per lane, for the kernels of this directory (batch_exp_g1.cu,
 // batch_exp_g2.cu, batch_exp_g2_windowed.cu, batch_exp_g1_windowed.cu,
 // batch_exp_glv.cu, batch_exp_gls.cu, msm.cu, decompress.cu,
-// segsum.cu; Fr for ntt.cu).
+// segsum.cu, fieldops.cu; Fr for ntt.cu).
 //
 // An Fq element (Fp) or an Fr element (Fr) is 8 little-endian 32-bit limbs
 // in Montgomery form with R = 2^256, the same values as the 16 x 16-bit
 // limbs of the JAX package and of field/fp.py; loads and stores convert
-// between the two. Multiplication
-// is CIOS with 64-bit products and a final conditional subtraction, so every
-// value stays fully reduced in [0, p): equality and the zero test are limb
-// compares, and the kernels' outputs equal the plain PyTorch versions' limb
-// for limb.
+// between the two. Every value stays fully reduced in [0, p): equality and
+// the zero test are limb compares, and the kernels' outputs equal the plain
+// PyTorch versions' limb for limb.
+//
+// On the card (__CUDA_ARCH__) the product, the square, the sum and the
+// difference are the inline PTX carry chains of field_ptx.cuh (written by
+// ops/_ptx.py into the build directory at build time): CIOS with mad.lo.cc / madc.hi.cc chains over the even and
+// the odd limbs, and a square that computes its 28 cross products once
+// (36 limb products where a product takes 64). Off the card (g++ and
+// nvcc's host pass) they are the C++ CIOS below, 64-bit products and a
+// final conditional subtraction: the host tests run that path, and
+// fieldops.cu holds the two against each other on the card.
 //
 // The group law is dbl-2009-l, add-2007-bl and the mixed add madd-2007-bl
 // with the same exceptional cases as curve/group.py (P + O, O + Q, P == Q by
-// doubling, P == -Q to infinity). The Fq multiply and the group operations
-// are __noinline__: one copy of each keeps the kernels' code small enough
-// for the instruction cache, at the price of a call per operation.
+// doubling, P == -Q to infinity). The group operations and the Fq product
+// and square are __noinline__: one copy of each keeps the kernels' code
+// small enough for the instruction cache, at the price of a call per
+// operation. Inlined into the group operations, the product made K1 40%
+// and K2 120% slower on an H100, and K3 no faster (PERF.md, PR 9);
+// `mul_inline` is there for a caller that runs few products, as K5's warp
+// does.
 #pragma once
 
 #include <cstdint>
 
 #include "constants.cuh"
+#if defined(__CUDA_ARCH__)
+#include "field_ptx.cuh"
+#endif
 
 struct Fp {  // Fq, the base field
   uint32_t v[8];
@@ -75,9 +89,9 @@ __device__ __forceinline__ bool eq(const Fp& a, const Fp& b) {
   return acc == 0;
 }
 
-// The arithmetic below is written once over the modulus p (8 limbs) and its
-// -p^-1 mod 2^32, for both moduli (254 bits each, so a + b < 2^255 and the
-// CIOS result t < 2p < 2^256). E is Fp or Fr.
+// The host arithmetic below is written once over the modulus p (8 limbs)
+// and its -p^-1 mod 2^32, for both moduli (254 bits each, so a + b < 2^255
+// and the CIOS result t < 2p < 2^256). E is Fp or Fr.
 
 // r - p if r >= p, else r (r < 2^256)
 template <class E>
@@ -164,22 +178,53 @@ __device__ __forceinline__ E mont_mul_mod(const E& a, const E& b, const uint32_t
   return reduce_once_mod(r, p);  // t < 2p < 2^256, so t[8] == 0
 }
 
-__device__ __forceinline__ Fp fp_reduce_once(const Fp& r) { return reduce_once_mod(r, FQ_P); }
-__device__ __forceinline__ Fp add(const Fp& a, const Fp& b) { return add_mod(a, b, FQ_P); }
-__device__ __forceinline__ Fp sub(const Fp& a, const Fp& b) { return sub_mod(a, b, FQ_P); }
+// one definition per field of +, -, x and the square: the PTX chains on the
+// card, the C++ above elsewhere
+#if defined(__CUDA_ARCH__)
+#define P2_FIELD_OPS(E, f, P, PINV)                                                        \
+  __device__ __forceinline__ E add(const E& a, const E& b) {                                \
+    E r;                                                                                   \
+    ptx_add_##f(r.v, a.v, b.v);                                                            \
+    return r;                                                                              \
+  }                                                                                        \
+  __device__ __forceinline__ E sub(const E& a, const E& b) {                                \
+    E r;                                                                                   \
+    ptx_sub_##f(r.v, a.v, b.v);                                                            \
+    return r;                                                                              \
+  }                                                                                        \
+  __device__ __forceinline__ E mul_inline(const E& a, const E& b) {                         \
+    E r;                                                                                   \
+    ptx_mul_##f(r.v, a.v, b.v);                                                            \
+    return r;                                                                              \
+  }                                                                                        \
+  __device__ __forceinline__ E sqr_inline(const E& a) {                                     \
+    E r;                                                                                   \
+    ptx_sqr_##f(r.v, a.v);                                                                 \
+    return r;                                                                              \
+  }
+#else
+#define P2_FIELD_OPS(E, f, P, PINV)                                                        \
+  __device__ __forceinline__ E add(const E& a, const E& b) { return add_mod(a, b, P); }     \
+  __device__ __forceinline__ E sub(const E& a, const E& b) { return sub_mod(a, b, P); }     \
+  __device__ __forceinline__ E mul_inline(const E& a, const E& b) {                         \
+    return mont_mul_mod(a, b, P, PINV);                                                    \
+  }                                                                                        \
+  __device__ __forceinline__ E sqr_inline(const E& a) { return mont_mul_mod(a, a, P, PINV); }
+#endif
+
+P2_FIELD_OPS(Fp, fq, FQ_P, FQ_PINV)
+P2_FIELD_OPS(Fr, fr, FR_P, FR_PINV)
+
 __device__ __forceinline__ Fp neg(const Fp& a) { return sub(fp_zero(), a); }
 __device__ __forceinline__ Fp dbl(const Fp& a) { return add(a, a); }
-static __device__ __noinline__ Fp mul(Fp a, Fp b) { return mont_mul_mod(a, b, FQ_P, FQ_PINV); }
-
-__device__ __forceinline__ Fp sqr(const Fp& a) { return mul(a, a); }
+static __device__ __noinline__ Fp mul(Fp a, Fp b) { return mul_inline(a, b); }
+static __device__ __noinline__ Fp sqr(Fp a) { return sqr_inline(a); }
 
 // ---------------------------------------------------------------------------
-// Fr (inlined: the NTT's butterflies are its only users)
+// Fr (always inlined: the NTT's butterflies are its only users)
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ Fr add(const Fr& a, const Fr& b) { return add_mod(a, b, FR_P); }
-__device__ __forceinline__ Fr sub(const Fr& a, const Fr& b) { return sub_mod(a, b, FR_P); }
-__device__ __forceinline__ Fr mul(const Fr& a, const Fr& b) { return mont_mul_mod(a, b, FR_P, FR_PINV); }
+__device__ __forceinline__ Fr mul(const Fr& a, const Fr& b) { return mul_inline(a, b); }
 
 // ---------------------------------------------------------------------------
 // Fq2 = Fq[u] / (u^2 + 1)

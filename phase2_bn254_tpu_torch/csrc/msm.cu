@@ -38,8 +38,15 @@
 //   >= j} R_j', so that sum_l l S_l = sum_j (W_j + m Suf_j [j > 0]); each
 //   thread multiplies its Suf_j by m with log2 m doublings, adds W_j, and a
 //   tree over the block sums the T points. Out: (S, nwin) window sums.
-// K5: one thread per set: sum_w 2^(c w) T_w, most significant window first,
-//   with c doublings and one add per window. Out: (S) Jacobian points.
+// K5: one warp per set: sum_w 2^(c w) T_w from the highest window whose sum
+//   is finite, c doublings and one add per window below it. The chain is
+//   latency-bound (2 sets on 2 SMs at the verify chunk, c (nwin - 1)
+//   dependent doublings whatever the grouping of the windows), so the
+//   design shortens it: each level of independent products of a doubling
+//   (3 levels of 7 products) or an add (5 of 16) runs one product a lane
+//   (Fq2: one Karatsuba term a lane) and the lanes share the results by
+//   __shfl_sync. A doubling costs 3 product latencies, where one thread
+//   pays 7. Out: (S) Jacobian points.
 // All values Montgomery, fully reduced; int64 16-bit digits as the tensors.
 //
 // What bounds them on this card: 32-bit integer multiply throughput inside
@@ -157,20 +164,127 @@ __device__ void reduce_tree_step(Jac<F>* terms, int j, int stride) {
   if (j < stride) terms[j] = jac_add(terms[j], terms[j + stride]);
 }
 
-// K5, set s
-template <class F>
-__device__ void combine_windows_point(const int64_t* sx, const int64_t* sy, const int64_t* sz, int64_t* ox,
-                                      int64_t* oy, int64_t* oz, int64_t s, int nwin, int c) {
-  Jac<F> p = jac_infinity<F>();
-  for (int w = nwin - 1; w >= 0; --w) {
-    for (int k = 0; k < c; ++k) p = jac_double(p);
-    p = jac_add(p, load_jac<F>(sx, sy, sz, s * nwin + w));
+// K5's group law as levels: the products of a doubling (three levels) and
+// of an add (five) that do not depend on each other, computed by a
+// `Products` policy, prod(out, a, b): out[k] = a[k] b[k] for one level.
+// SerialProducts runs them in order on one thread (the host tests);
+// WarpProducts gives every product a lane of the set's warp. The values are
+// those of field.cuh's jac_double and jac_add, operation for operation.
+struct SerialProducts {
+  template <class F, int N>
+  __device__ void operator()(F (&out)[N], const F (&a)[N], const F (&b)[N]) const {
+    for (int k = 0; k < N; ++k) out[k] = mul(a[k], b[k]);
   }
-  store_jac(ox, oy, oz, s, p);
+};
+
+// dbl-2009-l
+template <class F, class Products>
+__device__ Jac<F> jac_double_levels(const Jac<F>& p, const Products& prod) {
+  F a1[3] = {p.x, p.y, p.z}, b1[3] = {p.x, p.y, p.y}, o1[3];
+  prod(o1, a1, b1);  // A = X^2, B = Y^2, Z Y
+  F e = add(dbl(o1[0]), o1[0]);
+  F a2[3] = {o1[1], add(p.x, o1[1]), e}, o2[3];
+  prod(o2, a2, a2);  // C = B^2, (X + B)^2, E^2
+  F d = dbl(sub(sub(o2[1], o1[0]), o2[0]));
+  F x3 = sub(o2[2], dbl(d));
+  F a3[1] = {sub(d, x3)}, b3[1] = {e}, o3[1];
+  prod(o3, a3, b3);  // (D - X3) E
+  return {x3, sub(o3[0], dbl(dbl(dbl(o2[0])))), dbl(o1[2])};
+}
+
+// add-2007-bl with jac_add's exceptional cases
+template <class F, class Products>
+__device__ Jac<F> jac_add_levels(const Jac<F>& p, const Jac<F>& q, const Products& prod) {
+  if (is_zero(p.z)) return q;
+  if (is_zero(q.z)) return p;
+  F a1[4] = {p.z, q.z, p.y, q.y}, b1[4] = {p.z, q.z, q.z, p.z}, o1[4];
+  prod(o1, a1, b1);  // Z1^2, Z2^2, Y1 Z2, Y2 Z1
+  F a2[4] = {p.x, q.x, o1[2], o1[3]}, b2[4] = {o1[1], o1[0], o1[1], o1[0]}, o2[4];
+  prod(o2, a2, b2);  // U1, U2, S1, S2
+  bool eq_x = eq(o2[0], o2[1]);
+  if (eq_x && eq(o2[2], o2[3])) return jac_double_levels(p, prod);  // P == Q
+  F h = sub(o2[1], o2[0]), r = dbl(sub(o2[3], o2[2]));
+  F a3[3] = {dbl(h), r, add(p.z, q.z)}, o3[3];
+  prod(o3, a3, a3);  // I = (2H)^2, r^2, (Z1 + Z2)^2
+  F a4[3] = {h, o2[0], sub(sub(o3[2], o1[0]), o1[1])}, b4[3] = {o3[0], o3[0], h}, o4[3];
+  prod(o4, a4, b4);  // J, V, Z3
+  F x3 = sub(sub(o3[1], o4[0]), dbl(o4[1]));
+  F a5[2] = {sub(o4[1], x3), o2[2]}, b5[2] = {r, o4[0]}, o5[2];
+  prod(o5, a5, b5);  // (V - X3) r, S1 J
+  F z3 = o4[2];
+  if (eq_x) z3 = sub(z3, z3);  // P == -Q: infinity, x3 and y3 as computed
+  return {x3, sub(o5[0], dbl(o5[1])), z3};
+}
+
+// K5, set s: sum_w 2^(c w) T_w from the highest window whose sum is finite
+// (T_0 if none is), then c doublings and one add per window below it. The
+// limbs are those of the chain from infinity over every window: an add into
+// infinity returns its other operand.
+template <class F, class Products>
+__device__ Jac<F> combine_windows_set(const int64_t* sx, const int64_t* sy, const int64_t* sz, int64_t s, int nwin,
+                                      int c, const Products& prod) {
+  int top = nwin - 1;
+  for (F z; top > 0; --top) {
+    load_el(sz + kDigits<F> * (s * nwin + top), z);
+    if (!is_zero(z)) break;
+  }
+  Jac<F> p = load_jac<F>(sx, sy, sz, s * nwin + top);
+  for (int w = top - 1; w >= 0; --w) {
+    for (int k = 0; k < c; ++k) p = jac_double_levels(p, prod);
+    p = jac_add_levels(p, load_jac<F>(sx, sy, sz, s * nwin + w), prod);
+  }
+  return p;
 }
 
 #ifdef __CUDACC__
 namespace {
+
+// one product a lane of the warp (Fq2: each of Karatsuba's three Fq
+// products a lane), every result broadcast to all lanes with __shfl_sync:
+// a level costs one product's latency and 8 shuffles a product. Lanes past
+// the level's products compute a spare copy of product 0. Every lane of the
+// warp must call it (the full mask). G1 inlines its product (0.58 against
+// 0.71 ms at the verify chunk on an H100); G2, whose levels carry more code,
+// was slower so (1.51 against 1.40 ms) and calls it.
+struct WarpProducts {
+  template <int N>
+  __device__ void operator()(Fp (&out)[N], const Fp (&a)[N], const Fp (&b)[N]) const {
+    int lane = threadIdx.x & 31;
+    Fp x = a[0], y = b[0];
+#pragma unroll
+    for (int k = 1; k < N; ++k)
+      if (lane == k) x = a[k], y = b[k];
+    Fp r = mul_inline(x, y);
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) out[k].v[i] = __shfl_sync(0xffffffffu, r.v[i], k);
+  }
+
+  // lane 3k + j: v0 = a0 b0 (j = 0), v1 = a1 b1 (1), (a0 + a1)(b0 + b1) (2)
+  // of product k; then c0 = v0 - v1, c1 = t - v0 - v1 (field.cuh's Karatsuba)
+  template <int N>
+  __device__ void operator()(Fp2 (&out)[N], const Fp2 (&a)[N], const Fp2 (&b)[N]) const {
+    int lane = threadIdx.x & 31;
+    Fp x = a[0].c0, y = b[0].c0;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      if (lane == 3 * k) x = a[k].c0, y = b[k].c0;
+      if (lane == 3 * k + 1) x = a[k].c1, y = b[k].c1;
+      if (lane == 3 * k + 2) x = add(a[k].c0, a[k].c1), y = add(b[k].c0, b[k].c1);
+    }
+    Fp r = mul(x, y);
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      Fp v[3];
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v[j].v[i] = __shfl_sync(0xffffffffu, r.v[i], 3 * k + j);
+      out[k] = {sub(v[0], v[1]), sub(sub(v[2], v[0]), v[1])};
+    }
+  }
+};
 
 constexpr int kThreads = 128;
 constexpr int kReduceThreads = 256;
@@ -240,13 +354,16 @@ bucket_reduce_kernel(const int64_t* __restrict__ bx, const int64_t* __restrict__
   if (j == 0) store_jac(ox, oy, oz, row, held[0]);
 }
 
+// one warp (a block of 32 threads) per set: every lane holds the whole
+// state, so the branches are the warp's and no lane ever waits on a mask
 template <class F>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(32)
 combine_windows_kernel(const int64_t* __restrict__ sx, const int64_t* __restrict__ sy,
                        const int64_t* __restrict__ sz, int64_t* __restrict__ ox, int64_t* __restrict__ oy,
-                       int64_t* __restrict__ oz, int nsets, int nwin, int c) {
-  int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (s < nsets) combine_windows_point<F>(sx, sy, sz, ox, oy, oz, s, nwin, c);
+                       int64_t* __restrict__ oz, int nwin, int c) {
+  int64_t s = blockIdx.x;
+  Jac<F> p = combine_windows_set<F>(sx, sy, sz, s, nwin, c, WarpProducts());
+  if (threadIdx.x == 0) store_jac(ox, oy, oz, s, p);
 }
 
 inline int blocks_for(int64_t threads) { return (int)((threads + kThreads - 1) / kThreads); }
@@ -293,9 +410,9 @@ template <class F>
 int launch_combine(const void* sx, const void* sy, const void* sz, void* ox, void* oy, void* oz, int nsets,
                    int nwin, int c, void* stream) {
   if (nsets > 0) {
-    combine_windows_kernel<F><<<blocks_for(nsets), kThreads, 0, (cudaStream_t)stream>>>(
+    combine_windows_kernel<F><<<nsets, 32, 0, (cudaStream_t)stream>>>(
         (const int64_t*)sx, (const int64_t*)sy, (const int64_t*)sz, (int64_t*)ox, (int64_t*)oy, (int64_t*)oz,
-        nsets, nwin, c);
+        nwin, c);
   }
   return (int)cudaGetLastError();
 }

@@ -10,7 +10,9 @@ boundary every kernel wrapper goes through.
 
 `csrc/constants.cuh` holds the field constants as 32-bit limbs; it is the
 output of `constants_header()`, which derives them from the `refimpl`
-integers, and the tests check the two agree.
+integers, and the tests check the two agree. `field_ptx.cuh`, the field's
+PTX, is not kept in csrc/: `build()` writes it from `ops/_ptx.py` into the
+build directory.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 SOURCES = ("batch_exp_g1.cu", "batch_exp_g2.cu", "batch_exp_g2_windowed.cu", "batch_exp_g1_windowed.cu",
-           "batch_exp_glv.cu", "batch_exp_gls.cu", "msm.cu", "decompress.cu", "ntt.cu", "segsum.cu")
+           "batch_exp_glv.cu", "batch_exp_gls.cu", "msm.cu", "decompress.cu", "ntt.cu", "segsum.cu", "fieldops.cu")
 HEADERS = ("field.cuh", "constants.cuh", "ladders.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -48,6 +50,7 @@ ENTRY_POINTS = {
     **{f"p2_decompress_{g}": (5, 1) for g in ("g1", "g2")},
     "p2_lane_dft": (5, 7),
     **{f"p2_seg_scan_round_{g}": (7, 2) for g in ("g1", "g2")},
+    "p2_field_ops": (6, 2),
 }
 
 _lock = threading.Lock()
@@ -120,29 +123,58 @@ def _nvcc() -> str:
     return path
 
 
-def _source_hash() -> str:
+def _source_hash(generated: dict | None = None) -> str:
+    """The library's key: csrc/, the generated headers (made anew when not
+    given) and the flags."""
+    if generated is None:
+        generated = generated_headers()
     h = hashlib.sha256()
     for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
+    for name, text in sorted(generated.items()):
+        h.update(name.encode() + b"\0" + text.encode())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
+
+
+def generated_headers() -> dict:
+    """The headers that are written at build time, not kept in csrc/:
+    name -> text (field_ptx.cuh, the field's PTX, from ops/_ptx.py)."""
+    from . import _ptx
+
+    return {"field_ptx.cuh": _ptx.field_ptx_header()}
+
+
+def write_headers(directory: str, generated: dict) -> None:
+    """Write the generated headers into `directory` (the include path that
+    nvcc gets beside csrc/), each file atomically."""
+    os.makedirs(directory, exist_ok=True)
+    for name, text in generated.items():
+        path = os.path.join(directory, name)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
+            f.write(text)
+        os.replace(tmp, path)
 
 
 def build() -> str:
     """Compile csrc/ into build/kernels/libp2kernels_<hash>.so (once per
     source hash): one nvcc per source, all started together, then one link.
-    Returns the library path. The compiler's -Xptxas -v report (registers,
-    spills) is kept beside it as ptxas_<hash>.log."""
-    tag = _source_hash()
+    The generated headers go into build/kernels/include_<hash>/, on nvcc's
+    include path. Returns the library path. The compiler's -Xptxas -v report
+    (registers, spills) is kept beside it as ptxas_<hash>.log."""
+    generated = generated_headers()
+    tag = _source_hash(generated)
     out = os.path.join(BUILD_DIR, f"libp2kernels_{tag}.so")
     if os.path.exists(out):
         return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    include = os.path.join(BUILD_DIR, f"include_{tag}")
+    write_headers(include, generated)
     nvcc, pid = _nvcc(), os.getpid()
     objs = [os.path.join(BUILD_DIR, f"{s}.{tag}.{pid}.o") for s in SOURCES]
     procs = [
-        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(CSRC, s)],
+        subprocess.Popen([nvcc, *NVCC_FLAGS, f"-I{include}", "-c", "-o", o, os.path.join(CSRC, s)],
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for s, o in zip(SOURCES, objs)
     ]

@@ -1,0 +1,247 @@
+"""The text of field_ptx.cuh: the Fq and Fr arithmetic of the kernels on
+the card, as inline PTX carry chains on 8 x 32-bit limbs. It is not kept in
+csrc/: `_build.build()` writes it into the build directory, on nvcc's
+include path, and keys the library by its text.
+
+Generated rather than written by hand so that every instruction the card
+runs is also run on the CPU: tests/test_torch_field.py parses the header's
+text and executes its instructions (carry flag included) on Python
+integers against `field/fp.py`.
+
+Per modulus p (q of Fq, r of Fr), four functions on little-endian limbs,
+each value in [0, p):
+
+* `ptx_mul_<f>`: a b 2^-256 mod p by CIOS. Row i adds a b_i to the running
+  sum and then m p with m = t_i (-p^-1) mod 2^32, each as two carry chains
+  over the even and the odd limbs (lo and hi halves of one limb product
+  land on neighbouring words, so the chains of a row do not overlap). The
+  rows write into a 17-word window t that moves up a word per row, so no
+  word is ever copied; the result is t[8..15] < 2p.
+* `ptx_sqr_<f>`: a^2 2^-256 mod p with the 28 cross products a_i a_j
+  (i < j) computed once and doubled, then the 8 squares a_i^2: 36 limb
+  products where the multiply takes 64. The low half of the 512-bit square
+  is Montgomery-reduced (8 rows of m p) and the high half added after:
+  (lo + M p) / 2^256 <= p and hi < p / 4, so the sum is < 2p.
+* `ptx_add_<f>`, `ptx_sub_<f>`: a + b and a - b mod p.
+
+Each result goes through one conditional subtraction (or addition) of p,
+so every value stays fully reduced. Each carry chain lies inside one
+`asm volatile` statement: the compiler promises nothing about the carry
+flag between statements. The modulus and -p^-1 are immediates.
+"""
+
+from __future__ import annotations
+
+from ..refimpl.field import Q, R_MOD
+
+MODULI = {"fq": Q, "fr": R_MOD}
+
+
+def _limbs(v: int) -> list[int]:
+    return [(v >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
+
+
+class _Fn:
+    """One generated function: its C signature, the C variables it declares,
+    a list of asm statements (each a list of (op, dst, srcs) and its
+    block-local registers), and its outputs."""
+
+    def __init__(self, name: str, args: list[str]):
+        self.name, self.args = name, args
+        self.inputs: list[tuple[str, str]] = []  # (variable, "a[k]")
+        self.zeros: list[str] = []
+        self.blocks: list[tuple[list[tuple], list[tuple[str, str]]]] = []
+        self.outputs: list[tuple[int, str]] = []
+
+    def block(self, regs=()) -> list[tuple]:
+        ins: list[tuple] = []
+        self.blocks.append((ins, list(regs)))
+        return ins
+
+
+def _chain(ins: list, rows: list[tuple], first_cc: bool = False) -> None:
+    """One carry chain of limb products (x, y, word_lo, word_hi): word_lo +=
+    lo(x y), word_hi += hi(x y), carries in order; the chain's carry is left
+    in the flag after its last instruction (.cc)."""
+    for k, (x, y, lo, hi) in enumerate(rows):
+        ins.append(("madc.lo.cc.u32" if k or first_cc else "mad.lo.cc.u32", lo, (x, y, lo)))
+        ins.append(("madc.hi.cc.u32", hi, (x, y, hi)))
+
+
+def _propagate(ins: list, words: list[str]) -> None:
+    """Add the carry flag into words[0], then the carries on up to the last
+    word, which takes no carry out."""
+    for w in words[:-1]:
+        ins.append(("addc.cc.u32", w, (w, 0)))
+    ins.append(("addc.u32", words[-1], (words[-1], 0)))
+
+
+def _reduce_row(ins: list, t: list[str], p: list[int], pinv: int) -> None:
+    """t[0..8] += m p with m = t[0] pinv mod 2^32 (t[0] becomes 0; t[8]
+    takes the even chain's carry and the odd chain's top)."""
+    ins.append(("mul.lo.u32", "p2m", (t[0], pinv)))
+    _chain(ins, [("p2m", p[j], t[j], t[j + 1]) for j in range(0, 8, 2)])
+    ins.append(("addc.u32", t[8], (t[8], 0)))
+    _chain(ins, [("p2m", p[j], t[j], t[j + 1]) for j in range(1, 8, 2)])
+    ins[-1] = ("madc.hi.u32", t[8], ins[-1][2])
+
+
+def _final_subtract(fn: _Fn, x: list[str], p: list[int]) -> None:
+    """out = x - p if x >= p else x, for x < 2p; the result back into x."""
+    ins = fn.block([("u32", f"p2z{k}") for k in range(8)] + [("u32", "p2bw"), ("pred", "p2lt")])
+    ins.append(("sub.cc.u32", "p2z0", (x[0], p[0])))
+    for k in range(1, 8):
+        ins.append(("subc.cc.u32", f"p2z{k}", (x[k], p[k])))
+    ins.append(("subc.u32", "p2bw", (0, 0)))  # all ones where x < p
+    ins.append(("setp.ne.u32", "p2lt", ("p2bw", 0)))
+    for k in range(8):
+        ins.append(("selp.b32", x[k], (x[k], f"p2z{k}", "p2lt")))
+
+
+def _mul(f: str, p: list[int], pinv: int) -> _Fn:
+    fn = _Fn(f"ptx_mul_{f}", ["uint32_t* r", "const uint32_t* a", "const uint32_t* b"])
+    fn.inputs = [(f"a{k}", f"a[{k}]") for k in range(8)] + [(f"b{k}", f"b[{k}]") for k in range(8)]
+    fn.zeros = [f"t{k}" for k in range(17)]
+    for i in range(8):
+        t = [f"t{i + k}" for k in range(9)]
+        ins = fn.block([("u32", "p2m")])
+        _chain(ins, [(f"a{j}", f"b{i}", t[j], t[j + 1]) for j in range(0, 8, 2)])
+        ins.append(("addc.u32", t[8], (t[8], 0)))
+        _chain(ins, [(f"a{j}", f"b{i}", t[j], t[j + 1]) for j in range(1, 8, 2)])
+        ins[-1] = ("madc.hi.u32", t[8], ins[-1][2])
+        _reduce_row(ins, t, p, pinv)
+    res = [f"t{8 + k}" for k in range(8)]
+    _final_subtract(fn, res, p)
+    fn.outputs = list(enumerate(res))
+    return fn
+
+
+def _sqr(f: str, p: list[int], pinv: int) -> _Fn:
+    fn = _Fn(f"ptx_sqr_{f}", ["uint32_t* r", "const uint32_t* a"])
+    fn.inputs = [(f"a{k}", f"a[{k}]") for k in range(8)]
+    w = [f"w{k}" for k in range(16)]  # the 512-bit square
+    u = [f"u{k}" for k in range(8, 17)]  # the reduction's words above w[7]
+    fn.zeros = w + u
+    # cross products: row i adds a_i (a_(i+1) .. a_7) at word 2i + 1; after
+    # row i the sum is < 2^(32 (i + 9) + 1), so its carries stop at w[i + 9]
+    for i in range(7):
+        ins = fn.block()
+        o, ys = 2 * i + 1, list(range(i + 1, 8))
+        for parity in (0, 1):
+            js = [j for j in range(parity, len(ys), 2)]
+            if not js:
+                continue
+            _chain(ins, [(f"a{i}", f"a{ys[j]}", w[o + j], w[o + j + 1]) for j in js])
+            _propagate(ins, w[o + js[-1] + 2 : i + 10])
+    ins = fn.block()  # double (w[0] is 0); 2 cross < a^2 < 2^508
+    ins.append(("add.cc.u32", w[1], (w[1], w[1])))
+    for k in range(2, 15):
+        ins.append(("addc.cc.u32", w[k], (w[k], w[k])))
+    ins.append(("addc.u32", w[15], (w[15], w[15])))
+    ins = fn.block()  # the squares a_i^2 at word 2i
+    _chain(ins, [(f"a{i}", f"a{i}", w[2 * i], w[2 * i + 1]) for i in range(8)])
+    ins[-1] = ("madc.hi.u32", w[15], ins[-1][2])
+    # reduce the low half: t = w[0..7] then u[8..16], row i on t[i .. i + 8]
+    t = w[:8] + u
+    for i in range(8):
+        _reduce_row(fn.block([("u32", "p2m")]), t[i : i + 9], p, pinv)
+    ins = fn.block()  # + the high half: (lo + M p) / 2^256 <= p, hi < p / 4
+    ins.append(("add.cc.u32", u[0], (u[0], w[8])))
+    for k in range(1, 7):
+        ins.append(("addc.cc.u32", u[k], (u[k], w[8 + k])))
+    ins.append(("addc.u32", u[7], (u[7], w[15])))
+    res = u[:8]
+    _final_subtract(fn, res, p)
+    fn.outputs = list(enumerate(res))
+    return fn
+
+
+def _add(f: str, p: list[int]) -> _Fn:
+    fn = _Fn(f"ptx_add_{f}", ["uint32_t* r", "const uint32_t* a", "const uint32_t* b"])
+    fn.inputs = [(f"a{k}", f"a[{k}]") for k in range(8)] + [(f"b{k}", f"b[{k}]") for k in range(8)]
+    s = [f"s{k}" for k in range(8)]
+    fn.zeros = s
+    ins = fn.block()  # a + b < 2p < 2^255: no carry out
+    ins.append(("add.cc.u32", s[0], ("a0", "b0")))
+    for k in range(1, 7):
+        ins.append(("addc.cc.u32", s[k], (f"a{k}", f"b{k}")))
+    ins.append(("addc.u32", s[7], ("a7", "b7")))
+    _final_subtract(fn, s, p)
+    fn.outputs = list(enumerate(s))
+    return fn
+
+
+def _sub(f: str, p: list[int]) -> _Fn:
+    fn = _Fn(f"ptx_sub_{f}", ["uint32_t* r", "const uint32_t* a", "const uint32_t* b"])
+    fn.inputs = [(f"a{k}", f"a[{k}]") for k in range(8)] + [(f"b{k}", f"b[{k}]") for k in range(8)]
+    d = [f"d{k}" for k in range(8)]
+    fn.zeros = d
+    ins = fn.block([("u32", "p2bw")] + [("u32", f"p2q{k}") for k in range(8)])
+    ins.append(("sub.cc.u32", d[0], ("a0", "b0")))
+    for k in range(1, 8):
+        ins.append(("subc.cc.u32", d[k], (f"a{k}", f"b{k}")))
+    ins.append(("subc.u32", "p2bw", (0, 0)))  # all ones where a < b
+    for k in range(8):
+        ins.append(("and.b32", f"p2q{k}", ("p2bw", p[k])))
+    # + p where a < b, mod 2^256: the carry out of the last word is dropped
+    ins.append(("add.cc.u32", d[0], (d[0], "p2q0")))
+    for k in range(1, 8):
+        ins.append(("addc.cc.u32", d[k], (d[k], f"p2q{k}")))
+    fn.outputs = list(enumerate(d))
+    return fn
+
+
+def _render(fn: _Fn) -> str:
+    lines = [f"__device__ __forceinline__ void {fn.name}({', '.join(fn.args)}) {{"]
+    if fn.inputs:
+        lines.append("  const uint32_t " + ", ".join(f"{v} = {e}" for v, e in fn.inputs) + ";")
+    lines.append("  uint32_t " + ", ".join(f"{v} = 0" for v in fn.zeros) + ";")
+    for ins, regs in fn.blocks:
+        local = {name for _, name in regs}
+        written, order = [], []
+        for _, dst, srcs in ins:
+            for v in (*srcs, dst):
+                if isinstance(v, str) and v not in local and v not in order:
+                    order.append(v)
+            if dst not in local and dst not in written:
+                written.append(dst)
+        outs = [v for v in order if v in written]
+        operands = outs + [v for v in order if v not in written]
+        num = {v: f"%{k}" for k, v in enumerate(operands)}
+
+        def arg(v):
+            return f"0x{v:08x}" if isinstance(v, int) else num.get(v, v)
+
+        body = ['"{\\n\\t"']
+        for kind, name in regs:
+            body.append(f'".reg .{kind} {name};\\n\\t"')
+        for op, dst, srcs in ins:
+            body.append(f'"{op} {", ".join(arg(v) for v in (dst, *srcs))};\\n\\t"')
+        body.append('"}"')
+        lines.append("  asm volatile(")
+        lines.extend("      " + b for b in body)
+        lines.append("      : " + ", ".join(f'"+r"({v})' for v in outs))
+        lines.append("      : " + ", ".join(f'"r"({v})' for v in operands[len(outs):]) + ");")
+    lines.append("  " + " ".join(f"r[{k}] = {v};" for k, v in fn.outputs))
+    lines.append("}")
+    return "\n".join(lines)
+
+
+def field_ptx_header() -> str:
+    """The text of field_ptx.cuh."""
+    parts = [
+        "// BN254 Fq and Fr arithmetic as inline PTX carry chains on 8 little-endian",
+        "// 32-bit limbs, Montgomery form (R = 2^256), every value in [0, p).",
+        "// Written by ops/_ptx.py field_ptx_header(); tests/test_torch_field.py runs",
+        "// its instructions on the CPU. Device code only (field.cuh includes it",
+        "// under __CUDA_ARCH__).",
+        "#pragma once",
+        "",
+        "#include <cstdint>",
+    ]
+    for f, modulus in MODULI.items():
+        p = _limbs(modulus)
+        pinv = (-pow(modulus, -1, 1 << 32)) % (1 << 32)
+        for fn in (_mul(f, p, pinv), _sqr(f, p, pinv), _add(f, p), _sub(f, p)):
+            parts += ["", _render(fn)]
+    return "\n".join(parts) + "\n"

@@ -102,8 +102,11 @@ def _add_neg(f, acc: G.JacobianBatch, e: G.JacobianBatch, neg: torch.Tensor) -> 
 
 def batch_exp_glv_signed_plain(x, y, d1, d2) -> G.JacobianBatch:
     """Plain PyTorch K1. x, y: int64 (N, 16) Montgomery affine; d1, d2: int64
-    (W, N) signed base-32 digits, MSB first. The windows before the first
-    nonzero digit of the batch are skipped (`_first_live_window`)."""
+    (W, N) signed base-32 digits, MSB first. The table by general adds (the
+    kernel's mixed adds give the same limbs: every value is fully reduced);
+    the windows before the first nonzero digit of the batch are skipped
+    (`_first_live_window`; the kernel starts each lane at its own, with the
+    same limbs)."""
     beta = fp.FQ_CTX.const(BETA, x.device)
     table = _table(FQ, x, y)
     beta_x = FQ.mul(table.x, beta)

@@ -162,24 +162,61 @@ extern "C" void host_g2(const int64_t* x, const int64_t* y, const int64_t* d,
 """
 
 
-def test_cuda_sources_arithmetic_on_host_matches_plain(ladders, tmp_path):
-    """csrc/ per-point functions compiled by g++ (CUDA qualifiers defined
-    away): the kernels' field, group law and ladder code, run on the CPU."""
-    (tmp_path / "shim.cpp").write_text(_HOST_SHIM)
-    lib_path = tmp_path / "shim.so"
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    d = tmp_path_factory.mktemp("ladder_shim")
+    (d / "shim.cpp").write_text(_HOST_SHIM)
     subprocess.run(
         ["g++", "-O1", "-std=c++17", "-shared", "-fPIC", "-Wno-unknown-pragmas", f"-I{_build.CSRC}",
-         str(tmp_path / "shim.cpp"), "-o", str(lib_path)],
+         str(d / "shim.cpp"), "-o", str(d / "shim.so")],
         check=True, capture_output=True, timeout=300,
     )
-    lib = ctypes.CDLL(str(lib_path))
-    for group, fn, nptr in (("g1", lib.host_g1, 7), ("g2", lib.host_g2, 6)):
-        fn.argtypes = [ctypes.c_void_p] * nptr + [ctypes.c_int, ctypes.c_int]
-        _, vals, aff, digits, want = ladders[group]
-        out = [torch.empty_like(aff.x) for _ in range(3)]
-        fn(aff.x.data_ptr(), aff.y.data_ptr(), *(d.data_ptr() for d in digits),
-           *(o.data_ptr() for o in out), len(vals), digits[0].shape[-2])
-        assert all(torch.equal(a, b) for a, b in zip(out, want)), group
+    lib = ctypes.CDLL(str(d / "shim.so"))
+    lib.host_g1.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int]
+    lib.host_g2.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int]
+    return lib
+
+
+def _host_ladder(fn, aff, digits):
+    out = [torch.empty_like(aff.x) for _ in range(3)]
+    fn(aff.x.data_ptr(), aff.y.data_ptr(), *(d.data_ptr() for d in digits), *(o.data_ptr() for o in out),
+       aff.x.shape[0], digits[0].shape[-2])
+    return out
+
+
+def test_cuda_sources_arithmetic_on_host_matches_plain(ladders, host_lib):
+    """csrc/ per-point functions compiled by g++ (CUDA qualifiers defined
+    away): the kernels' field, group law and ladder code, run on the CPU."""
+    for group, fn in (("g1", host_lib.host_g1), ("g2", host_lib.host_g2)):
+        _, _, aff, digits, want = ladders[group]
+        assert all(torch.equal(a, b) for a, b in zip(_host_ladder(fn, aff, digits), want)), group
+
+
+def test_k1_table_and_first_window_on_host(host_lib):
+    """K1's table by one doubling and mixed adds equals the table by general
+    adds limb for limb, and its per-lane start (each lane from its own first
+    nonzero window, where the plain version starts the batch at the first
+    window any lane needs) gives the plain version's limbs, on the edge
+    scalars (_TIE among them) and small ones whose first nonzero window
+    comes late and differs from lane to lane."""
+    vals = EDGE + [_TIE, 31, 32, 1023, (1 << 40) + 1, 1 << 100, 7 * LAMBDA % R_MOD] + _scalars(8, 4)
+    rng = random.Random(12)
+    aff = convert.points_to_affine([rc.G1_GEN.mul(rng.randrange(1, R_MOD)) for _ in vals], "g1", "cpu")
+    ones = FQ.ones((len(vals),), "cpu")
+    mixed = [G.jac_zero(FQ, (len(vals),), "cpu"), G.JacobianBatch(aff.x, aff.y, ones)]
+    mixed.append(G.jac_double(FQ, mixed[1]))
+    for _ in range(3, 17):
+        mixed.append(G.jac_madd(FQ, mixed[-1], aff.x, aff.y))
+    general = batch_exp._table(FQ, aff.x, aff.y)
+    assert all(torch.equal(torch.stack(a), b) for a, b in zip(zip(*mixed), general))
+    d1, d2 = glv.decompose_signed(convert.ints_to_limbs(vals, "cpu"))
+    first = ((d1 != 0) | (d2 != 0)).int().argmax(0)
+    assert len(set(first.tolist())) > 3
+    want = batch_exp.batch_exp_glv_signed_plain(aff.x, aff.y, d1, d2)
+    assert all(torch.equal(a, b) for a, b in zip(_host_ladder(host_lib.host_g1, aff, (d1, d2)), want))
+    got = convert.affine_to_points(G.jac_normalize(FQ, want), "g1")
+    pts = convert.affine_to_points(aff, "g1")
+    assert got == [p.mul(k) for p, k in zip(pts, vals)]
 
 
 def test_constants_header_matches_refimpl():

@@ -4,9 +4,19 @@
 `phase2_bn254_tpu.field.fp` / `fq2` (XLA:CPU), on the same inputs made from
 a seeded numpy generator. Tolerance: exact integer equality of every limb
 (the Montgomery values are the same integers in both packages).
+
+The kernels' own field code has two paths, both held against `field/fp.py`
+here on `ops.fieldops.edge_pairs` and random pairs: the inline PTX of
+field_ptx.cuh (`ops._ptx.field_ptx_header()`), parsed and executed instruction by instruction with its
+carry flag, and the C++ CIOS that g++ builds from csrc/fieldops.cu (the
+card compares the PTX itself: tests/test_torch_field_gpu.py).
 """
 
+import ctypes
 import os
+import random
+import re
+import subprocess
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +30,7 @@ from phase2_bn254_tpu.refimpl.field import Q, R_MOD, Fq2
 from phase2_bn254_tpu_torch import convert
 from phase2_bn254_tpu_torch.field import fp
 from phase2_bn254_tpu_torch.field.fq2 import FQ2
+from phase2_bn254_tpu_torch.ops import _build, _ptx, fieldops
 
 # Under pytest-xdist several worker processes share a few cores; torch's
 # default of one OpenMP thread per core then oversubscribes them and slows
@@ -113,3 +124,177 @@ def test_convert_round_trips():
     bx, by, binf = convert.affine_to_numpy(batch)
     assert bx.dtype == np.uint32 and np.array_equal(bx, x) and np.array_equal(by, y)
     assert np.array_equal(binf, inf)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' field code (csrc/): the PTX the card runs, executed here
+# instruction by instruction, and the C++ path a host compiler builds
+# ---------------------------------------------------------------------------
+
+_M32 = (1 << 32) - 1
+_PTX_FN = re.compile(r"__device__ __forceinline__ void (\w+)\(([^)]*)\) \{\n(.*?)\n\}", re.S)
+
+
+def _parse_ptx(text: str) -> dict:
+    """field_ptx.cuh's text -> {name: function}; a function holds its inputs
+    ((variable, array, index)), its zeroed variables, its asm statements
+    ((instructions, "+r" operands, "r" operands)) and its outputs."""
+    fns = {}
+    for name, _, body in _PTX_FN.findall(text):
+        fn = {"inputs": [], "zeros": [], "blocks": [], "outputs": []}
+        lines = iter(body.split("\n"))
+        for line in lines:
+            line = line.strip()
+            if line.startswith("const uint32_t "):
+                fn["inputs"] += [(v, a, int(k)) for v, a, k in re.findall(r"(\w+) = (\w+)\[(\d+)\]", line)]
+            elif line.startswith("uint32_t "):
+                fn["zeros"] += re.findall(r"(\w+) = 0", line)
+            elif line == "asm volatile(":
+                text_parts, constraints = [], []
+                for line in lines:
+                    line = line.strip()
+                    if line.startswith('"'):
+                        text_parts.append(line[1:-1].replace("\\n\\t", ""))
+                    else:
+                        constraints.append(line)
+                        if line.endswith(");"):
+                            break
+                outs = re.findall(r'"\+r"\((\w+)\)', constraints[0])
+                ins = re.findall(r'"r"\((\w+)\)', constraints[1])
+                instrs = []
+                for part in text_parts:
+                    part = part.strip().rstrip(";")
+                    if part in ("{", "}") or part.startswith(".reg"):
+                        continue
+                    op, args = part.split(" ", 1)
+                    instrs.append((op, [a.strip() for a in args.split(",")]))
+                fn["blocks"].append((instrs, outs, ins))
+            elif line.startswith("r[0]"):
+                fn["outputs"] = [v for _, v in sorted(re.findall(r"r\[(\d+)\] = (\w+);", line), key=lambda t: int(t[0]))]
+        fns[name] = fn
+    return fns
+
+
+def _run_ptx(fn: dict, **arrays) -> list[int]:
+    """Execute one parsed function on 32-bit limbs. The carry flag is
+    undefined at the start of every asm statement (the compiler keeps it
+    across none); a chain's last add without .cc must lose no carry."""
+    env = {v: arrays[a][k] for v, a, k in fn["inputs"]}
+    env.update({v: 0 for v in fn["zeros"]})
+    for instrs, outs, ins in fn["blocks"]:
+        operands, local, cf = outs + ins, {}, None
+
+        def val(tok):
+            if tok.startswith("%"):
+                return env[operands[int(tok[1:])]]
+            return local[tok] if tok in local else int(tok, 0)
+
+        for op, (dst, *src) in instrs:
+            base, *mods = op.split(".")
+            s = [val(t) for t in src]
+            if base in ("madc", "addc", "subc"):
+                assert cf is not None, f"{op} reads a carry its statement never set"
+            if base in ("mad", "madc"):
+                prod = s[0] * s[1]
+                v = (prod & _M32 if "lo" in mods else prod >> 32) + s[2] + (cf if base == "madc" else 0)
+            elif base in ("add", "addc"):
+                v = s[0] + s[1] + (cf if base == "addc" else 0)
+            elif base in ("sub", "subc"):
+                v = s[0] - s[1] - (cf if base == "subc" else 0)
+            elif base == "mul":
+                v = (s[0] * s[1]) & _M32
+            elif base == "and":
+                v = s[0] & s[1]
+            elif base == "setp":
+                v = int(s[0] != s[1])
+            elif base == "selp":
+                v = s[0] if s[2] else s[1]
+            else:
+                raise AssertionError(f"no model of {op}")
+            if "cc" in mods:
+                cf = int(v < 0) if base in ("sub", "subc") else v >> 32
+            elif base in ("mad", "madc", "add", "addc"):
+                assert v >> 32 == 0, f"{op} into {dst} lost a carry"
+            if dst.startswith("%"):
+                k = int(dst[1:])
+                assert k < len(outs), f"{op} writes the input operand {dst}"
+                env[operands[k]] = v & _M32
+            else:
+                local[dst] = v & _M32
+    return [env[v] for v in fn["outputs"]]
+
+
+def _words(v: int) -> list[int]:
+    return [(v >> (32 * k)) & _M32 for k in range(8)]
+
+
+def _field_cases(field: str, seed: int, n_random: int = 40):
+    """fieldops.edge_pairs plus random pairs: (ints a, ints b)."""
+    p = fieldops.CTXS[field].p
+    rng = random.Random(seed)
+    pairs = fieldops.edge_pairs(field, rng)
+    a = [x for x, _ in pairs] + _elements(seed, p, n_random)
+    b = [y for _, y in pairs] + _elements(seed + 1, p, n_random)
+    return a, b
+
+
+def test_build_writes_the_field_ptx_header(tmp_path):
+    """field_ptx.cuh has one source, ops/_ptx.py: the build writes it onto
+    nvcc's include path and keys the library by its text."""
+    gen = _build.generated_headers()
+    assert gen == {"field_ptx.cuh": _ptx.field_ptx_header()}
+    assert not os.path.exists(os.path.join(_build.CSRC, "field_ptx.cuh"))
+    _build.write_headers(str(tmp_path), gen)
+    assert (tmp_path / "field_ptx.cuh").read_text() == gen["field_ptx.cuh"]
+    assert _build._source_hash(gen) != _build._source_hash({"field_ptx.cuh": gen["field_ptx.cuh"] + "\n"})
+
+
+@pytest.mark.parametrize("field", ["fq", "fr"])
+def test_field_ptx_matches_fp(field):
+    """Every instruction of field_ptx.cuh's product, square, sum and
+    difference, run on Python integers, against field/fp.py limb for limb
+    on the edge operands and random pairs."""
+    fns = _parse_ptx(_ptx.field_ptx_header())
+    a, b = _field_cases(field, 7)
+    want = [convert.limbs_to_ints(t) for t in fieldops.field_ops_plain(*(convert.ints_to_limbs(v, "cpu") for v in (a, b)), field)]
+    got = [[], [], [], []]
+    for x, y in zip(a, b):
+        wx, wy = _words(x), _words(y)
+        res = (_run_ptx(fns[f"ptx_mul_{field}"], a=wx, b=wy), _run_ptx(fns[f"ptx_sqr_{field}"], a=wx),
+               _run_ptx(fns[f"ptx_add_{field}"], a=wx, b=wy), _run_ptx(fns[f"ptx_sub_{field}"], a=wx, b=wy))
+        for out, words in zip(got, res):
+            out.append(sum(w << (32 * k) for k, w in enumerate(words)))
+    p, rinv = fieldops.CTXS[field].p, pow(1 << 256, -1, fieldops.CTXS[field].p)
+    assert got == want
+    assert want[0] == [x * y * rinv % p for x, y in zip(a, b)]
+    assert want[1] == [x * x * rinv % p for x in a]
+
+
+_FIELD_SHIM = r"""
+#include <cstdint>
+#define __device__
+#define __forceinline__ inline
+#define __noinline__
+#define __constant__
+#include "fieldops.cu"
+extern "C" void host_field_ops(const int64_t* a, const int64_t* b, int64_t* prod, int64_t* sq, int64_t* sum,
+                               int64_t* diff, int n, int field) {
+  for (int64_t i = 0; i < n; ++i) field_ops_pair(a, b, prod, sq, sum, diff, i, field);
+}
+"""
+
+
+@pytest.mark.parametrize("field", ["fq", "fr"])
+def test_field_host_path_matches_fp(field, tmp_path):
+    """csrc/fieldops.cu compiled by g++ (the C++ CIOS of field.cuh) against
+    field/fp.py limb for limb on the same operands."""
+    (tmp_path / "shim.cpp").write_text(_FIELD_SHIM)
+    subprocess.run(["g++", "-O1", "-std=c++17", "-shared", "-fPIC", "-Wno-unknown-pragmas", f"-I{_build.CSRC}",
+                    str(tmp_path / "shim.cpp"), "-o", str(tmp_path / "shim.so")],
+                   check=True, capture_output=True, timeout=300)
+    lib = ctypes.CDLL(str(tmp_path / "shim.so"))
+    a, b = (convert.ints_to_limbs(v, "cpu") for v in _field_cases(field, 9))
+    out = [torch.empty_like(a) for _ in range(4)]
+    lib.host_field_ops(*(ctypes.c_void_p(t.data_ptr()) for t in (a, b, *out)), ctypes.c_int(a.shape[0]),
+                       ctypes.c_int(fieldops.FIELDS[field]))
+    assert all(torch.equal(g, w) for g, w in zip(out, fieldops.field_ops_plain(a, b, field)))

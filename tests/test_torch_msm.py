@@ -21,7 +21,10 @@ package's helpers and refimpl, on the CPU (plain versions).
   digits): bucket sums against refimpl integers, the MSM against refimpl;
 * the kernels' per-thread code (csrc/msm.cu), compiled for the host with
   g++ and run thread by thread in the kernels' order, against the plain
-  versions (the kernels themselves run only on a GPU: the `gpu` test).
+  versions (the kernels themselves run only on a GPU: the `gpu` test);
+  K5's level functions at its edges (a top window or every window at
+  infinity, a window sum equal to the running point or to its negation,
+  S = 1, 2, 5 sets, G1 and G2).
 
 Tolerance: exact. K3 and K5 agree with their plain versions limb for limb;
 K4 adds in another order than its plain version, so those two are compared
@@ -289,10 +292,15 @@ void reduce(const int64_t* bx, const int64_t* by, const int64_t* bz, int64_t* ox
   }
 SHIM(g1, Fp)
 SHIM(g2, Fp2)
-extern "C" void host_combine_g1(const int64_t* sx, const int64_t* sy, const int64_t* sz, int64_t* ox, int64_t* oy,
-                                int64_t* oz, int nsets, int nwin, int c) {
-  for (int64_t s = 0; s < nsets; ++s) combine_windows_point<Fp>(sx, sy, sz, ox, oy, oz, s, nwin, c);
-}
+// K5's level functions in order, every product on this thread
+#define COMBINE(G, F)                                                                                             \
+  extern "C" void host_combine_##G(const int64_t* sx, const int64_t* sy, const int64_t* sz, int64_t* ox,          \
+                                   int64_t* oy, int64_t* oz, int nsets, int nwin, int c) {                        \
+    for (int64_t s = 0; s < nsets; ++s)                                                                           \
+      store_jac(ox, oy, oz, s, combine_windows_set<F>(sx, sy, sz, s, nwin, c, SerialProducts()));                 \
+  }
+COMBINE(g1, Fp)
+COMBINE(g2, Fp2)
 """
 
 
@@ -347,6 +355,75 @@ def test_cuda_sources_arithmetic_on_host_matches_plain(stages, host_lib):
     res = [torch.empty_like(t) for t in stages["out"]]
     host_lib.host_combine_g1(*_ptrs(*stages["sums"], *res), 2, nwin, c)
     assert all(torch.equal(a, w) for a, w in zip(res, stages["out"]))
+
+
+def _rand_el(group, n, rng):
+    """n random canonical Fq (Fq2) values, int64 (n, 16) ((n, 2, 16))."""
+    from phase2_bn254_tpu_torch.refimpl.field import Q
+
+    def fq():
+        return convert.ints_to_limbs([v % Q for v in _uniform(rng, n)], "cpu")
+
+    return fq() if group == "g1" else torch.stack([fq(), fq()], dim=1)
+
+
+def _window_sums(group, rows, rng):
+    """(S, nwin) Jacobian window sums: rows[s][w] a discrete log m (the
+    point m G with a random z) or None (infinity: z = 0, random x and y,
+    as a cancelling add leaves them)."""
+    f, nwin = OPS[group], len(rows[0])
+    logs = [m for row in rows for m in row]
+    aff = convert.points_to_affine([GEN[group].mul(m or 1) for m in logs], group, "cpu")
+    z = _rand_el(group, len(logs), rng)
+    z2 = f.mul(z, z)
+    jac = G.JacobianBatch(f.mul(aff.x, z2), f.mul(aff.y, f.mul(z2, z)), z)
+    inf = torch.tensor([m is None for m in logs])
+    junk = G.JacobianBatch(_rand_el(group, len(logs), rng), _rand_el(group, len(logs), rng), torch.zeros_like(z))
+    out = G.JacobianBatch(*(f.select(inf, b, a) for a, b in zip(jac, junk)))
+    return G.JacobianBatch(*(t.reshape(len(rows), nwin, *t.shape[1:]) for t in out))
+
+
+def _k5_row(kind, c, nwin, rng):
+    """One set's window logs (least significant first) for a K5 edge case."""
+    row = [m % (R_MOD - 1) + 1 for m in _uniform(rng, nwin)]
+
+    def running(w):  # the log of K5's point just before it adds T_w
+        return sum(row[v] << (c * (v - w)) for v in range(w + 1, nwin)) % R_MOD
+
+    if kind == "top_infinity":
+        row[-2:] = [None, None]
+    elif kind == "all_infinity":
+        row = [None] * nwin
+    elif kind == "equal":  # T_1 == the running point: the add doubles
+        row[1] = running(1)
+    elif kind == "negation":  # T_2 == -(the running point): infinity, then T_1
+        row[2] = R_MOD - running(2)
+    return row
+
+
+K5_KINDS = ("random", "top_infinity", "all_infinity", "equal", "negation")
+K5_CASES = [("g1", ("random",)), ("g1", ("top_infinity", "all_infinity")), ("g1", K5_KINDS),
+            ("g2", ("equal", "negation")), ("g2", K5_KINDS)]
+
+
+@pytest.mark.parametrize("group,kinds", K5_CASES, ids=[f"{g}-S{len(k)}-{k[0]}" for g, k in K5_CASES])
+def test_combine_levels_on_host_match_plain(group, kinds, host_lib):
+    """K5's level functions (csrc/msm.cu jac_double_levels, jac_add_levels,
+    combine_windows_set from the highest finite window) run in order by g++
+    against combine_windows_plain limb for limb, S = 1, 2, 5 sets: a top
+    window at infinity, all windows at infinity, a window sum equal to the
+    running point and one equal to its negation; the plain result against
+    sum_w 2^(c w) T_w from refimpl."""
+    rng = np.random.default_rng(len(kinds) + 10 * (group == "g2"))
+    c, nwin = 9, 5
+    rows = [_k5_row(kind, c, nwin, rng) for kind in kinds]
+    sums = _window_sums(group, rows, rng)
+    want = M.combine_windows_plain(sums, c)
+    got = [torch.empty_like(t) for t in want]
+    getattr(host_lib, f"host_combine_{group}")(*_ptrs(*sums, *got), len(rows), nwin, c)
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+    logs = [sum((m or 0) << (c * w) for w, m in enumerate(row)) % R_MOD for row in rows]
+    assert _msm_points(want, group) == [GEN[group].mul(m) if m else rc.point_zero(group) for m in logs]
 
 
 def test_cuda_sources_g2_accumulate_on_host_matches_plain(host_lib):
