@@ -14,11 +14,12 @@ phases:
 1. the card's name, power limit and SM clock; build the kernels (csrc/,
    nvcc, sm_90a);
 2. the kernels' field code (csrc/fieldops.cu: the PTX product, square, sum
-   and difference) against field/fp.py on 2^16 Fq and 2^16 Fr pairs, the
-   edge operands first, limb for limb; K1 and K2 against their plain
-   PyTorch versions on the card, at the contribute chunk shape (2^16
-   points) with the edge scalars in the first lanes: exact equality after
-   normalizing; time per call and bound; ptxas registers and spills;
+   and difference) against field/fp.py on 2^16 Fq and 2^16 Fr pairs, and
+   against field/fq2.py on 2^16 Fq2 pairs, the edge operands first, limb for
+   limb; K1 and K2 against their plain PyTorch versions on the card, at the
+   contribute chunk shape (2^16 points) with the edge scalars in the first
+   lanes: Jacobian limbs identical; time per call and bound; ptxas
+   registers and spills;
 3. the golden size-4 / batch-16 response, byte for byte;
 4. a size-10 / batch-256 response byte-identical to the exact host backend;
 5. new_constrained + compute_constrained at size 21, batch 2^16 (the
@@ -55,19 +56,23 @@ phases:
    the card equals the plain versions' proof on the CPU, byte for byte;
    the witness' share of 0 and 1 scalars;
 12. K9 (the G2 windowed ladder) against its plain version at 2^16 points
-   with the edge scalars first, and S1 (the segmented scan) on 2^16 G1 and
-   G2 terms with a third of them in one segment, empty segments and
-   infinity terms: limb for limb; time per call and bound;
+   with the edge scalars first, limb for limb, and S1 (the segment sums) on
+   2^16 G1 and G2 terms with a third of them in one segment, empty segments
+   and infinity terms, every segment in canonical affine (the kernel adds
+   in another order than the plain scan); time per call, launches and
+   bound, and S1 at the tiles of S1_TILE_SWEEP; ptxas registers of K9 and
+   S1;
 13. the phase-2 ceremony on phase 10's circuit (2^18 constraints): a radix
    file written with the port's kernels from seeded tau, alpha, beta; `new`,
    `contribute`, `beacon` (2^10) and `verify_contribution` twice through the
    port's CLI functions, each timed as a user runs it, with its K1 / K9 /
    S1 / K3-K5 launches; copies with one l point or delta_g2 changed are
    rejected; `prove` on the result verifies; K9 and S1 against their plain
-   versions on the sets `new` took (plain on a prefix); scripts/fixtures'
-   circuit: `new` + `contribute` on the card equal the plain versions' on
-   the CPU, byte for byte (run last, after phase 15: its CPU half takes
-   minutes);
+   versions on the sets `new` took (plain on a prefix; S1 on the segments
+   that lie wholly in it), with S1's time, launches and tile sweep;
+   scripts/fixtures' circuit: `new` + `contribute` on the card equal the
+   plain versions' on the CPU, byte for byte (run last, after phase 15: its
+   CPU half takes minutes);
 14. K7 (the unsigned GLV ladder), K8 (the plain G1 ladder) and K10 (the
    unsigned GLS ladder) against their plain versions at 2^16 points with
    the edge scalars (the Babai tie among them) first: limb for limb on the
@@ -88,8 +93,11 @@ outputs over the card's memory rate, and its 32-bit integer multiplies over
 the card's multiply rate (132 SMs x 64 per SM per clock x the SM clock
 nvidia-smi reads). The multiplies are those the function needs on this
 run's inputs, at the costs of the kernels' field code (MULS_PER_FQ_PRODUCT,
-MULS_PER_FQ_SQUARE, FQ_PRODUCTS, FQ_SQUARES, OP_MULS; an Fr product costs
-what an Fq product does), all counted in 32-bit multiplies. For a ladder
+MULS_PER_FQ_SQUARE, MULS_PER_FQ2_PRODUCT, MULS_PER_FQ2_SQUARE,
+FIELD_PRODUCTS, FIELD_SQUARES, OP_MULS; an Fr product costs what an Fq
+product does), all counted in 32-bit multiplies; a G2 record also carries
+its count with an Fq2 product as three Fq products (`muls_three_fq`), as
+before the fused Fq2 routines. For a ladder
 (k P for canonical scalars k) that is, lane by lane, the fewest that any of
 the port's ladders for the same function takes on this data
 (_function_muls: K1, K7, K8 on G1; K2, K10, K9 on G2), each counted
@@ -128,6 +136,9 @@ SMOKE_SIZE, SMOKE_BATCH = 21, 1 << 16
 KERNEL_N = 1 << 16  # the contribute and verify chunk shape
 # K3's sub-run lengths L timed beside the module's (phase 6)
 SUBRUN_SWEEP = (16, 32, 64)
+# S1's tiles (threads a block, terms a thread) timed beside the module's
+# (phases 12 and 13)
+S1_TILE_SWEEP = ((128, 8), (128, 4), (64, 8), (64, 4), (32, 8), (128, 16))
 NONRESIDUES = 16  # D1 inputs whose x^3 + b has no square root
 
 # Peak rates of the card the bounds are taken against
@@ -141,20 +152,58 @@ MULS_PER_FQ_PRODUCT = 2 * (64 + 64) + 8
 # ... and of one Fq square, `sqr`: the 28 cross products a_i a_j (i < j)
 # once and the 8 squares a_i^2, then the same reduction
 MULS_PER_FQ_SQUARE = 2 * (36 + 64) + 8
-# Fq products and Fq squares per group operation of csrc/field.cuh:
-# dbl-2009-l, add-2007-bl, the part of add-2007-bl before its P == Q test
-# (then the doubling), madd-2007-bl. An Fq2 product is 3 Fq products, an
-# Fq2 square 2 (its (a0 + a1)(a0 - a1) and a0 a1 are products: G2 has no
-# Fq squares).
-FQ_PRODUCTS = {
-    "g1": {"dbl": 2, "add": 11, "add_head": 6, "madd": 7},
-    "g2": {"dbl": 5 * 2 + 2 * 3, "add": 5 * 2 + 11 * 3, "add_head": 2 * 2 + 6 * 3, "madd": 4 * 2 + 7 * 3},
-}
-FQ_SQUARES = {"g1": {"dbl": 5, "add": 5, "add_head": 2, "madd": 4}, "g2": {"dbl": 0, "add": 0, "add_head": 0, "madd": 0}}
+# ... of one Fq2 product, field.cuh's fused routine (ops/_ptx.py
+# ptx_mul_fq2, Karatsuba with lazy reduction): three unreduced 8 x 8-limb
+# products (64 limb products each, a low and a high half), then two
+# Montgomery reductions of 8 rows (8 limb products m q_j and one m each)
+MULS_PER_FQ2_PRODUCT = 3 * 2 * 64 + 2 * (2 * 64 + 8)
+# ... and of one Fq2 square (ptx_sqr_fq2): two unreduced products, two
+# reductions
+MULS_PER_FQ2_SQUARE = 2 * 2 * 64 + 2 * (2 * 64 + 8)
+# products and squares (G1: Fq, G2: Fq2) per group operation of
+# csrc/field.cuh: dbl-2009-l, add-2007-bl, the part of add-2007-bl before
+# its P == Q test (then the doubling), madd-2007-bl
+FIELD_PRODUCTS = {"dbl": 2, "add": 11, "add_head": 6, "madd": 7}
+FIELD_SQUARES = {"dbl": 5, "add": 5, "add_head": 2, "madd": 4}
+
+
+def _op_muls(product: int, square: int) -> dict:
+    return {op: FIELD_PRODUCTS[op] * product + FIELD_SQUARES[op] * square for op in FIELD_PRODUCTS}
+
+
 # 32-bit multiplies per group operation: the unit every bound and count
 # below is in
-OP_MULS = {g: {op: FQ_PRODUCTS[g][op] * MULS_PER_FQ_PRODUCT + FQ_SQUARES[g][op] * MULS_PER_FQ_SQUARE
-               for op in FQ_PRODUCTS[g]} for g in FQ_PRODUCTS}
+OP_MULS = {"g1": _op_muls(MULS_PER_FQ_PRODUCT, MULS_PER_FQ_SQUARE),
+           "g2": _op_muls(MULS_PER_FQ2_PRODUCT, MULS_PER_FQ2_SQUARE)}
+
+
+@contextlib.contextmanager
+def _three_fq_products():
+    """G2 counted as before the fused Fq2 routines: an Fq2 product as three
+    Fq products (792 multiplies), a square as two (528). Inside it every
+    G2 count below gives that older figure, which records carry beside the
+    current one (`muls_three_fq`)."""
+    global MULS_PER_FQ2_PRODUCT
+    saved = MULS_PER_FQ2_PRODUCT, OP_MULS["g2"]
+    MULS_PER_FQ2_PRODUCT = 3 * MULS_PER_FQ_PRODUCT
+    OP_MULS["g2"] = _op_muls(MULS_PER_FQ2_PRODUCT, 2 * MULS_PER_FQ_PRODUCT)
+    try:
+        yield
+    finally:
+        MULS_PER_FQ2_PRODUCT, OP_MULS["g2"] = saved
+
+
+def _three_fq(fn, *args) -> int:
+    """fn(*args) (a G2 multiply count) at the costs of `_three_fq_products`."""
+    with _three_fq_products():
+        return int(fn(*args))
+
+
+def _three_fq_fields(card, nbytes_: int, muls: int) -> dict:
+    """A G2 record's count and bound at the costs of `_three_fq_products`."""
+    return {"muls_three_fq": muls, "bound_ms_three_fq": card.bound(nbytes_, muls)[0]}
+
+
 # dependent Fq products of a group operation on one thread, and in the
 # levels of independent products K5's warp runs one product a lane
 CHAIN_PRODUCTS = {"g1": {"dbl": 7, "add": 16}, "g2": {"dbl": 16, "add": 43}}
@@ -326,30 +375,48 @@ def _k1_kernel_muls(d1, d2) -> int:
     return n * table + int(_ladder_doublings(nz1 | nz2, 5).sum()) * ops["dbl"] + adds * ops["add"]
 
 
+def _psi_muls(nz):
+    """Multiplies of psi, psi^2, psi^3 (2 Fq2 products, 4 Fq products, 2
+    Fq2 products; ladders.cuh psi_pow) for the digits of parts 1, 2, 3
+    where nz (4, W, N) holds, summed per point."""
+    return ((2 * nz[1].sum(0) + 2 * nz[3].sum(0)) * MULS_PER_FQ2_PRODUCT
+            + 4 * nz[2].sum(0) * MULS_PER_FQ_PRODUCT)
+
+
+def _psi_window_muls() -> int:
+    """... of psi, psi^2, psi^3 of one window's gathered entries."""
+    return 4 * MULS_PER_FQ2_PRODUCT + 4 * MULS_PER_FQ_PRODUCT
+
+
 def _k2_muls(digits):
     """Multiplies (N,) k Q takes on these GLS digits (4, W, N) by K2's
     ladder, as far as this data needs it: the multiples up to each point's
-    largest digit magnitude, psi, psi^2, psi^3 (6, 4, 6) of each nonzero
-    digit of parts 1, 2, 3, 5 doublings per window after the first nonzero
-    one, one add per nonzero digit after the first."""
+    largest digit magnitude by a doubling and mixed adds, psi, psi^2, psi^3
+    of each nonzero digit of parts 1, 2, 3, 5 doublings per window after
+    the first nonzero one, one add per nonzero digit after the first."""
     ops = OP_MULS["g2"]
     nz = digits != 0
-    psi = (6 * nz[1].sum(0) + 4 * nz[2].sum(0) + 6 * nz[3].sum(0)) * MULS_PER_FQ_PRODUCT
     adds = (nz.sum((0, 1)) - 1).clamp(min=0)
-    return (_table_muls(ops, digits.abs().amax((0, 1))) + psi + _ladder_doublings(nz.any(0), 5) * ops["dbl"]
-            + adds * ops["add"])
+    return (_table_muls(ops, digits.abs().amax((0, 1)), mixed=True) + _psi_muls(nz)
+            + _ladder_doublings(nz.any(0), 5) * ops["dbl"] + adds * ops["add"])
 
 
 def _k2_kernel_muls(digits) -> int:
-    """Multiplies K2 (csrc/batch_exp_g2.cu) does: the table (2Q through the
-    doubling branch, 3Q..16Q), per window 5 doublings and psi, psi^2, psi^3
-    of the gathered entries (6 + 4 + 6), one add per nonzero digit after the
-    first."""
+    """Multiplies K2 (csrc/batch_exp_g2.cu) does: the table (2Q by a
+    doubling, 3Q..16Q by mixed adds); from each point's first window with a
+    nonzero digit (the last if it has none) psi, psi^2, psi^3 of the
+    gathered entries in every window, 5 doublings in each after that first;
+    one add per nonzero digit after the first."""
+    import torch
+
     ops = OP_MULS["g2"]
     _, nw, n = digits.shape
-    table = ops["add_head"] + ops["dbl"] + 14 * ops["add"]
+    live = (digits != 0).any(0)
+    first = torch.where(live.any(0), live.int().argmax(0), nw - 1)
+    windows = int((nw - first).sum())
+    table = ops["dbl"] + 14 * ops["madd"]
     adds = int(((digits != 0).sum((0, 1)) - 1).clamp(min=0).sum())
-    return n * (table + nw * (5 * ops["dbl"] + 16 * MULS_PER_FQ_PRODUCT)) + adds * ops["add"]
+    return n * table + windows * _psi_window_muls() + (windows - n) * 5 * ops["dbl"] + adds * ops["add"]
 
 
 def _function_muls(group: str, scalars) -> int:
@@ -398,16 +465,21 @@ def phase_kernels(card: Card, n: int = KERNEL_N) -> list[dict]:
         same_jac = all(torch.equal(a, b) for a, b in zip(got, want))
         ga, wa = G.jac_normalize(f, got), G.jac_normalize(f, want)
         err = max_limb_err(ga[:2], wa[:2])
-        if err != 0 or not torch.equal(ga.inf, wa.inf):
-            raise AssertionError(f"{name}: kernel and plain version differ (max abs limb error {err})")
+        if err != 0 or not torch.equal(ga.inf, wa.inf) or not same_jac:
+            raise AssertionError(f"{name}: kernel and plain version differ (max abs limb error {err} after "
+                                 f"normalizing; Jacobian limbs identical: {same_jac})")
         ms = cuda_ms(lambda: kernel(x, y, *digits), 5)
         need, own, does = _function_muls(group, k), int(muls(*digits).sum()), kernel_muls(*digits)
-        rec = record(card, name, source, replaces, err, ms, plain_ms, (nbytes(x, y, *digits, *got), need),
-                     muls=need, ladder_muls=own, kernel_muls=does)
-        log(f"phase 2 {name}: N={n} kernel == plain (Jacobian identical: {same_jac}, "
-            f"{int(ga.inf.sum())} at infinity); kernel {ms:.3f} ms/call, plain {plain_ms:.3f} ms/call, "
+        work = (nbytes(x, y, *digits, *got), need)
+        extra = _three_fq_fields(card, work[0], _three_fq(_function_muls, group, k)) if group == "g2" else {}
+        rec = record(card, name, source, replaces, err, ms, plain_ms, work,
+                     muls=need, ladder_muls=own, kernel_muls=does, **extra)
+        log(f"phase 2 {name}: N={n} kernel == plain limb for limb (Jacobian, {int(ga.inf.sum())} at infinity); "
+            f"kernel {ms:.3f} ms/call, plain {plain_ms:.3f} ms/call, "
             f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}: {need / n:.0f} multiplies/point; this ladder "
-            f"needs {own / n:.0f}, the kernel does {does / n:.0f})")
+            f"needs {own / n:.0f}, the kernel does {does / n:.0f})"
+            + (f"; at three Fq products an Fq2 product: bound {extra['bound_ms_three_fq']:.3f} ms, "
+               f"{extra['muls_three_fq'] / n:.0f} multiplies/point" if extra else ""))
         records.append(rec)
     for line in _ptxas_of(("batch_exp_glv_signed_kernel", "batch_exp_gls_signed_kernel")):
         log(f"  ptxas: {line}")
@@ -419,26 +491,26 @@ FIELD_N = 1 << 16  # the pairs of each field phase 2 holds the field code on
 
 def phase_field() -> None:
     """Phase 2, first: the kernels' field code (csrc/fieldops.cu, the PTX of
-    field_ptx.cuh) against field/fp.py on the card, FIELD_N pairs of Fq and
-    of Fr with ops.fieldops.edge_pairs first: a b, a^2, a + b, a - b limb
-    for limb."""
-    from phase2_bn254_tpu_torch import convert
+    field_ptx.cuh) against field/fp.py (Fq2: field/fq2.py) on the card,
+    FIELD_N pairs of Fq, of Fr and of Fq2 with ops.fieldops.edge_pairs /
+    edge_pairs_fq2 first: a b, a^2, a + b, a - b limb for limb."""
     from phase2_bn254_tpu_torch.ops import fieldops
 
     rng = random.Random(2)
-    for field in ("fq", "fr"):
-        p = fieldops.CTXS[field].p
-        pairs = fieldops.edge_pairs(field, rng)
+    for field in ("fq", "fr", "fq2"):
+        pairs = fieldops.edge_pairs_fq2(rng) if field == "fq2" else fieldops.edge_pairs(field, rng)
         edge = len(pairs)
-        pairs += [(rng.randrange(p), rng.randrange(p)) for _ in range(FIELD_N - edge)]
-        a, b = (convert.ints_to_limbs([pair[k] for pair in pairs], DEVICE) for k in (0, 1))
+        pairs += [(fieldops.random_element(field, rng), fieldops.random_element(field, rng))
+                  for _ in range(FIELD_N - edge)]
+        a, b = (fieldops.to_limbs([pair[k] for pair in pairs], field, DEVICE) for k in (0, 1))
         got = fieldops.field_ops(a, b, field)
         err = max_limb_err(got, fieldops.field_ops_plain(a, b, field))
         if err:
-            raise AssertionError(f"field code {field}: the kernel and field/fp.py differ (max abs limb error {err})")
+            raise AssertionError(f"field code {field}: the kernel and its plain version differ (max abs limb error "
+                                 f"{err})")
         ms = cuda_ms(lambda: fieldops.field_ops(a, b, field), 5)
         log(f"phase 2 field {field}: {FIELD_N} pairs ({edge} edge pairs first): a b, a^2, a + b, a - b == "
-            f"field/fp.py limb for limb; {ms:.4f} ms a launch")
+            f"field/{'fq2' if field == 'fq2' else 'fp'}.py limb for limb; {ms:.4f} ms a launch")
     for line in _ptxas_of(("field_ops_kernel",)):
         log(f"  ptxas: {line}")
 
@@ -867,7 +939,7 @@ def _k5_chain(group: str, sums, c: int) -> dict:
 def _d1_muls(group: str, n: int) -> int:
     """Multiplies of D1 (csrc/decompress.cu), square-and-multiply from the
     top bit of each public exponent; G2 counts the usual branch (alpha !=
-    -1) and has no Fq squares."""
+    -1) in Fq2 products and squares, and its conversions in Fq products."""
     from phase2_bn254_tpu_torch.refimpl.field import Q
 
     def pow_cost(e, sqr, mul):
@@ -877,7 +949,9 @@ def _d1_muls(group: str, n: int) -> int:
     if group == "g1":  # to Montgomery, x^2 and x^3, the root, two from-Montgomery, y^2 == rhs
         per = prod + (sq + prod) + pow_cost((Q + 1) // 4, sq, prod) + 2 * prod + sq
     else:  # to Montgomery, v, a1, alpha, a0, a1 v, (1 + alpha)^((q-1)/2), its product, four from-Montgomery, y^2
-        per = (2 + 5 + pow_cost((Q - 3) // 4, 2, 3) + 5 + 3 + 3 + pow_cost((Q - 1) // 2, 2, 3) + 3 + 4 + 2) * prod
+        p2, s2 = MULS_PER_FQ2_PRODUCT, MULS_PER_FQ2_SQUARE
+        per = (2 * prod + (s2 + p2) + pow_cost((Q - 3) // 4, s2, p2) + (s2 + p2) + p2 + p2
+               + pow_cost((Q - 1) // 2, s2, p2) + p2 + 4 * prod + s2)
     return n * per
 
 
@@ -923,6 +997,8 @@ def _msm_case(group: str, n: int, scalars: list[int], rng: random.Random) -> dic
     out["k3_ms"] = cuda_ms(lambda: M.bucket_accumulate(*args), 3)
     out["k3_work"] = (nbytes(*args, *buckets), _k3_muls(group, prep, 2))
     out["k3_kernel_muls"] = _k3_kernel_muls(group, prep, 2)
+    if group == "g2":
+        out["k3_three_fq"] = _three_fq(_k3_muls, group, prep, 2)
     want, out["k3_plain_ms"] = once_ms(lambda: M.bucket_accumulate_plain(*args))
     out["k3_err"] = max_limb_err(buckets, want)
     if out["k3_err"]:
@@ -938,6 +1014,8 @@ def _msm_case(group: str, n: int, scalars: list[int], rng: random.Random) -> dic
         raise AssertionError(f"K4 {group}: kernel and plain version differ on the affine window sums")
     out["k4_work"] = (nbytes(*buckets, *sums), _k4_muls(group, buckets))
     out["k4_kernel_muls"] = _k4_kernel_muls(group, buckets)
+    if group == "g2":
+        out["k4_three_fq"] = _three_fq(_k4_muls, group, buckets)
 
     res = M.combine_windows(sums, c)
     out["k5_ms"] = cuda_ms(lambda: M.combine_windows(sums, c), 3)
@@ -947,6 +1025,8 @@ def _msm_case(group: str, n: int, scalars: list[int], rng: random.Random) -> dic
         raise AssertionError(f"K5 {group}: kernel and plain version differ (max abs limb error {out['k5_err']})")
     out["k5_work"] = (nbytes(*sums, *res), _k5_muls(group, sums, c))
     out["k5_chain"] = _k5_chain(group, sums, c)
+    if group == "g2":
+        out["k5_three_fq"] = _three_fq(_k5_muls, group, sums, c)
 
     got = _jac_points(group, res)
     for s in (0, 1):
@@ -1038,8 +1118,11 @@ def _d1_case(group: str, n: int, rng: random.Random) -> dict:
     else:
         raise AssertionError(f"D1 {group}: a compressed x without a square root decoded")
     ms = cuda_ms(lambda: D.decompress(x, greatest, group), 5)
-    return {"ms": ms, "plain_ms": plain_ms, "err": err,
-            "work": (nbytes(x, greatest, *got[:2], valid), _d1_muls(group, n))}
+    out = {"ms": ms, "plain_ms": plain_ms, "err": err,
+           "work": (nbytes(x, greatest, *got[:2], valid), _d1_muls(group, n))}
+    if group == "g2":
+        out["three_fq"] = _three_fq(_d1_muls, group, n)
+    return out
 
 
 def _ptxas_of(keys) -> list[str]:
@@ -1134,6 +1217,8 @@ def phase_msm_kernels(card: Card, records: list[dict], n: int = KERNEL_N) -> Non
                           "bound_by": bound_by, "muls": uniform[f"{key}_work"][1],
                           "all_equal": {"ms": hot[f"{key}_ms"], "plain_ms": hot[f"{key}_plain_ms"],
                                         "bound_ms": card.bound(*hot[f"{key}_work"])[0]}}
+            if f"{key}_three_fq" in uniform:
+                per[group].update(_three_fq_fields(card, uniform[f"{key}_work"][0], uniform[f"{key}_three_fq"]))
             if f"{key}_kernel_muls" in uniform:
                 per[group]["kernel_muls"] = uniform[f"{key}_kernel_muls"]
                 per[group]["all_equal"]["kernel_muls"] = hot[f"{key}_kernel_muls"]
@@ -1156,6 +1241,8 @@ def phase_msm_kernels(card: Card, records: list[dict], n: int = KERNEL_N) -> Non
         bound_ms, bound_by = card.bound(*d1["work"])
         per[group] = {"ms": d1["ms"], "plain_ms": d1["plain_ms"], "max_abs_err": d1["err"], "bound_ms": bound_ms,
                       "bound_by": bound_by}
+        if "three_fq" in d1:
+            per[group].update(_three_fq_fields(card, d1["work"][0], d1["three_fq"]))
     records.append(record(card, "decompress", "phase2_bn254_tpu_torch/csrc/decompress.cu",
                           "phase2_bn254_tpu/curve/codecs.py:101 (XLA glue, not a Pallas kernel)",
                           max(p["max_abs_err"] for p in per.values()), per["g1"]["ms"], per["g1"]["plain_ms"],
@@ -1774,8 +1861,8 @@ def phase_fixture_proof(workdir: str) -> None:
 # ---------------------------------------------------------------------------
 
 CEREMONY_EXP = 18  # phase 13's domain: phase 10's circuit, an eighth of the reference's design depth 2^21
-# the prefix of a captured set the plain S1 and K7 are held to (a scan's lane i
-# needs lanes <= i only, a ladder's lane itself)
+# the prefix of a captured set the plain S1 and K7 are held to (a segment's
+# sum needs its own terms only, a ladder's lane itself)
 PLAIN_SCAN_N = 1 << 17
 
 
@@ -1812,59 +1899,146 @@ def _k9_kernel_muls(scalars) -> int:
     return _windowed_kernel_muls("g2", scalars)
 
 
-def _s1_muls(group: str, jac, starts) -> int:
-    """Multiplies a segmented inclusive scan needs on these terms: one add
-    for each lane whose term and whose segment's sum before it are both
-    finite (N - segments adds at most)."""
+def _s1_muls(group: str, jac, seg_ids) -> int:
+    """Multiplies the segment sums need on these terms: one add for each
+    finite term after the first finite term of its segment (N - segments
+    adds at most)."""
     from phase2_bn254_tpu_torch.field.fq2 import FQ, FQ2
+    from phase2_bn254_tpu_torch.ops import segsum
 
+    starts = segsum.segment_starts(seg_ids)
     fin = (~(FQ if group == "g1" else FQ2).is_zero(jac.z)).long()
     before = fin.cumsum(0) - fin  # finite terms in the lanes before i
     return int(((fin > 0) & (before - before[starts] > 0)).sum()) * OP_MULS[group]["add"]
 
 
-def _s1_kernel_muls(group: str, jac, starts) -> int:
-    """Multiplies S1's rounds do on these points: one add per lane and round
-    where i - d lies in i's segment and both partial sums are finite (an add
-    with infinity costs none; the rare P == Q doubling is counted as an
-    add)."""
+def _s1_level_adds(fin, seg, threads: int, terms: int):
+    """One launch of S1 (csrc/segsum.cu) over entries of finiteness fin
+    (bool (n,)) and segments seg (n,): the adds whose two operands are both
+    finite (an add with infinity costs none; a partial sum counts as finite
+    where any of its terms is), and the next launch's entries, the carries
+    (fin, seg), two a tile; None where one tile held them all."""
     import torch
-    from phase2_bn254_tpu_torch.field.fq2 import FQ, FQ2
 
-    f = FQ if group == "g1" else FQ2
-    inf = f.is_zero(jac.z)
-    n = inf.shape[0]
-    idx = torch.arange(n, device=inf.device)
-    adds, d = 0, 1
-    while d < n:
-        live = (idx - d) >= starts
-        other = torch.roll(inf, d)
-        adds += int((live & ~inf & ~other).sum())
-        inf = torch.where(live, inf & other, inf)
+    n, dev = fin.shape[0], fin.device
+    idx = torch.arange(n, device=dev)
+
+    def pieces(cut):  # ids of the runs of equal segments cut also where `cut` holds
+        new = cut | torch.cat([torch.ones(1, dtype=torch.bool, device=dev), seg[1:] != seg[:-1]])
+        gid = new.long().cumsum(0) - 1
+        gfin = torch.zeros(int(gid[-1]) + 1, dtype=torch.long, device=dev).index_add_(0, gid, fin.long()) > 0
+        return gid, gfin, idx[new]
+
+    # step 1: each thread's run, restarting at segment boundaries
+    gid, gfin, first = pieces(idx % terms == 0)
+    cum = fin.long().cumsum(0) - fin.long()
+    adds = int((fin & (cum - cum[first[gid]] > 0)).sum())
+    nruns = -(-n // terms)
+    tiles = -(-nruns // threads)
+    lo = torch.arange(nruns, device=dev) * terms
+    hi = (lo + terms).clamp(max=n)
+    head, tail = gid[lo], gid[hi - 1]
+    single = head == tail
+    prev_same = torch.zeros(nruns, dtype=torch.bool, device=dev)
+    prev_same[1:] = seg[lo[1:] - 1] == seg[lo[1:]]
+    t_of = torch.arange(nruns, device=dev) % threads
+    size = tiles * threads
+    v = torch.zeros(size, dtype=torch.bool, device=dev)
+    f = torch.ones(size, dtype=torch.bool, device=dev)
+    v[:nruns] = gfin[tail]
+    f[:nruns] = ~single | (t_of == 0) | ~prev_same
+    v, f = v.reshape(tiles, threads), f.reshape(tiles, threads)
+    # step 2: the block's scan
+    d = 1
+    while d < threads:
+        pv, pf = torch.zeros_like(v), torch.ones_like(f)
+        pv[:, d:], pf[:, d:] = v[:, :-d], f[:, :-d]
+        upd = ~f & (torch.arange(threads, device=dev) >= d)
+        adds += int((upd & v & pv).sum())
+        v, f = torch.where(upd, v | pv, v), torch.where(upd, pf, f)
         d *= 2
-    return adds * OP_MULS[group]["add"]
+    # step 3: a head added to the scanned tail of the thread before it
+    scanned = v.reshape(-1)[:nruns]
+    before = torch.zeros(nruns, dtype=torch.bool, device=dev)
+    before[1:] = scanned[:-1]
+    adds += int((~single & (t_of > 0) & prev_same & gfin[head] & before).sum())
+    if tiles == 1:
+        return adds, None
+    # the carries: per tile its first and its last segment's piece
+    tsize = threads * terms
+    tgid, tfin, _ = pieces(idx % tsize == 0)
+    tlo = torch.arange(tiles, device=dev) * tsize
+    thi = (tlo + tsize).clamp(max=n)
+    cin = torch.zeros(tiles, dtype=torch.bool, device=dev)
+    cin[1:] = seg[tlo[1:] - 1] == seg[tlo[1:]]
+    cout = torch.zeros(tiles, dtype=torch.bool, device=dev)
+    cout[:-1] = seg[thi[:-1]] == seg[thi[:-1] - 1]
+    whole = tgid[tlo] == tgid[thi - 1]
+    none = torch.full((tiles,), -1, dtype=seg.dtype, device=dev)
+    in_seg = torch.where(cin, seg[tlo], none)
+    in_fin = cin & tfin[tgid[tlo]]
+    out_seg = torch.where(cout, seg[thi - 1], none)
+    out_fin = cout & ~(whole & cin) & tfin[tgid[thi - 1]]
+    return adds, (torch.stack([in_fin, out_fin], 1).reshape(-1), torch.stack([in_seg, out_seg], 1).reshape(-1))
 
 
-def _scan_case(group: str, jac, starts, plain_n: int | None = None) -> dict:
-    """S1 on the card over (jac, starts), against its plain version on the
-    first plain_n lanes (all by default): limb for limb, times and work."""
-    from phase2_bn254_tpu_torch.curve import group as G
+def _s1_kernel_muls(group: str, jac, seg_ids) -> int:
+    """Multiplies S1's launches do on these terms (`_s1_level_adds` over
+    each launch, tiles of segsum.THREADS x segsum.TERMS)."""
+    from phase2_bn254_tpu_torch.field.fq2 import FQ, FQ2
     from phase2_bn254_tpu_torch.ops import segsum
 
+    fin, seg, adds = ~(FQ if group == "g1" else FQ2).is_zero(jac.z), seg_ids, 0
+    while True:
+        level, carries = _s1_level_adds(fin, seg, segsum.THREADS, segsum.TERMS)
+        adds += level
+        if carries is None:
+            return adds * OP_MULS[group]["add"]
+        fin, seg = carries
+
+
+def _s1_tile_sweep(jac, seg_ids, n_segments: int) -> dict:
+    """S1's ms per call at each tile of S1_TILE_SWEEP, "threads x terms";
+    the module's constants are restored after."""
+    from phase2_bn254_tpu_torch.ops import segsum
+
+    kept, out = (segsum.THREADS, segsum.TERMS), {}
+    try:
+        for threads, terms in S1_TILE_SWEEP:
+            segsum.THREADS, segsum.TERMS = threads, terms
+            out[f"{threads}x{terms}"] = cuda_ms(lambda: segsum.segment_sums(jac, seg_ids, n_segments), 3)
+    finally:
+        segsum.THREADS, segsum.TERMS = kept
+    return out
+
+
+def _s1_case(group: str, jac, seg_ids, n_segments: int, plain_n: int | None = None) -> dict:
+    """S1 on the card over (jac, seg_ids), against its plain version on the
+    first plain_n terms (all by default): every segment that lies wholly in
+    that prefix, in canonical affine; times, launches and work."""
+    import torch
+    from phase2_bn254_tpu_torch.curve import group as G
+    from phase2_bn254_tpu_torch.field.fq2 import FQ, FQ2
+    from phase2_bn254_tpu_torch.ops import segsum
+
+    f = FQ if group == "g1" else FQ2
     n = jac.x.shape[0]
     plain_n = n if plain_n is None else min(plain_n, n)
-    got, ms = once_ms(lambda: segsum.segmented_scan(jac, starts))
+    before = segsum.LAUNCHES["segment_sums"]
+    got, ms = once_ms(lambda: segsum.segment_sums(jac, seg_ids, n_segments))
+    launches = segsum.LAUNCHES["segment_sums"] - before
     head = G.JacobianBatch(*(t[:plain_n] for t in jac))
-    want, plain_ms = once_ms(lambda: segsum.segmented_scan_plain(head, starts[:plain_n]))
-    err = max_limb_err([t[:plain_n] for t in got], want)
-    if err:
-        raise AssertionError(f"S1 {group}: kernel and plain version differ on the first {plain_n} lanes "
-                             f"(max abs limb error {err})")
-    ms = cuda_ms(lambda: segsum.segmented_scan(jac, starts), 3)
-    rounds = (n - 1).bit_length()
-    return {"ms": ms, "plain_ms": plain_ms, "plain_n": plain_n, "err": err, "n": n, "rounds": rounds,
-            "work": (nbytes(*jac, starts, *got), _s1_muls(group, jac, starts)),
-            "kernel_muls": _s1_kernel_muls(group, jac, starts)}
+    want, plain_ms = once_ms(lambda: segsum.segment_sums_plain(head, seg_ids[:plain_n], n_segments))
+    whole = int(seg_ids[plain_n]) if plain_n < n else n_segments  # segments below it end in the prefix
+    ga, wa = (G.jac_normalize(f, G.JacobianBatch(*(t[:whole] for t in s))) for s in (got, want))
+    err = max_limb_err(ga[:2], wa[:2])
+    if err or not torch.equal(ga.inf, wa.inf):
+        raise AssertionError(f"S1 {group}: kernel and plain version differ on the {whole} segments of the first "
+                             f"{plain_n} terms (max abs limb error {err} in canonical affine)")
+    ms = cuda_ms(lambda: segsum.segment_sums(jac, seg_ids, n_segments), 3)
+    return {"ms": ms, "plain_ms": plain_ms, "plain_n": plain_n, "segments_checked": whole, "err": err, "n": n,
+            "launches": launches, "work": (nbytes(*jac, seg_ids, *got), _s1_muls(group, jac, seg_ids)),
+            "kernel_muls": _s1_kernel_muls(group, jac, seg_ids), "tiles_ms": _s1_tile_sweep(jac, seg_ids, n_segments)}
 
 
 def _k9_case(x, y, scalars, plain_n: int | None = None) -> dict:
@@ -1893,8 +2067,8 @@ def _skewed_terms(group: str, n: int, rng: random.Random):
     circuit's share of B terms on ONE), the rest over segments 3.. with
     every fourth segment id skipped (empty segments, 0 and 2 among them);
     coefficients 1, r - 1, 0 (infinity terms) and random, as circom's are
-    mostly +-1. Returns (products on the card: K1 / K9, starts, seg_ids,
-    number of segments)."""
+    mostly +-1. Returns (products on the card: K1 / K9, seg_ids, number of
+    segments)."""
     import torch
     from phase2_bn254_tpu_torch import convert
     from phase2_bn254_tpu_torch.ops import segsum
@@ -1909,7 +2083,7 @@ def _skewed_terms(group: str, n: int, rng: random.Random):
     coeffs = [rng.choice((1, 1, R_MOD - 1, 0, rng.randrange(R_MOD))) for _ in range(n)]
     seg_ids = torch.tensor(segs, device=dev)
     jac = segsum.term_products(pts, torch.arange(n, device=dev), convert.ints_to_limbs(coeffs, dev))
-    return jac, segsum.segment_starts(seg_ids), seg_ids, n // 4
+    return jac, seg_ids, n // 4
 
 
 def phase_segsum_kernels(card: Card, records: list[dict], n: int = KERNEL_N) -> None:
@@ -1920,7 +2094,8 @@ def phase_segsum_kernels(card: Card, records: list[dict], n: int = KERNEL_N) -> 
     rng = random.Random(12)
     dev = torch.device(DEVICE)
     pts, _ = _tiled_points("g2", n, dev, rng)
-    k9 = _k9_case(pts.x, pts.y, convert.ints_to_limbs(_edge_scalars(n, rng), dev))
+    k = convert.ints_to_limbs(_edge_scalars(n, rng), dev)
+    k9 = _k9_case(pts.x, pts.y, k)
     b, by = card.bound(*k9["work"])
     log(f"phase 12 K9 (batch_exp_g2_windowed): N={n} G2 points, edge scalars first: kernel == plain limb for limb; "
         f"kernel {k9['ms']:.3f} ms/call, plain {k9['plain_ms']:.3f} ms, bound {b:.3f} ms ({by}: "
@@ -1928,29 +2103,37 @@ def phase_segsum_kernels(card: Card, records: list[dict], n: int = KERNEL_N) -> 
         f"kernel does {k9['kernel_muls'] / n:.0f})")
     scans = {}
     for group in ("g1", "g2"):
-        jac, starts, seg_ids, nseg = _skewed_terms(group, n, rng)
-        scans[group] = _scan_case(group, jac, starts)
-        c = scans[group]
+        jac, seg_ids, nseg = _skewed_terms(group, n, rng)
+        scans[group] = c = _s1_case(group, jac, seg_ids, nseg)
+        if group == "g2":
+            c["three_fq"] = _three_fq(_s1_muls, group, jac, seg_ids)
         b, by = card.bound(*c["work"])
-        log(f"phase 12 S1 (segmented_scan) {group}: N={n} terms over {nseg} segments ({int(torch.bincount(seg_ids).max())} "
+        log(f"phase 12 S1 (segment_sums) {group}: N={n} terms over {nseg} segments ({int(torch.bincount(seg_ids).max())} "
             f"in the largest, {nseg - int(seg_ids.unique().numel())} empty), coefficients 1, r-1, 0, random: kernel == "
-            f"plain limb for limb; kernel {c['ms']:.3f} ms ({c['rounds']} launches), plain {c['plain_ms']:.3f} ms, "
-            f"bound {b:.3f} ms ({by}: {c['work'][1]} multiplies, {c['work'][0]} bytes; the rounds do "
-            f"{c['kernel_muls']})")
+            f"plain on every segment in canonical affine; kernel {c['ms']:.3f} ms ({c['launches']} launches), plain "
+            f"{c['plain_ms']:.3f} ms, bound {b:.3f} ms ({by}: {c['work'][1]} multiplies, {c['work'][0]} bytes; the "
+            f"kernel does {c['kernel_muls']}); by tile (threads x terms): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in c["tiles_ms"].items()) + " ms")
+    for line in _ptxas_of(("batch_exp_g2_windowed_kernel", "segment_sums_kernel")):
+        log(f"  ptxas: {line}")
     records.append(record(card, "batch_exp_g2_windowed", "phase2_bn254_tpu_torch/csrc/batch_exp_g2_windowed.cu",
                           "phase2_bn254_tpu/ops/pallas_exp.py:449", k9["err"], k9["ms"], k9["plain_ms"], k9["work"],
                           shape=f"N={n} G2 points, edge and random scalars", muls=k9["work"][1],
-                          ladder_muls=k9["ladder_muls"], kernel_muls=k9["kernel_muls"]))
+                          ladder_muls=k9["ladder_muls"], kernel_muls=k9["kernel_muls"],
+                          **_three_fq_fields(card, k9["work"][0], _three_fq(_function_muls, "g2", k))))
     g2 = scans["g2"]
     b2, by2 = card.bound(*g2["work"])
-    records.append(record(card, "segmented_scan", "phase2_bn254_tpu_torch/csrc/segsum.cu",
+    records.append(record(card, "segment_sums", "phase2_bn254_tpu_torch/csrc/segsum.cu",
                           "phase2_bn254_tpu/ops/segsum.py:46 (XLA glue, not a Pallas kernel)",
                           max(c["err"] for c in scans.values()), scans["g1"]["ms"], scans["g1"]["plain_ms"],
                           scans["g1"]["work"], shape=f"N={n} G1 terms, a third in one segment; g2 beside",
                           muls=scans["g1"]["work"][1], kernel_muls=scans["g1"]["kernel_muls"],
+                          call_launches=scans["g1"]["launches"], tiles_ms=scans["g1"]["tiles_ms"],
                           g2={"ms": g2["ms"], "plain_ms": g2["plain_ms"], "bound_ms": b2, "bound_by": by2,
                               "max_abs_err": g2["err"], "muls": g2["work"][1],
-                              "kernel_muls": g2["kernel_muls"]}))
+                              "kernel_muls": g2["kernel_muls"], "call_launches": g2["launches"],
+                              "tiles_ms": g2["tiles_ms"],
+                              **_three_fq_fields(card, g2["work"][0], g2["three_fq"])}))
 
 
 def write_radix(workdir: str, exp: int, seed: int) -> str:
@@ -2056,7 +2239,7 @@ def phase_ceremony(card: Card, workdir: str, records: list[dict], exp: int = CER
             timers.args_of("k1", batch_exp, "batch_exp_glv_signed", kept)
             timers.args_of("k9", batch_exp, "batch_exp_g2_windowed", kept)
             timers.args_of("terms", segsum, "term_products", kept)  # the G1 terms' scalars
-            timers.args_of("s1", segsum, "segmented_scan", kept)
+            timers.args_of("s1", segsum, "segment_sums", kept)
         try:
             with open(tool_log, "a") as out, contextlib.redirect_stdout(out):
                 t0 = time.time()
@@ -2068,7 +2251,7 @@ def phase_ceremony(card: Card, workdir: str, records: list[dict], exp: int = CER
         launches[name] = _launch_counts()
     for name in ("new", "verify_contribution 1->2"):
         got = launches[name]
-        if not (got["batch_exp_glv_signed"] and got["batch_exp_g2_windowed"] and got["segmented_scan"]):
+        if not (got["batch_exp_glv_signed"] and got["batch_exp_g2_windowed"] and got["segment_sums"]):
             raise AssertionError(f"{name}: K1, K9 and S1 must all launch: {got}")
     if not all(launches["verify_contribution 1->2"][k] for k in ("bucket_accumulate", "bucket_reduce",
                                                                  "combine_windows")):
@@ -2140,17 +2323,19 @@ def phase_ceremony(card: Card, workdir: str, records: list[dict], exp: int = CER
         f"{k9['work'][1]} multiplies; this ladder needs {k9['ladder_muls']}, the kernel does "
         f"{k9['kernel_muls']})")
     per = {}
-    for jac, starts in kept["s1"]:
+    for jac, seg_ids, nseg in kept["s1"]:
         group = "g1" if jac.x.dim() == 2 else "g2"
-        c = _scan_case(group, jac, starts, plain_n=PLAIN_SCAN_N)
+        c = _s1_case(group, jac, seg_ids, nseg, plain_n=PLAIN_SCAN_N)
         b, by = card.bound(*c["work"])
         per[group] = {"ms": c["ms"], "plain_ms": c["plain_ms"], "plain_n": c["plain_n"], "n": c["n"],
-                      "launches": c["rounds"], "bound_ms": b, "bound_by": by, "muls": c["work"][1],
-                      "kernel_muls": c["kernel_muls"]}
-        log(f"  S1 on new's {group} set: N={c['n']} ({c['rounds']} launches), kernel == plain limb for limb on the "
-            f"first {c['plain_n']} lanes; kernel {c['ms']:.3f} ms, plain {c['plain_ms']:.3f} ms ({c['plain_n']} "
-            f"lanes), bound {b:.3f} ms ({by}: {c['work'][1]} multiplies, {c['work'][0]} bytes; the rounds do "
-            f"{c['kernel_muls']})")
+                      "segments": nseg, "segments_checked": c["segments_checked"], "launches": c["launches"],
+                      "bound_ms": b, "bound_by": by, "muls": c["work"][1], "kernel_muls": c["kernel_muls"],
+                      "tiles_ms": c["tiles_ms"]}
+        log(f"  S1 on new's {group} set: N={c['n']} terms over {nseg} segments ({c['launches']} launches), kernel == "
+            f"plain in canonical affine on the {c['segments_checked']} segments of the first {c['plain_n']} terms; "
+            f"kernel {c['ms']:.3f} ms, plain {c['plain_ms']:.3f} ms ({c['plain_n']} terms), bound {b:.3f} ms ({by}: "
+            f"{c['work'][1]} multiplies, {c['work'][0]} bytes; the kernel does {c['kernel_muls']}); by tile: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in c["tiles_ms"].items()) + " ms")
     del kept
     for r in records:
         if r["name"] == "batch_exp_g2_windowed":
@@ -2161,11 +2346,11 @@ def phase_ceremony(card: Card, workdir: str, records: list[dict], exp: int = CER
                               "kernel_muls": k9["kernel_muls"]}
         elif r["name"] == "batch_exp_glv_signed":
             r["new_shape"] = k1
-        elif r["name"] == "segmented_scan":
-            r["launches"] = launches["new"]["segmented_scan"]
+        elif r["name"] == "segment_sums":
+            r["launches"] = launches["new"]["segment_sums"]
             r["new_shape"] = per
         if r["name"] in ("batch_exp_glv_signed", "bucket_accumulate", "bucket_reduce", "combine_windows",
-                         "batch_exp_g2_windowed", "segmented_scan"):
+                         "batch_exp_g2_windowed", "segment_sums"):
             r["ceremony_launches"] = {k: launches[k][r["name"]] for k in ("new", "contribute",
                                                                           "verify_contribution 1->2")}
 
@@ -2291,27 +2476,26 @@ def _k8_kernel_muls(scalars) -> int:
 def _k10_muls(digits, negs):
     """Multiplies (N,) k Q takes on these unsigned GLS windows (4, W, N) by
     K10's ladder, as far as this data needs it: the multiples up to each
-    point's largest digit, psi, psi^2, psi^3 (6, 4, 6) of each nonzero digit
-    of parts 1, 2, 3, 4 doublings per window after the first nonzero one,
-    one add per nonzero digit after the first."""
+    point's largest digit, psi, psi^2, psi^3 (`_psi_muls`) of each nonzero
+    digit of parts 1, 2, 3, 4 doublings per window after the first nonzero
+    one, one add per nonzero digit after the first."""
     ops = OP_MULS["g2"]
     nz = digits != 0
-    psi = (6 * nz[1].sum(0) + 4 * nz[2].sum(0) + 6 * nz[3].sum(0)) * MULS_PER_FQ_PRODUCT
     adds = (nz.sum((0, 1)) - 1).clamp(min=0)
-    return (_table_muls(ops, digits.amax((0, 1))) + psi + _ladder_doublings(nz.any(0), 4) * ops["dbl"]
+    return (_table_muls(ops, digits.amax((0, 1))) + _psi_muls(nz) + _ladder_doublings(nz.any(0), 4) * ops["dbl"]
             + adds * ops["add"])
 
 
 def _k10_kernel_muls(digits, negs) -> int:
     """Multiplies K10 (csrc/batch_exp_gls.cu) does: the table (2Q through
     the doubling branch, 3Q..15Q), per window 4 doublings and psi, psi^2,
-    psi^3 of the gathered entries (6 + 4 + 6), one add per nonzero digit
+    psi^3 of the gathered entries (`_psi_muls`), one add per nonzero digit
     after the first."""
     ops = OP_MULS["g2"]
     _, nw, n = digits.shape
     table = ops["add_head"] + ops["dbl"] + 13 * ops["add"]
     adds = int(((digits != 0).sum((0, 1)) - 1).clamp(min=0).sum())
-    return n * (table + nw * (4 * ops["dbl"] + 16 * MULS_PER_FQ_PRODUCT)) + adds * ops["add"]
+    return n * (table + nw * (4 * ops["dbl"] + _psi_window_muls())) + adds * ops["add"]
 
 
 # wrapper name -> (tag, group, the module whose `decompose` splits its scalars
@@ -2345,10 +2529,13 @@ def _ladder_case(name: str, x, y, k, plain_n: int, reps: int) -> dict:
     if err:
         raise AssertionError(f"{tag} {name}: kernel and plain version differ on the first {pn} lanes "
                              f"(max abs limb error {err})")
-    return {"tag": tag, "group": group, "n": n, "plain_n": pn, "err": err, "plain_ms": plain_ms,
-            "ms": cuda_ms(lambda: kernel(x, y, *inputs), reps),
-            "work": (nbytes(x, y, *inputs, *got), _function_muls(group, k)),
-            "ladder_muls": int(muls(*inputs).sum()), "kernel_muls": kernel_muls(*inputs)}
+    out = {"tag": tag, "group": group, "n": n, "plain_n": pn, "err": err, "plain_ms": plain_ms,
+           "ms": cuda_ms(lambda: kernel(x, y, *inputs), reps),
+           "work": (nbytes(x, y, *inputs, *got), _function_muls(group, k)),
+           "ladder_muls": int(muls(*inputs).sum()), "kernel_muls": kernel_muls(*inputs)}
+    if group == "g2":
+        out["three_fq"] = _three_fq(_function_muls, group, k)
+    return out
 
 
 def _ladder_log(c: dict, bound_ms: float, bound_by: str) -> str:
@@ -2373,7 +2560,8 @@ def phase_ladder_kernels(card: Card, records: list[dict], n: int = KERNEL_N) -> 
         rec = record(card, name, source, replaces, c["err"], c["ms"], c["plain_ms"], c["work"],
                      shape=f"N={n} {group.upper()} points, edge and random scalars", plain_n=c["plain_n"],
                      muls=c["work"][1], ladder_muls=c["ladder_muls"],
-                     kernel_muls=c["kernel_muls"])
+                     kernel_muls=c["kernel_muls"],
+                     **(_three_fq_fields(card, c["work"][0], c["three_fq"]) if "three_fq" in c else {}))
         log(f"phase 14 {tag} ({name}): N={n}, edge scalars first: " + _ladder_log(c, rec["bound_ms"], rec["bound_by"]))
         records.append(rec)
     for line in _ptxas_of(("batch_exp_glv_kernel", "batch_exp_g1_windowed_kernel", "batch_exp_gls_kernel")):

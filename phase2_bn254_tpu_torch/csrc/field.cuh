@@ -15,16 +15,18 @@
 // difference are the inline PTX carry chains of field_ptx.cuh (written by
 // ops/_ptx.py into the build directory at build time): CIOS with mad.lo.cc / madc.hi.cc chains over the even and
 // the odd limbs, and a square that computes its 28 cross products once
-// (36 limb products where a product takes 64). Off the card (g++ and
-// nvcc's host pass) they are the C++ CIOS below, 64-bit products and a
+// (36 limb products where a product takes 64); the Fq2 product and square
+// are one routine each, Karatsuba with lazy reduction (two Montgomery
+// reductions where three products did three). Off the card (g++ and
+// nvcc's host pass) they are the C++ below, 64-bit products and a
 // final conditional subtraction: the host tests run that path, and
 // fieldops.cu holds the two against each other on the card.
 //
 // The group law is dbl-2009-l, add-2007-bl and the mixed add madd-2007-bl
 // with the same exceptional cases as curve/group.py (P + O, O + Q, P == Q by
-// doubling, P == -Q to infinity). The group operations and the Fq product
-// and square are __noinline__: one copy of each keeps the kernels' code
-// small enough for the instruction cache, at the price of a call per
+// doubling, P == -Q to infinity). The group operations and the Fq and Fq2
+// product and square are __noinline__: one copy of each keeps the kernels'
+// code small enough for the instruction cache, at the price of a call per
 // operation. Inlined into the group operations, the product made K1 40%
 // and K2 120% slower on an H100, and K3 no faster (PERF.md, PR 9);
 // `mul_inline` is there for a caller that runs few products, as K5's warp
@@ -244,18 +246,124 @@ __device__ __forceinline__ Fp2 neg(const Fp2& a) { return {neg(a.c0), neg(a.c1)}
 __device__ __forceinline__ Fp2 dbl(const Fp2& a) { return add(a, a); }
 __device__ __forceinline__ Fp2 conj(const Fp2& a) { return {a.c0, neg(a.c1)}; }
 
-// Karatsuba, as fq2.rs:112-204
-__device__ __forceinline__ Fp2 mul(const Fp2& a, const Fp2& b) {
-  Fp v0 = mul(a.c0, b.c0);
-  Fp v1 = mul(a.c1, b.c1);
-  Fp t = mul(add(a.c0, a.c1), add(b.c0, b.c1));
-  return {sub(v0, v1), sub(sub(t, v0), v1)};
+// The Fq2 product and square, each one call: Karatsuba with lazy reduction.
+// The three Fq products a0 b0, a1 b1 and (a0 + a1)(b0 + b1) are 512-bit and
+// unreduced (a0 + a1 < 2q < 2^255 needs no reduction either); c0 = a0 b0 -
+// a1 b1 + q^2 and c1 = (a0 + a1)(b0 + b1) - a0 b0 - a1 b1 lie in [0, 2 q^2),
+// below q 2^256, so one Montgomery reduction and one conditional
+// subtraction each give the fully reduced values of fq2.rs:112-204's
+// Karatsuba (656 32-bit multiplies where three products take 792). The
+// square: c0 = (a0 + a1)(a0 - a1 + q) < 4 q^2 (below q 2^256: q < 2^254),
+// c1 = 2 a0 a1, two products and two reductions. On the card these are
+// ptx_mul_fq2 / ptx_sqr_fq2 of field_ptx.cuh; off it the C++ below.
+#if !defined(__CUDA_ARCH__)
+// w = a b, 8 x 8 words into 16
+__device__ __forceinline__ void wide_mul(uint32_t* w, const uint32_t* a, const uint32_t* b) {
+  for (int i = 0; i < 16; ++i) w[i] = 0;
+  for (int i = 0; i < 8; ++i) {
+    uint64_t c = 0;
+    for (int j = 0; j < 8; ++j) {
+      c += (uint64_t)a[j] * b[i] + w[i + j];
+      w[i + j] = (uint32_t)c;
+      c >>= 32;
+    }
+    w[i + 8] = (uint32_t)c;
+  }
 }
 
-// (a0 + a1)(a0 - a1) + 2 a0 a1 u
-__device__ __forceinline__ Fp2 sqr(const Fp2& a) {
-  Fp m = mul(a.c0, a.c1);
-  return {mul(add(a.c0, a.c1), sub(a.c0, a.c1)), add(m, m)};
+// r = a + b and r = a - b on N words; the callers' results fit (no carry or
+// borrow out); r may be a or b
+template <int N>
+__device__ __forceinline__ void wide_add(uint32_t* r, const uint32_t* a, const uint32_t* b) {
+  uint64_t c = 0;
+  for (int i = 0; i < N; ++i) {
+    c += (uint64_t)a[i] + b[i];
+    r[i] = (uint32_t)c;
+    c >>= 32;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void wide_sub(uint32_t* r, const uint32_t* a, const uint32_t* b) {
+  int64_t br = 0;
+  for (int i = 0; i < N; ++i) {
+    int64_t t = (int64_t)a[i] - (int64_t)b[i] + br;
+    r[i] = (uint32_t)t;
+    br = t >> 32;
+  }
+}
+
+// w 2^-256 mod q for a 16-word w below q 2^256: 8 rows of m q, then the
+// result t[8..15] < 2q through one conditional subtraction
+__device__ __forceinline__ Fp wide_reduce(const uint32_t* w) {
+  uint32_t t[17];
+  for (int i = 0; i < 16; ++i) t[i] = w[i];
+  t[16] = 0;
+  for (int i = 0; i < 8; ++i) {
+    uint32_t m = t[i] * FQ_PINV;
+    uint64_t c = 0;
+    for (int j = 0; j < 8; ++j) {
+      c += (uint64_t)m * FQ_P[j] + t[i + j];
+      t[i + j] = (uint32_t)c;
+      c >>= 32;
+    }
+    for (int k = i + 8; k < 17; ++k) {
+      c += t[k];
+      t[k] = (uint32_t)c;
+      c >>= 32;
+    }
+  }
+  Fp r;
+  for (int i = 0; i < 8; ++i) r.v[i] = t[8 + i];
+  return reduce_once_mod(r, FQ_P);
+}
+#endif
+
+static __device__ __noinline__ Fp2 mul(Fp2 a, Fp2 b) {
+#if defined(__CUDA_ARCH__)
+  uint32_t x[16], y[16], r[16];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) x[k] = a.c0.v[k], x[8 + k] = a.c1.v[k], y[k] = b.c0.v[k], y[8 + k] = b.c1.v[k];
+  ptx_mul_fq2(r, x, y);
+  Fp2 o;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) o.c0.v[k] = r[k], o.c1.v[k] = r[8 + k];
+  return o;
+#else
+  uint32_t sa[8], sb[8], v0[16], v1[16], c0[16], c1[16];
+  wide_add<8>(sa, a.c0.v, a.c1.v);
+  wide_add<8>(sb, b.c0.v, b.c1.v);
+  wide_mul(v0, a.c0.v, b.c0.v);
+  wide_mul(v1, a.c1.v, b.c1.v);
+  wide_mul(c1, sa, sb);
+  wide_sub<16>(c1, c1, v0);
+  wide_sub<16>(c1, c1, v1);
+  wide_add<16>(c0, v0, FQ_P2);
+  wide_sub<16>(c0, c0, v1);
+  return {wide_reduce(c0), wide_reduce(c1)};
+#endif
+}
+
+static __device__ __noinline__ Fp2 sqr(Fp2 a) {
+#if defined(__CUDA_ARCH__)
+  uint32_t x[16], r[16];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) x[k] = a.c0.v[k], x[8 + k] = a.c1.v[k];
+  ptx_sqr_fq2(r, x);
+  Fp2 o;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) o.c0.v[k] = r[k], o.c1.v[k] = r[8 + k];
+  return o;
+#else
+  uint32_t sa[8], da[8], c0[16], c1[16];
+  wide_add<8>(sa, a.c0.v, a.c1.v);
+  wide_add<8>(da, a.c0.v, FQ_P);
+  wide_sub<8>(da, da, a.c1.v);
+  wide_mul(c0, sa, da);
+  wide_mul(c1, a.c0.v, a.c1.v);
+  wide_add<16>(c1, c1, c1);
+  return {wide_reduce(c0), wide_reduce(c1)};
+#endif
 }
 
 __device__ __forceinline__ Fp2 mul_fp(const Fp2& a, const Fp& s) { return {mul(a.c0, s), mul(a.c1, s)}; }

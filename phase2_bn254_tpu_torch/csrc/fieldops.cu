@@ -1,7 +1,7 @@
 // A check of the field code itself, not a port of a TPU kernel: one thread
-// per pair (a_i, b_i) of Fq or Fr elements computes a b, a^2, a + b and
-// a - b with field.cuh's arithmetic. On the card that is the PTX of
-// field_ptx.cuh; compiled by a host C++ compiler, the C++ CIOS. ops/
+// per pair (a_i, b_i) of Fq, Fr or Fq2 elements computes a b, a^2, a + b
+// and a - b with field.cuh's arithmetic. On the card that is the PTX of
+// field_ptx.cuh; compiled by a host C++ compiler, the C++ code. ops/
 // fieldops.py holds both against field/fp.py, so the two codes for one
 // product are compared wherever a card is. Bound by nothing worth
 // measuring: it exists to be exact on edge operands.
@@ -11,7 +11,8 @@
 
 #include "field.cuh"
 
-// pair i; field 0 is Fq, 1 is Fr; int64 (N, 16) 16-bit digits in and out
+// pair i; field 0 is Fq, 1 is Fr, 2 is Fq2; int64 (N, 16) 16-bit digits in
+// and out ((N, 2, 16) for Fq2)
 __device__ void field_ops_pair(const int64_t* a, const int64_t* b, int64_t* prod, int64_t* sq, int64_t* sum,
                                int64_t* diff, int64_t i, int field) {
   if (field == 0) {
@@ -20,6 +21,14 @@ __device__ void field_ops_pair(const int64_t* a, const int64_t* b, int64_t* prod
     store_fp(sq + 16 * i, sqr(x));
     store_fp(sum + 16 * i, add(x, y));
     store_fp(diff + 16 * i, sub(x, y));
+  } else if (field == 2) {
+    Fp2 x, y;
+    load_el(a + 32 * i, x);
+    load_el(b + 32 * i, y);
+    store_el(prod + 32 * i, mul(x, y));
+    store_el(sq + 32 * i, sqr(x));
+    store_el(sum + 32 * i, add(x, y));
+    store_el(diff + 32 * i, sub(x, y));
   } else {
     Fr x = load_fr(a + 16 * i), y = load_fr(b + 16 * i);
     store_fr(prod + 16 * i, mul(x, y));
@@ -46,7 +55,7 @@ field_ops_kernel(const int64_t* __restrict__ a, const int64_t* __restrict__ b, i
 // Launches on `stream`; returns cudaGetLastError() after the launch.
 extern "C" int p2_field_ops(const void* a, const void* b, void* prod, void* sq, void* sum, void* diff, int n,
                             int field, void* stream) {
-  if (field != 0 && field != 1) return (int)cudaErrorInvalidValue;
+  if (field < 0 || field > 2) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     field_ops_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
         (const int64_t*)a, (const int64_t*)b, (int64_t*)prod, (int64_t*)sq, (int64_t*)sum, (int64_t*)diff, n,

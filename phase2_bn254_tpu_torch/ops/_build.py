@@ -49,7 +49,7 @@ ENTRY_POINTS = {
     **{f"p2_combine_windows_{g}": (6, 3) for g in ("g1", "g2")},
     **{f"p2_decompress_{g}": (5, 1) for g in ("g1", "g2")},
     "p2_lane_dft": (5, 7),
-    **{f"p2_seg_scan_round_{g}": (7, 2) for g in ("g1", "g2")},
+    **{f"p2_segment_sums_{g}": (11, 3) for g in ("g1", "g2")},
     "p2_field_ops": (6, 2),
 }
 
@@ -95,10 +95,11 @@ def constants_header() -> str:
         ("EXP_G2_B", (Q - 1) // 2, "exponent (q - 1) / 2: the G2 square root's (1 + alpha) power"),
         ("FR_P", R_MOD, "the scalar field's modulus r"),
         ("FR_ONE", mont(1, R_MOD), "R mod r (Montgomery one of Fr)"),
+        ("FQ_P2", Q * Q, "q^2 as an integer, 16 limbs: the offset of the Fq2 product's c0 (host path)"),
     ]
     lines = [
-        "// BN254 constants as 8 little-endian 32-bit limbs, Montgomery form",
-        "// (R = 2^256) except FQ_P, FR_P, FQ_R2 and the EXP_ exponents. Written by",
+        "// BN254 constants as 8 little-endian 32-bit limbs (FQ_P2 16), Montgomery form",
+        "// (R = 2^256) except FQ_P, FR_P, FQ_R2, FQ_P2 and the EXP_ exponents. Written by",
         "// ops/_build.py constants_header() from the refimpl integers;",
         "// tests/test_torch_batch_exp.py checks it.",
         "#pragma once",
@@ -109,10 +110,11 @@ def constants_header() -> str:
         f"static constexpr uint32_t FR_PINV = 0x{(-pow(R_MOD, -1, 1 << 32)) % (1 << 32):08x}u;  // -r^-1 mod 2^32",
     ]
     for name, v, doc in arrays:
-        limbs = ", ".join(f"0x{(v >> (32 * k)) & 0xFFFFFFFF:08x}u" for k in range(8))
+        n = max(8, -(-v.bit_length() // 32))
+        limbs = ", ".join(f"0x{(v >> (32 * k)) & 0xFFFFFFFF:08x}u" for k in range(n))
         if doc:
             lines.append(f"// {doc}")
-        lines.append(f"static __constant__ uint32_t {name}[8] = {{{limbs}}};")
+        lines.append(f"static __constant__ uint32_t {name}[{n}] = {{{limbs}}};")
     return "\n".join(lines) + "\n"
 
 

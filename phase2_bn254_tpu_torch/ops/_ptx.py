@@ -1,5 +1,5 @@
-"""The text of field_ptx.cuh: the Fq and Fr arithmetic of the kernels on
-the card, as inline PTX carry chains on 8 x 32-bit limbs. It is not kept in
+"""The text of field_ptx.cuh: the Fq, Fq2 and Fr arithmetic of the kernels
+on the card, as inline PTX carry chains on 8 x 32-bit limbs. It is not kept in
 csrc/: `_build.build()` writes it into the build directory, on nvcc's
 include path, and keys the library by its text.
 
@@ -23,6 +23,20 @@ each value in [0, p):
   is Montgomery-reduced (8 rows of m p) and the high half added after:
   (lo + M p) / 2^256 <= p and hi < p / 4, so the sum is < 2p.
 * `ptx_add_<f>`, `ptx_sub_<f>`: a + b and a - b mod p.
+
+and for Fq2 = Fq[u] / (u^2 + 1), each operand 16 limbs (c0 then c1):
+
+* `ptx_mul_fq2`: Karatsuba with lazy reduction. a0 b0, a1 b1 and
+  (a0 + a1)(b0 + b1) are three 8 x 8-limb products into 512-bit words,
+  none reduced (a0 + a1 < 2p < 2^255 needs no reduction either); then
+  c0 = a0 b0 - a1 b1 + p^2 and c1 = (a0 + a1)(b0 + b1) - a0 b0 - a1 b1,
+  both in [0, 2 p^2), below p 2^256; then one Montgomery reduction of each
+  (the low half by 8 rows of m p into fresh words, the high half added
+  after: (lo + M p) / 2^256 <= p and hi < p, so the sum is < 2p). 3 x 128
+  + 2 x 136 = 656 32-bit multiplies, where three CIOS products take 792.
+* `ptx_sqr_fq2`: c0 = (a0 + a1)(a0 - a1 + p) < 4 p^2 (below p 2^256 as p <
+  2^254, so hi < p again) and c1 = 2 a0 a1, two unreduced products and two
+  reductions: 2 x 128 + 2 x 136 = 528.
 
 Each result goes through one conditional subtraction (or addition) of p,
 so every value stays fully reduced. Each carry chain lies inside one
@@ -191,6 +205,121 @@ def _sub(f: str, p: list[int]) -> _Fn:
     return fn
 
 
+def _wide_product(fn: _Fn, x: list[str], y: list[str], w: list[str]) -> None:
+    """w[0..15] = x y for 8-word x, y (w zeroed): row i adds x y_i at word
+    i, an even and an odd chain as in `_mul`; after row i the sum is below
+    2^(32 (i + 9)), so word i + 8 takes the row's last carry."""
+    for i in range(8):
+        ins = fn.block()
+        _chain(ins, [(x[j], y[i], w[i + j], w[i + j + 1]) for j in range(0, 8, 2)])
+        ins.append(("addc.u32", w[i + 8], (w[i + 8], 0)))
+        _chain(ins, [(x[j], y[i], w[i + j], w[i + j + 1]) for j in range(1, 8, 2)])
+        ins[-1] = ("madc.hi.u32", w[i + 8], ins[-1][2])
+
+
+def _wide_chain(fn: _Fn, op: str, dst: list[str], src: list) -> None:
+    """dst op= src word by word with carries ("add" or "sub"); the result
+    must fit (no carry or borrow out). src words may be immediates. A chain
+    of 16 words is two asm statements of 8 (fewer operands each), the carry
+    between them passed in the word `lk` (0 or 1) and put back into the
+    flag at the second statement's start."""
+    for half in range(0, len(dst), 8):
+        d, s = dst[half : half + 8], src[half : half + 8]
+        ins = fn.block([("u32", "p2k")] if half else [])
+        if half:  # the flag from lk: 1 + 0xffffffff carries, 0 - 1 borrows
+            ins.append(("add.cc.u32" if op == "add" else "sub.cc.u32", "p2k",
+                        ("lk", 0xFFFFFFFF) if op == "add" else (0, "lk")))
+        ins.append((f"{op}c.cc.u32" if half else f"{op}.cc.u32", d[0], (d[0], s[0])))
+        for k in range(1, 7):
+            ins.append((f"{op}c.cc.u32", d[k], (d[k], s[k])))
+        if half + 8 < len(dst):
+            ins.append((f"{op}c.cc.u32", d[7], (d[7], s[7])))
+            ins.append((f"{op}c.u32", "lk", (0, 0)))  # the carry (the borrow: 0 - 0 - 1 = all ones)
+            if op == "sub":
+                ins.append(("and.b32", "lk", ("lk", 1)))
+        else:
+            ins.append((f"{op}c.u32", d[7], (d[7], s[7])))
+
+
+def _wide_reduce(fn: _Fn, w: list[str], u: list[str], p: list[int], pinv: int) -> list[str]:
+    """w (16 words, below p 2^256) 2^-256 mod p, fully reduced, into u (8
+    zeroed words): the low half by 8 rows of m p into u (row i on words i ..
+    i + 8 of w[0..7] + u), the high half added after, as in `_sqr`."""
+    t = w[:8] + u
+    for i in range(8):
+        _reduce_row(fn.block([("u32", "p2m")]), t[i : i + 9], p, pinv)
+    _wide_chain(fn, "add", u, w[8:])
+    _final_subtract(fn, u, p)
+    return u
+
+
+def _fq2_fn(name: str, binary: bool) -> _Fn:
+    args = ["uint32_t* r", "const uint32_t* a"] + (["const uint32_t* b"] if binary else [])
+    fn = _Fn(name, args)
+    fn.inputs = [(f"a{k}", f"a[{k}]") for k in range(16)]
+    if binary:
+        fn.inputs += [(f"b{k}", f"b[{k}]") for k in range(16)]
+    return fn
+
+
+def _words(prefix: str, n: int) -> list[str]:
+    return [f"{prefix}{k}" for k in range(n)]
+
+
+def _mul_fq2(p: list[int], pinv: int, modulus: int) -> _Fn:
+    fn = _fq2_fn("ptx_mul_fq2", True)
+    a0, a1, b0, b1 = _words("a", 8), _words("a", 16)[8:], _words("b", 8), _words("b", 16)[8:]
+    sa, sb = _words("sa", 8), _words("sb", 8)  # a0 + a1, b0 + b1 < 2^255
+    x, y, z = _words("x", 16), _words("y", 16), _words("z", 16)  # a0 b0, a1 b1, (a0 + a1)(b0 + b1)
+    u, v = _words("u", 8), _words("v", 8)
+    fn.zeros = sa + sb + x + y + z + u + v + ["lk"]
+    for s, lo, hi in ((sa, a0, a1), (sb, b0, b1)):
+        ins = fn.block()
+        ins.append(("add.cc.u32", s[0], (lo[0], hi[0])))
+        for k in range(1, 7):
+            ins.append(("addc.cc.u32", s[k], (lo[k], hi[k])))
+        ins.append(("addc.u32", s[7], (lo[7], hi[7])))
+    _wide_product(fn, a0, b0, x)
+    _wide_product(fn, a1, b1, y)
+    _wide_product(fn, sa, sb, z)
+    _wide_chain(fn, "sub", z, x)  # c1 = z - x - y = a0 b1 + a1 b0 >= 0
+    _wide_chain(fn, "sub", z, y)
+    p2 = modulus * modulus
+    _wide_chain(fn, "add", x, [(p2 >> (32 * k)) & 0xFFFFFFFF for k in range(16)])  # c0 = x + p^2 - y > 0
+    _wide_chain(fn, "sub", x, y)
+    c0 = _wide_reduce(fn, x, u, p, pinv)
+    c1 = _wide_reduce(fn, z, v, p, pinv)
+    fn.outputs = list(enumerate(c0 + c1))
+    return fn
+
+
+def _sqr_fq2(p: list[int], pinv: int) -> _Fn:
+    fn = _fq2_fn("ptx_sqr_fq2", False)
+    a0, a1 = _words("a", 8), _words("a", 16)[8:]
+    sa, da = _words("sa", 8), _words("da", 8)  # a0 + a1, a0 - a1 + p, both < 2p < 2^255
+    x, y = _words("x", 16), _words("y", 16)  # (a0 + a1)(a0 - a1 + p) < 4 p^2, a0 a1
+    u, v = _words("u", 8), _words("v", 8)
+    fn.zeros = sa + da + x + y + u + v + ["lk"]
+    ins = fn.block()
+    ins.append(("add.cc.u32", sa[0], (a0[0], a1[0])))
+    for k in range(1, 7):
+        ins.append(("addc.cc.u32", sa[k], (a0[k], a1[k])))
+    ins.append(("addc.u32", sa[7], (a0[7], a1[7])))
+    ins = fn.block()
+    ins.append(("add.cc.u32", da[0], (a0[0], p[0])))
+    for k in range(1, 7):
+        ins.append(("addc.cc.u32", da[k], (a0[k], p[k])))
+    ins.append(("addc.u32", da[7], (a0[7], p[7])))
+    _wide_chain(fn, "sub", da, a1)
+    _wide_product(fn, sa, da, x)
+    _wide_product(fn, a0, a1, y)
+    _wide_chain(fn, "add", y, y)  # 2 a0 a1 < 2 p^2
+    c0 = _wide_reduce(fn, x, u, p, pinv)
+    c1 = _wide_reduce(fn, y, v, p, pinv)
+    fn.outputs = list(enumerate(c0 + c1))
+    return fn
+
+
 def _render(fn: _Fn) -> str:
     lines = [f"__device__ __forceinline__ void {fn.name}({', '.join(fn.args)}) {{"]
     if fn.inputs:
@@ -230,8 +359,9 @@ def _render(fn: _Fn) -> str:
 def field_ptx_header() -> str:
     """The text of field_ptx.cuh."""
     parts = [
-        "// BN254 Fq and Fr arithmetic as inline PTX carry chains on 8 little-endian",
-        "// 32-bit limbs, Montgomery form (R = 2^256), every value in [0, p).",
+        "// BN254 Fq, Fq2 and Fr arithmetic as inline PTX carry chains on 8 little-endian",
+        "// 32-bit limbs (16 for Fq2: c0 then c1), Montgomery form (R = 2^256), every",
+        "// value in [0, p).",
         "// Written by ops/_ptx.py field_ptx_header(); tests/test_torch_field.py runs",
         "// its instructions on the CPU. Device code only (field.cuh includes it",
         "// under __CUDA_ARCH__).",
@@ -244,4 +374,7 @@ def field_ptx_header() -> str:
         pinv = (-pow(modulus, -1, 1 << 32)) % (1 << 32)
         for fn in (_mul(f, p, pinv), _sqr(f, p, pinv), _add(f, p), _sub(f, p)):
             parts += ["", _render(fn)]
+        if f == "fq":
+            for fn in (_mul_fq2(p, pinv, modulus), _sqr_fq2(p, pinv)):
+                parts += ["", _render(fn)]
     return "\n".join(parts) + "\n"

@@ -1,29 +1,49 @@
 """A check of the kernels' field code (csrc/fieldops.cu), not a port of a
-TPU kernel: a b, a^2, a + b and a - b of Fq or Fr pairs, and the edge
+TPU kernel: a b, a^2, a + b and a - b of Fq, Fr or Fq2 pairs, and the edge
 operands it is held on.
 
 The kernels' field arithmetic has two codes: inline PTX on the card
-(field_ptx.cuh, which `ops._ptx` generates at build time) and C++ CIOS
-where a host compiler builds csrc/ (the CPU tests). `field_ops` launches fieldops.cu on
-a CUDA tensor; its plain version is `field/fp.py`, so holding the kernel
-against it on the card compares the PTX, and the host tests compare the C++
-path the same way.
+(field_ptx.cuh, which `ops._ptx` generates at build time) and C++ where a
+host compiler builds csrc/ (the CPU tests). `field_ops` launches
+fieldops.cu on a CUDA tensor; its plain version is `field/fp.py` (Fq2:
+`field/fq2.py`), so holding the kernel against it on the card compares the
+PTX, and the host tests compare the C++ path the same way. An Fq2 value is
+a pair (c0, c1) of Montgomery integers, its limbs (N, 2, 16).
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import convert
 from ..field import fp
+from ..field.fq2 import FQ2
 from . import _build
 
 LAUNCHES = {"field_ops": 0}
-FIELDS = {"fq": 0, "fr": 1}
-CTXS = {"fq": fp.FQ_CTX, "fr": fp.FR_CTX}
+FIELDS = {"fq": 0, "fr": 1, "fq2": 2}
+CTXS = {"fq": fp.FQ_CTX, "fr": fp.FR_CTX, "fq2": fp.FQ_CTX}  # fq2: the modulus of its components
+
+
+def to_limbs(values: list, field: str, device) -> torch.Tensor:
+    """Montgomery values (ints; Fq2: (c0, c1) pairs) -> int64 (N, 16) or
+    (N, 2, 16) limbs."""
+    if field != "fq2":
+        return convert.ints_to_limbs(values, device)
+    return convert.ints_to_limbs([c for v in values for c in v], device).reshape(len(values), 2, fp.NLIMBS)
+
+
+def random_element(field: str, rng):
+    """A uniform Montgomery value of the field (Fq2: a pair)."""
+    p = CTXS[field].p
+    return (rng.randrange(p), rng.randrange(p)) if field == "fq2" else rng.randrange(p)
 
 
 def field_ops_plain(a: torch.Tensor, b: torch.Tensor, field: str) -> tuple:
-    """(a b, a^2, a + b, a - b), Montgomery, int64 (N, 16) each."""
+    """(a b, a^2, a + b, a - b), Montgomery, int64 (N, 16) each ((N, 2, 16)
+    for Fq2)."""
+    if field == "fq2":
+        return FQ2.mul(a, b), FQ2.sqr(a), FQ2.add(a, b), FQ2.sub(a, b)
     ctx = CTXS[field]
     return fp.mont_mul(ctx, a, b), fp.mont_mul(ctx, a, a), fp.add(ctx, a, b), fp.sub(ctx, a, b)
 
@@ -33,18 +53,19 @@ def field_ops(a: torch.Tensor, b: torch.Tensor, field: str) -> tuple:
     plain version on a CPU one."""
     if not _build.on_card("field_ops", a):
         return field_ops_plain(a, b, field)
-    n = a.shape[0]
+    shape = (a.shape[0], *((2,) if field == "fq2" else ()), 16)
     for name, t in (("a", a), ("b", b)):
-        _build.check("field_ops", name, t, (n, 16), a.device)
+        _build.check("field_ops", name, t, shape, a.device)
     out = [torch.empty_like(a) for _ in range(4)]
-    _build.launch("p2_field_ops", a.device, a, b, *out, n, FIELDS[field])
+    _build.launch("p2_field_ops", a.device, a, b, *out, shape[0], FIELDS[field])
     LAUNCHES["field_ops"] += 1
     return tuple(out)
 
 
-def edge_pairs(field: str, rng) -> list[tuple[int, int]]:
+def edge_pairs(field: str, rng) -> list[tuple]:
     """Operand pairs (Montgomery values in [0, p)) at the edges of the
-    carry chains and of the final subtraction, `rng` a random.Random: every
+    carry chains and of the final subtraction, `rng` a random.Random (Fq2:
+    `edge_pairs_fq2`): every
     pair of 0, 1, 2, p - 1, p - 2, R mod p, R^2 mod p, (p - 1) / 2,
     (p + 1) / 2, p - 2^32 and the all-ones limbs 2^253 - 1, 2^224 - 1;
     pairs whose product is 0, 1, 2, p - 1, p - 2 (the CIOS sum before its
@@ -64,4 +85,37 @@ def edge_pairs(field: str, rng) -> list[tuple[int, int]]:
     for _ in range(8):
         x = rng.randrange(2, p - 2)
         pairs += [(x, p - x), (x, p - x - 1), (x, p - x + 1), (x, x), (x, x + 1)]
+    return pairs
+
+
+def edge_pairs_fq2(rng) -> list[tuple]:
+    """Fq2 operand pairs ((a0, a1), (b0, b1)) at the edges of the fused
+    product and square (ops/_ptx.py): every pair of the elements with
+    components 0, 1, p - 1 and R mod p; a0 + a1 >= p (p, p + 1, 2p - 2);
+    a0 b0 < a1 b1 as integers (c0 needs its p^2); products whose c0, c1 or
+    both land on 0, 1 or p - 1 (Montgomery values); squares with c0 = 0 (a1
+    = +-a0) or c1 = 0; then random pairs."""
+    from ..refimpl.field import Fq2
+
+    p = CTXS["fq2"].p
+    r = (1 << 256) % p
+    comps = [0, 1, p - 1, r]
+    elems = [(x, y) for x in comps for y in comps]
+    pairs = [(x, y) for x in elems for y in elems]
+    for _ in range(6):
+        x = rng.randrange(2, p - 1)
+        big = rng.randrange(p // 2, p)
+        pairs += [((x, p - x), (x, p - x + 1)), ((p - 1, p - 1), (x, p + 1 - x)),
+                  ((rng.randrange(1 << 64), big), (rng.randrange(1 << 64), rng.randrange(p // 2, p))),
+                  ((x, x), (x, p - x)), ((x, 0), (0, x)), ((big, p - big), (big, big))]
+    rinv = pow(1 << 256, -1, p)
+
+    def real(v):
+        return Fq2(v[0] * rinv % p, v[1] * rinv % p)
+
+    for target in ((0, 0), (0, 1), (1, 0), (p - 1, 0), (0, p - 1), (p - 1, p - 1), (1, p - 1)):
+        for _ in range(4):
+            a = (rng.randrange(1, p), rng.randrange(p))
+            b = real(target) * real(a).inverse()  # a b R^-1 == target, componentwise Montgomery
+            pairs.append((a, (b.c0 * r % p, b.c1 * r % p)))
     return pairs

@@ -12,19 +12,26 @@ points: out[s] = sum of coeff_t * basis[base_t] over the terms t of segment
    K7 (`batch_exp.batch_exp_glv`, under PHASE2_TPU_NO_SIGNED5, as JAX
    `segsum.py:104-115` chooses), and K9 (`batch_exp.batch_exp_g2_windowed`)
    on G2;
-3. S1 `segmented_scan`: a segmented Hillis-Steele inclusive scan of the
-   products (log2 N full-width rounds, one kernel launch each,
-   csrc/segsum.cu), and a gather of each segment's last lane; an empty
-   segment is the point at infinity.
+3. S1 `segment_sums`: the sum of each segment's products by a one-pass
+   segmented reduction (csrc/segsum.cu): each block adds a tile of
+   `THREADS` x `TERMS` consecutive terms, every segment that ends in the
+   tile is written, and the segments that cross tiles leave two carries a
+   tile, reduced by the next launch the same way until one tile holds them
+   (`reduce_levels`: 2 launches at 2^16 terms, 3 at 2^20); an empty segment
+   is the point at infinity.
 
 No padding: the JAX version pads the terms to a power of two with
 generator x 0. The sums are Jacobian; any order of additions gives the same
 affine point, so the bytes written after normalizing are the JAX package's.
 
-S1 has a wrapper, a plain PyTorch version (the JAX scan, limb for limb) and
-a launch count (`LAUNCHES["segmented_scan"]`, one per round launched). The
-wrapper takes the plain version for tensors on the CPU; on a CUDA tensor it
-launches the kernel or raises.
+S1 has a wrapper, a plain PyTorch version and a launch count
+(`LAUNCHES["segment_sums"]`, one per launch). The plain version is the JAX
+package's scan (`segmented_scan_plain`, JAX `_seg_scan_last`, limb for limb)
+and a gather of each segment's last lane. The kernel adds in another order,
+so its Jacobian limbs may differ from the plain version's: the two agree on
+the affine point of every segment, which is what the tests and chip_smoke.py
+compare. The wrapper takes the plain version for tensors on the CPU; on a
+CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -36,7 +43,11 @@ from ..field.fq2 import FQ, FQ2
 from . import _build, batch_exp
 
 # kernel launches by wrapper name; only a launch of the kernel counts
-LAUNCHES = {"segmented_scan": 0}
+LAUNCHES = {"segment_sums": 0}
+# a tile of S1: THREADS threads (a block) of TERMS consecutive terms each;
+# 128 x 4, chosen from chip_smoke.py's S1_TILE_SWEEP on an H100 (PERF.md
+# gives every tile's times)
+THREADS, TERMS = 128, 4
 
 
 def _field(x: torch.Tensor):
@@ -49,10 +60,10 @@ def segment_starts(seg_ids: torch.Tensor) -> torch.Tensor:
 
 
 def segmented_scan_plain(jac: G.JacobianBatch, starts: torch.Tensor) -> G.JacobianBatch:
-    """Plain PyTorch S1 (the JAX `_seg_scan_last` scan): round d adds lane
-    i - d into lane i where i - d lies in i's segment, acc[i] first; the
-    other lanes keep their point as it is (the JAX scan adds infinity there,
-    which gives the same point, with other limbs where acc[i] is infinity)."""
+    """The JAX `_seg_scan_last` scan: round d adds lane i - d into lane i
+    where i - d lies in i's segment, acc[i] first; the other lanes keep
+    their point as it is (the JAX scan adds infinity there, which gives the
+    same point, with other limbs where acc[i] is infinity)."""
     f = _field(jac.x)
     n = jac.x.shape[0]
     idx = torch.arange(n, device=jac.x.device)
@@ -65,39 +76,62 @@ def segmented_scan_plain(jac: G.JacobianBatch, starts: torch.Tensor) -> G.Jacobi
     return acc
 
 
-def segmented_scan(jac: G.JacobianBatch, starts: torch.Tensor) -> G.JacobianBatch:
-    """S1: the segmented inclusive scan of Jacobian points (N,) with each
-    lane's segment start (N,). CPU tensors take the plain version; CUDA
-    tensors launch csrc/segsum.cu once per round (ceil(log2 N) launches)."""
-    x = jac.x
-    if not _build.on_card("segmented_scan", x):
-        return segmented_scan_plain(jac, starts)
-    n = x.shape[0]
-    for name, t in zip("xyz", jac):
-        _build.check("segmented_scan", name, t, x.shape, x.device)
-    _build.check("segmented_scan", "starts", starts, (n,), x.device)
-    entry = f"p2_seg_scan_round_{'g1' if x.dim() == 2 else 'g2'}"
-    bufs = [[torch.empty_like(x) for _ in range(3)] for _ in range(2)]
-    src, d, k = list(jac), 1, 0
-    while d < n:
-        dst = bufs[k % 2]
-        _build.launch(entry, x.device, *src, starts, *dst, n, d)
-        LAUNCHES["segmented_scan"] += 1
-        src, d, k = dst, 2 * d, k + 1
-    return G.JacobianBatch(*src)
-
-
-def segment_sums(jac: G.JacobianBatch, seg_ids: torch.Tensor, n_segments: int) -> G.JacobianBatch:
-    """sum of the points of each segment (n_segments,), Jacobian; jac (N,),
-    seg_ids (N,) sorted ascending; an empty segment is infinity (z = 0)."""
+def segment_sums_plain(jac: G.JacobianBatch, seg_ids: torch.Tensor, n_segments: int) -> G.JacobianBatch:
+    """Plain PyTorch S1: `segmented_scan_plain`, then each segment's last
+    lane; an empty segment is infinity (0, 1, 0)."""
     f = _field(jac.x)
+    zero = G.jac_zero(f, (n_segments,), jac.x.device)
+    if jac.x.shape[0] == 0:
+        return zero
     segs = torch.arange(n_segments, device=jac.x.device)
     first = torch.searchsorted(seg_ids, segs, side="left")
     last = torch.searchsorted(seg_ids, segs, side="right") - 1
-    scanned = segmented_scan(jac, segment_starts(seg_ids))
-    ends = G.take(scanned, last.clamp(min=0))
+    ends = G.take(segmented_scan_plain(jac, segment_starts(seg_ids)), last.clamp(min=0))
     empty = last < first
-    return ends._replace(z=f.select(empty, torch.zeros_like(ends.z), ends.z))
+    return G.JacobianBatch(*(f.select(empty, a, b) for a, b in zip(zero, ends)))
+
+
+def reduce_levels(jac: G.JacobianBatch, seg_ids: torch.Tensor, n_segments: int, level, threads: int,
+                  terms: int) -> G.JacobianBatch:
+    """S1's launches: out (n_segments,) starts at infinity, and `level(src,
+    seg, out, carry, carry_seg, n)`, one launch of csrc/segsum.cu over n
+    entries in tiles of threads x terms, writes the segments that end in a
+    tile and two carries a tile; the carries are the next launch's entries,
+    until one tile holds them all. The wrapper passes the kernel's launch;
+    the host tests pass the same per-thread code compiled by g++."""
+    x = jac.x
+    out = G.jac_zero(_field(x), (n_segments,), x.device)
+    src, seg, n = list(jac), seg_ids, x.shape[0]
+    while n > 0:
+        tiles = -(-n // (threads * terms))
+        carry = [torch.empty((2 * tiles, *x.shape[1:]), dtype=x.dtype, device=x.device) for _ in range(3)]
+        carry_seg = torch.empty(2 * tiles, dtype=torch.int64, device=x.device)
+        level(src, seg, out, carry, carry_seg, n)
+        if tiles == 1:
+            break
+        src, seg, n = carry, carry_seg, 2 * tiles
+    return out
+
+
+def segment_sums(jac: G.JacobianBatch, seg_ids: torch.Tensor, n_segments: int) -> G.JacobianBatch:
+    """S1: the sum of the points of each segment (n_segments,), Jacobian;
+    jac (N,), seg_ids int64 (N,) sorted ascending, each below n_segments; an
+    empty segment is infinity. CPU tensors take the plain version; CUDA
+    tensors launch csrc/segsum.cu once per level (`reduce_levels`)."""
+    x = jac.x
+    if not _build.on_card("segment_sums", x):
+        return segment_sums_plain(jac, seg_ids, n_segments)
+    for name, t in zip("xyz", jac):
+        _build.check("segment_sums", name, t, x.shape, x.device)
+    _build.check("segment_sums", "seg_ids", seg_ids, (x.shape[0],), x.device)
+    entry = f"p2_segment_sums_{'g1' if x.dim() == 2 else 'g2'}"
+    threads, terms = THREADS, TERMS
+
+    def level(src, seg, out, carry, carry_seg, n):
+        _build.launch(entry, x.device, *src, seg, *out, *carry, carry_seg, n, threads, terms)
+        LAUNCHES["segment_sums"] += 1
+
+    return reduce_levels(jac, seg_ids, n_segments, level, threads, terms)
 
 
 def term_products(basis: G.AffineBatch, base_idx: torch.Tensor, coeffs: torch.Tensor,

@@ -219,6 +219,35 @@ def test_k1_table_and_first_window_on_host(host_lib):
     assert got == [p.mul(k) for p, k in zip(pts, vals)]
 
 
+def test_k2_table_and_first_window_on_host(host_lib):
+    """K2's table by one doubling and mixed adds equals the table by general
+    adds limb for limb, and its per-lane start (each lane from its own first
+    window with a nonzero digit in any of the four rows, a lane with none
+    from the last window; the plain version starts every lane at window 0)
+    gives the plain version's limbs, on the edge scalars (0 and _TIE among
+    them) and small ones whose leading windows are zero in all four rows,
+    up to a late first window that differs from lane to lane."""
+    vals = [0, _TIE, 1, R_MOD - 1, 31, 1023, (1 << 40) + 1, 1 << 70, 1 << 100, 5 * rgls.LAMBDA % R_MOD] + _scalars(9, 2)
+    rng = random.Random(13)
+    aff = convert.points_to_affine([rc.G2_GEN.mul(rng.randrange(1, R_MOD)) for _ in vals], "g2", "cpu")
+    ones = FQ2.ones((len(vals),), "cpu")
+    mixed = [G.jac_zero(FQ2, (len(vals),), "cpu"), G.JacobianBatch(aff.x, aff.y, ones)]
+    mixed.append(G.jac_double(FQ2, mixed[1]))
+    for _ in range(3, 17):
+        mixed.append(G.jac_madd(FQ2, mixed[-1], aff.x, aff.y))
+    general = batch_exp._table(FQ2, aff.x, aff.y)
+    assert all(torch.equal(torch.stack(a), b) for a, b in zip(zip(*mixed), general))
+    digits = gls.decompose_signed(convert.ints_to_limbs(vals, "cpu"))
+    live = (digits != 0).any(0)
+    first = torch.where(live.any(0), live.int().argmax(0), digits.shape[1] - 1)
+    assert len(set(first.tolist())) > 3 and int(first.max()) == digits.shape[1] - 1
+    want = batch_exp.batch_exp_gls_signed_plain(aff.x, aff.y, digits)
+    assert all(torch.equal(a, b) for a, b in zip(_host_ladder(host_lib.host_g2, aff, (digits,)), want))
+    got = convert.affine_to_points(G.jac_normalize(FQ2, want), "g2")
+    pts = convert.affine_to_points(aff, "g2")
+    assert got == [p.mul(k) for p, k in zip(pts, vals)]
+
+
 def test_constants_header_matches_refimpl():
     with open(f"{_build.CSRC}/constants.cuh") as f:
         assert f.read() == _build.constants_header()

@@ -229,9 +229,14 @@ def _words(v: int) -> list[int]:
 
 
 def _field_cases(field: str, seed: int, n_random: int = 40):
-    """fieldops.edge_pairs plus random pairs: (ints a, ints b)."""
+    """fieldops.edge_pairs (Fq2: edge_pairs_fq2) plus random pairs: (values
+    a, values b)."""
     p = fieldops.CTXS[field].p
     rng = random.Random(seed)
+    if field == "fq2":
+        pairs = fieldops.edge_pairs_fq2(rng)
+        pairs += [(fieldops.random_element(field, rng), fieldops.random_element(field, rng)) for _ in range(n_random)]
+        return [x for x, _ in pairs], [y for _, y in pairs]
     pairs = fieldops.edge_pairs(field, rng)
     a = [x for x, _ in pairs] + _elements(seed, p, n_random)
     b = [y for _, y in pairs] + _elements(seed + 1, p, n_random)
@@ -270,6 +275,32 @@ def test_field_ptx_matches_fp(field):
     assert want[1] == [x * x * rinv % p for x in a]
 
 
+def test_fq2_ptx_matches_fq2():
+    """Every instruction of field_ptx.cuh's fused Fq2 product and square
+    (Karatsuba with lazy reduction), run on Python integers, against
+    field/fq2.py limb for limb and against the integers, on
+    fieldops.edge_pairs_fq2 (components 0, 1, p - 1; a0 + a1 >= p; a0 b0 <
+    a1 b1; results on 0 and p - 1) and random pairs."""
+    fns = _parse_ptx(_ptx.field_ptx_header())
+    a, b = _field_cases("fq2", 11)
+    ta, tb = (fieldops.to_limbs(v, "fq2", "cpu") for v in (a, b))
+    prod, sq = FQ2.mul(ta, tb), FQ2.sqr(ta)
+    p, rinv = Q, pow(1 << 256, -1, Q)
+    for i, ((a0, a1), (b0, b1)) in enumerate(zip(a, b)):
+        got_mul = _run_ptx(fns["ptx_mul_fq2"], a=_words(a0) + _words(a1), b=_words(b0) + _words(b1))
+        got_sqr = _run_ptx(fns["ptx_sqr_fq2"], a=_words(a0) + _words(a1))
+        for got, want in ((got_mul, prod[i]), (got_sqr, sq[i])):
+            assert torch.equal(fieldops.to_limbs([(_int(got[:8]), _int(got[8:]))], "fq2", "cpu")[0], want), i
+        assert (_int(got_mul[:8]), _int(got_mul[8:])) == ((a0 * b0 - a1 * b1) * rinv % p, (a0 * b1 + a1 * b0) * rinv % p)
+        assert (_int(got_sqr[:8]), _int(got_sqr[8:])) == ((a0 * a0 - a1 * a1) * rinv % p, 2 * a0 * a1 * rinv % p)
+    assert {0, p - 1} <= set(convert.limbs_to_ints(prod.reshape(-1, 16)))  # products land on 0 and p - 1
+    assert 0 in convert.limbs_to_ints(sq[:, 0])  # and squares' c0 on 0
+
+
+def _int(words: list[int]) -> int:
+    return sum(w << (32 * k) for k, w in enumerate(words))
+
+
 _FIELD_SHIM = r"""
 #include <cstdint>
 #define __device__
@@ -284,16 +315,17 @@ extern "C" void host_field_ops(const int64_t* a, const int64_t* b, int64_t* prod
 """
 
 
-@pytest.mark.parametrize("field", ["fq", "fr"])
+@pytest.mark.parametrize("field", ["fq", "fr", "fq2"])
 def test_field_host_path_matches_fp(field, tmp_path):
-    """csrc/fieldops.cu compiled by g++ (the C++ CIOS of field.cuh) against
-    field/fp.py limb for limb on the same operands."""
+    """csrc/fieldops.cu compiled by g++ (the C++ CIOS of field.cuh; for Fq2
+    the fused product and square's C++ counterpart) against field/fp.py
+    (field/fq2.py) limb for limb on the same operands."""
     (tmp_path / "shim.cpp").write_text(_FIELD_SHIM)
     subprocess.run(["g++", "-O1", "-std=c++17", "-shared", "-fPIC", "-Wno-unknown-pragmas", f"-I{_build.CSRC}",
                     str(tmp_path / "shim.cpp"), "-o", str(tmp_path / "shim.so")],
                    check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(tmp_path / "shim.so"))
-    a, b = (convert.ints_to_limbs(v, "cpu") for v in _field_cases(field, 9))
+    a, b = (fieldops.to_limbs(v, field, "cpu") for v in _field_cases(field, 9))
     out = [torch.empty_like(a) for _ in range(4)]
     lib.host_field_ops(*(ctypes.c_void_p(t.data_ptr()) for t in (a, b, *out)), ctypes.c_int(a.shape[0]),
                        ctypes.c_int(fieldops.FIELDS[field]))

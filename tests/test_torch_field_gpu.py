@@ -1,7 +1,8 @@
 """The kernels' field code on a card (`gpu`; skips without one): the inline
 PTX of field_ptx.cuh (generated by ops/_ptx.py) through csrc/fieldops.cu
-(a b, a^2, a + b, a - b of Fq and Fr pairs, one launch) against field/fp.py
-on the same operands, the edge operands of `ops.fieldops.edge_pairs` first.
+(a b, a^2, a + b, a - b of Fq, Fr and Fq2 pairs, one launch) against
+field/fp.py (field/fq2.py) on the same operands, the edge operands of
+`ops.fieldops.edge_pairs` / `edge_pairs_fq2` first.
 The CPU tests hold the PTX's instructions (run on Python integers) and the
 C++ host path against field/fp.py too; only here does the card's compiler
 take part.
@@ -19,20 +20,19 @@ import random
 import pytest
 import torch
 
-from phase2_bn254_tpu_torch import convert
 from phase2_bn254_tpu_torch.ops import fieldops
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("field", ["fq", "fr"])
+@pytest.mark.parametrize("field", ["fq", "fr", "fq2"])
 def test_field_ptx_matches_fp_on_gpu(field):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    p = fieldops.CTXS[field].p
     rng = random.Random(f"field {field}")
-    pairs = fieldops.edge_pairs(field, rng)
-    pairs += [(rng.randrange(p), rng.randrange(p)) for _ in range(4096 - len(pairs))]
-    a, b = (convert.ints_to_limbs([pair[k] for pair in pairs], "cpu") for k in (0, 1))
+    pairs = fieldops.edge_pairs_fq2(rng) if field == "fq2" else fieldops.edge_pairs(field, rng)
+    pairs += [(fieldops.random_element(field, rng), fieldops.random_element(field, rng))
+              for _ in range(4096 - len(pairs))]
+    a, b = (fieldops.to_limbs([pair[k] for pair in pairs], field, "cpu") for k in (0, 1))
     before = fieldops.LAUNCHES["field_ops"]
     got = fieldops.field_ops(a.cuda(), b.cuda(), field)
     assert fieldops.LAUNCHES["field_ops"] == before + 1

@@ -6,9 +6,13 @@ K3-K5) against the JAX package's and refimpl.
   2^k, ...), as the JAX package's own tests hold its plain windowed ladder
   (`test_pallas_batch_exp_matches_host`): the Pallas K9 in interpret mode
   took over 90 s at n = 4 on a CPU, too slow for the default tier;
-* the per-point and per-lane code of csrc/batch_exp_g2_windowed.cu (K9) and
-  csrc/segsum.cu (S1), compiled with g++, against the plain versions limb
-  for limb;
+* the per-point code of csrc/batch_exp_g2_windowed.cu (K9), compiled with
+  g++, against the plain version limb for limb, and the per-thread code of
+  csrc/segsum.cu (S1), with host loops for the block's threads and the
+  launches, against the plain version per segment in canonical affine and
+  against refimpl sums, on S1's edge cases (segments that end on a tile's
+  last lane, fill a tile, span many tiles; single-term and empty segments;
+  P + P and P + (-P); infinity terms; fewer terms than a tile);
 * the plain segmented multiply-and-sum against refimpl sums, G1 and G2, with
   empty segments, one skewed segment and coefficients 0, 1 and r-1;
 * `MPCParameters.new` on `TorchBackend("cpu")` against the JAX package's
@@ -65,7 +69,7 @@ from phase2_bn254_tpu_torch.ops.backend import TorchBackend
 from phase2_bn254_tpu_torch.phase2 import mpc
 from phase2_bn254_tpu_torch.phase2.circom import CircomCircuit
 from phase2_bn254_tpu_torch.refimpl import curve as rc
-from phase2_bn254_tpu_torch.refimpl.field import R_MOD
+from phase2_bn254_tpu_torch.refimpl.field import Q, R_MOD
 
 # Under pytest-xdist several worker processes share a few cores; torch's
 # default of one OpenMP thread per core then oversubscribes them and slows
@@ -179,6 +183,7 @@ def test_segmented_msm_plain_matches_refimpl(segment_cases, group):
 
 _HOST_SHIM = r"""
 #include <cstdint>
+#include <vector>
 #define __device__
 #define __forceinline__ inline
 #define __noinline__
@@ -189,18 +194,39 @@ extern "C" void host_k9(const int64_t* x, const int64_t* y, const int64_t* k, in
                         int64_t* oz, int n) {
   for (int i = 0; i < n; ++i) batch_exp_g2_windowed_point(x, y, k, ox, oy, oz, i);
 }
+// one launch of S1: a loop over the tiles stands in for the blocks, and
+// loops over the threads for a block's threads between its barriers
 template <class F>
-void scan(const int64_t* x, const int64_t* y, const int64_t* z, const int64_t* start, int64_t* ox, int64_t* oy,
-          int64_t* oz, int n, int d) {
-  for (int64_t i = 0; i < n; ++i) seg_scan_lane<F>(x, y, z, start, ox, oy, oz, i, d);
+void sums_level(const int64_t* x, const int64_t* y, const int64_t* z, const int64_t* seg, int64_t* ox, int64_t* oy,
+                int64_t* oz, int64_t* cx, int64_t* cy, int64_t* cz, int64_t* cseg, int n, int threads, int terms) {
+  const int64_t size = (int64_t)threads * terms;
+  for (int64_t tile = 0; tile * size < n; ++tile) {
+    const int64_t lo = tile * size, hi = lo + size < n ? lo + size : n;
+    std::vector<SegRun<F>> runs(threads);
+    std::vector<Jac<F>> v(threads), nv(threads);
+    std::vector<uint8_t> f(threads), nf(threads), changed(threads);
+    for (int t = 0; t < threads; ++t) {
+      runs[t] = seg_run<F>(x, y, z, seg, n, lo + (int64_t)t * terms, terms, ox, oy, oz);
+      v[t] = runs[t].tail;
+      f[t] = seg_flag(runs[t], seg, lo);
+    }
+    for (int d = 1; d < threads; d *= 2) {
+      for (int t = 0; t < threads; ++t) changed[t] = seg_scan_step(v.data(), f.data(), t, d, nv[t], nf[t]);
+      for (int t = 0; t < threads; ++t)
+        if (changed[t]) v[t] = nv[t], f[t] = nf[t];
+    }
+    for (int t = 0; t < threads; ++t) seg_finish(runs[t], v.data(), seg, n, tile, lo, hi, t, ox, oy, oz, cx, cy, cz, cseg);
+  }
 }
-extern "C" void host_scan_g1(const int64_t* x, const int64_t* y, const int64_t* z, const int64_t* start,
-                             int64_t* ox, int64_t* oy, int64_t* oz, int n, int d) {
-  scan<Fp>(x, y, z, start, ox, oy, oz, n, d);
+extern "C" void host_sums_g1(const int64_t* x, const int64_t* y, const int64_t* z, const int64_t* seg, int64_t* ox,
+                             int64_t* oy, int64_t* oz, int64_t* cx, int64_t* cy, int64_t* cz, int64_t* cseg, int n,
+                             int threads, int terms) {
+  sums_level<Fp>(x, y, z, seg, ox, oy, oz, cx, cy, cz, cseg, n, threads, terms);
 }
-extern "C" void host_scan_g2(const int64_t* x, const int64_t* y, const int64_t* z, const int64_t* start,
-                             int64_t* ox, int64_t* oy, int64_t* oz, int n, int d) {
-  scan<Fp2>(x, y, z, start, ox, oy, oz, n, d);
+extern "C" void host_sums_g2(const int64_t* x, const int64_t* y, const int64_t* z, const int64_t* seg, int64_t* ox,
+                             int64_t* oy, int64_t* oz, int64_t* cx, int64_t* cy, int64_t* cz, int64_t* cseg, int n,
+                             int threads, int terms) {
+  sums_level<Fp2>(x, y, z, seg, ox, oy, oz, cx, cy, cz, cseg, n, threads, terms);
 }
 """
 
@@ -218,25 +244,116 @@ def _ptrs(*ts):
     return [ctypes.c_void_p(t.data_ptr()) for t in ts]
 
 
+def _host_sums(host_lib, jac, seg_ids, n_segments, threads, terms, launches=None):
+    """S1 through segsum.reduce_levels with csrc/segsum.cu's per-thread code
+    compiled by g++ in each launch's place, tiles of threads x terms."""
+    fn = host_lib.host_sums_g1 if jac.x.dim() == 2 else host_lib.host_sums_g2
+
+    def level(src, seg, out, carry, carry_seg, n):
+        fn(*_ptrs(*src, seg, *out, *carry, carry_seg), ctypes.c_int(n), ctypes.c_int(threads), ctypes.c_int(terms))
+        if launches is not None:
+            launches.append(n)
+
+    return segsum.reduce_levels(jac, seg_ids, n_segments, level, threads, terms)
+
+
+def _affine_points(group, jac):
+    return convert.affine_to_points(G.jac_normalize(FQ if group == "g1" else FQ2, jac), group)
+
+
 def test_cuda_sources_arithmetic_on_host_matches_plain(k9_case, segment_cases, host_lib):
     """csrc/batch_exp_g2_windowed.cu's per-point and csrc/segsum.cu's
-    per-lane code compiled by g++ (CUDA qualifiers defined away): K9 and
-    every round of S1 limb for limb with the plain versions, G1 and G2."""
+    per-thread code compiled by g++ (CUDA qualifiers defined away): K9 limb
+    for limb with its plain version, and S1 (host loops for the block's
+    threads and the launches) per segment in canonical affine, G1 and G2."""
     _, aff, k, want = k9_case
     out = [torch.empty_like(aff.x) for _ in range(3)]
     host_lib.host_k9(*_ptrs(aff.x, aff.y, k, *out), ctypes.c_int(k.shape[0]))
     assert all(torch.equal(a, b) for a, b in zip(out, want))
 
-    for group, fn in (("g1", host_lib.host_scan_g1), ("g2", host_lib.host_scan_g2)):
+    for group in ("g1", "g2"):
         _, _, _, segs, jac = segment_cases[group]
-        starts = segsum.segment_starts(torch.tensor(segs))
-        n, d, got = len(segs), 1, jac
-        while d < n:
-            nxt = [torch.empty_like(t) for t in got]
-            fn(*_ptrs(*got, starts, *nxt), ctypes.c_int(n), ctypes.c_int(d))
-            got, d = G.JacobianBatch(*nxt), 2 * d
-        want = segsum.segmented_scan_plain(jac, starts)
-        assert all(torch.equal(a, b) for a, b in zip(got, want)), group
+        seg_ids = torch.tensor(segs)
+        want = _affine_points(group, segsum.segment_sums_plain(jac, seg_ids, 12))
+        for threads, terms in ((4, 2), (3, 3), (segsum.THREADS, segsum.TERMS)):
+            got = _host_sums(host_lib, jac, seg_ids, 12, threads, terms)
+            assert _affine_points(group, got) == want, (group, threads, terms)
+
+
+def _jacobian(group: str, points: list, rng: random.Random) -> G.JacobianBatch:
+    """Points as Jacobian limbs with a random z each (x z^2, y z^3, z);
+    infinity as z = 0."""
+    f = FQ if group == "g1" else FQ2
+    jac = G.affine_to_jac(f, convert.points_to_affine(points, group, "cpu"))
+    zs = convert.ints_to_limbs([rng.randrange(1, Q) for _ in range(len(points) * (1 if group == "g1" else 2))], "cpu")
+    z = zs if group == "g1" else zs.reshape(len(points), 2, 16)
+    z2 = f.sqr(z)
+    return G.JacobianBatch(f.mul(jac.x, z2), f.mul(jac.y, f.mul(z2, z)), f.mul(jac.z, z))
+
+
+# S1's edge cases in tiles of 4 threads x 2 terms (8 terms a tile): per case
+# the terms as (segment, point) in order, point "Pk" the basis point k, "Nk"
+# its negation, "O" infinity; and the number of segments
+_P, _N, _O = "P", "N", "O"
+SEGMENT_EDGES = {
+    # segment 1 ends on tile 0's last lane (7), after crossing two threads
+    "tile_end": ([(0, "P0"), (0, "P1"), (0, "P2")] + [(1, f"P{k}") for k in range(5)]
+                 + [(2, "P3"), (2, "P4"), (3, "P5")], 4),
+    # tile 1 (terms 8..15) lies inside segment 1, which crosses into it and out
+    "one_tile": ([(0, "P0")] * 3 + [(1, f"P{k % 6}") for k in range(16)] + [(2, "P1"), (2, "P2")], 3),
+    # segment 1 spans 13 tiles: three launches
+    "many_tiles": ([(0, "P5")] + [(1, f"P{k % 5}") for k in range(100)] + [(2, "P0"), (3, "P1"), (3, "P1")], 4),
+    # single-term segments and empty ones (1, 4, 6, 9, 10, 12)
+    "single_and_empty": ([(0, "P0"), (2, "P1"), (3, "P2"), (3, "P3"), (5, "P4"), (7, "P5"), (8, "P0"), (8, "P1"),
+                          (8, "P2"), (11, "P3")], 13),
+    # P + P and P + (-P): inside a run (0, 1), across threads (3), across
+    # tiles (4 at 7 | 8, 7 at 15 | 16), in the scan of a segment across
+    # runs (9: P0 + P1 twice), and a sum that cancels to infinity (5)
+    "double_and_cancel": ([(0, "P0"), (0, "P0"), (1, "P1"), (1, "N1"), (2, "P2"), (3, "P3"), (3, "P3"), (4, "P4"),
+                           (4, "N4"), (5, "P5"), (5, "P5"), (5, "N5"), (5, "N5"), (6, "P1"), (6, "P2"), (7, "P3"),
+                           (7, "P3"), (8, "O"), (8, "P1"), (8, "P2"), (8, "P3"), (8, "P4"), (8, "P0"), (8, "P3"),
+                           (9, "P0"), (9, "P1"), (9, "P0"), (9, "P1"), (9, "P0"), (9, "P1"), (9, "P0"), (9, "P1"),
+                           (10, "P2")], 11),
+    # infinity terms: a segment of them only (1), first and last in a
+    # segment, across a tile boundary (3 at 6..9)
+    "infinity": ([(0, "P0"), (1, "O"), (1, "O"), (1, "O"), (2, "O"), (2, "P1"), (3, "O"), (3, "O"), (3, "O"),
+                  (3, "P2"), (3, "O"), (4, "P3"), (4, "O")], 5),
+    # fewer terms than one tile
+    "below_tile": ([(0, "P0"), (0, "P1"), (2, "P2"), (2, "N2"), (3, "P3")], 5),
+}
+
+
+@pytest.fixture(scope="module")
+def edge_bases():
+    rng = random.Random(15)
+    return {g: [gen.mul(rng.randrange(1, R_MOD)) for _ in range(6)]
+            for g, gen in (("g1", rc.G1_GEN), ("g2", rc.G2_GEN))}
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+@pytest.mark.parametrize("case", sorted(SEGMENT_EDGES))
+def test_segment_sums_on_host_edges(host_lib, edge_bases, group, case):
+    """S1's per-thread and per-tile code compiled by g++, with host loops for
+    the block's threads and the launches (tiles of 4 x 2 terms), against the
+    plain version per segment in canonical affine and against refimpl
+    sums."""
+    terms, n_segments = SEGMENT_EDGES[case]
+    basis = edge_bases[group]
+    zero = rc.point_zero(group)
+    points = [zero if p == _O else basis[int(p[1])] if p[0] == _P else basis[int(p[1])].neg() for _, p in terms]
+    segs = [s for s, _ in terms]
+    want = [zero] * n_segments
+    for s, pt in zip(segs, points):
+        want[s] = want[s].add(pt)
+    jac = _jacobian(group, points, random.Random(case))
+    seg_ids = torch.tensor(segs)
+    launches = []
+    got = _affine_points(group, _host_sums(host_lib, jac, seg_ids, n_segments, 4, 2, launches))
+    assert got == want
+    assert _affine_points(group, segsum.segment_sums_plain(jac, seg_ids, n_segments)) == want
+    assert len(launches) == {"many_tiles": 3, "double_and_cancel": 3, "below_tile": 1}.get(case, 2), launches
+    if case == "double_and_cancel":
+        assert want[1].is_zero() and want[4].is_zero() and want[5].is_zero() and not want[9].is_zero()
 
 
 def test_wrappers_take_no_other_device():
@@ -244,7 +361,7 @@ def test_wrappers_take_no_other_device():
     with pytest.raises(ValueError, match="no kernel"):
         batch_exp.batch_exp_g2_windowed(x, x, torch.zeros((2, 16), dtype=torch.int64, device="meta"))
     with pytest.raises(ValueError, match="no kernel"):
-        segsum.segmented_scan(G.JacobianBatch(x, x, x), torch.zeros(2, dtype=torch.int64, device="meta"))
+        segsum.segment_sums(G.JacobianBatch(x, x, x), torch.zeros(2, dtype=torch.int64, device="meta"), 2)
 
 
 @pytest.mark.gpu
@@ -259,9 +376,12 @@ def test_kernels_match_plain_on_gpu(k9_case, segment_cases, group):
         assert batch_exp.LAUNCHES["batch_exp_g2_windowed"] == before + 1
         assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
     _, _, _, segs, jac = segment_cases[group]
-    starts = segsum.segment_starts(torch.tensor(segs))
-    got = segsum.segmented_scan(G.JacobianBatch(*(t.cuda() for t in jac)), starts.cuda())
-    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, segsum.segmented_scan_plain(jac, starts)))
+    seg_ids = torch.tensor(segs)
+    before = segsum.LAUNCHES["segment_sums"]
+    got = segsum.segment_sums(G.JacobianBatch(*(t.cuda() for t in jac)), seg_ids.cuda(), 12)
+    assert segsum.LAUNCHES["segment_sums"] == before + 1
+    want = segsum.segment_sums_plain(jac, seg_ids, 12)
+    assert _affine_points(group, G.JacobianBatch(*(t.cpu() for t in got))) == _affine_points(group, want)
 
 
 # ---------------------------------------------------------------------------
