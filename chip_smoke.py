@@ -25,7 +25,8 @@ phases:
 5. new_constrained + compute_constrained at size 21, batch 2^16 (the
    reference ceremony's design depth): hash chain, spot checks of every
    element kind against refimpl, K1 / K2 launch counts, wall time by phase,
-   and a torch.profiler breakdown of one chunk of each group;
+   a torch.profiler breakdown of one chunk of each group, and the
+   response's blake2b;
 6. K3, K4, K5 (the Pippenger MSM) and D1 (decompression) against their plain
    versions on the card at the verify chunk shape (2^16 points, c = 9), G1
    and G2, uniform and all-equal scalars; time per call and bound; K3 at
@@ -38,18 +39,23 @@ phases:
    response: pass, hash chain, spot checks of the new challenge against
    refimpl decompression, K3-K5 / D1 launch counts, wall time by phase, and
    a torch.profiler breakdown of one chunk's power_pairs;
-9. K6 (the four-step Fr NTT pass) against its plain version, limb for limb,
-   forward and inverse, at exp 1, 2, 3, 10, 18 and 20; at exp 24 (the
-   largest it takes) a round trip and 300 outputs of a sparse input against
-   a DFT on host integers; time per call and bound;
+9. K6 (a pass of the k-pass Fr NTT) against its plain version, limb for
+   limb, forward and inverse, at exp 1, 2, 3, 10, 18 and 20 on ntt's own
+   pass plan and at 18 and 20 on forced three-pass plans; the prover's
+   coset_ntt and icoset_ntt(divide_by_z), their factors folded into the
+   passes, at exp 10, 18 and 20; at exp 24-28 a round trip and 300 outputs
+   of a sparse input against a DFT on host integers (an exp the card's
+   memory does not hold prints the bytes it needed); time per call, bound
+   and launches; ptxas registers of K6;
 10. `prove` (the port's CLI) on a seeded circom-shaped circuit of 2^18
    constraints (half booleanity constraints on random bits, half products
    of random field elements), with parameters from the port's generator:
    the proof verifies, `snarkjs_verify` of the written JSON agrees and
    rejects a changed public input; the wall time and K6 / K3-K5 launch
    counts of `prove` as a user runs it, then a second run with every part
-   timed, the witness' share of 0 and 1 scalars, and a torch.profiler
-   breakdown of the h pipeline; K3, K4, K5 against their plain versions on
+   timed, the witness' share of 0 and 1 scalars, a torch.profiler
+   breakdown of the h pipeline and its device launches, and the blake2b of
+   a proof with seeded r and s; K3, K4, K5 against their plain versions on
    the sets that run's MSMs took (K3 on those sets, the witness' ones and
    all; K4, K5 on the prover's own buckets);
 11. scripts/fixtures' circuit and witness with fixed r and s: the proof on
@@ -60,13 +66,15 @@ phases:
    2^16 G1 and G2 terms with a third of them in one segment, empty segments
    and infinity terms, every segment in canonical affine (the kernel adds
    in another order than the plain scan); time per call, launches and
-   bound, and S1 at the tiles of S1_TILE_SWEEP; ptxas registers of K9 and
-   S1;
+   bound, and S1 at the tiles of S1_TILE_SWEEP; K9 on 2^18 G2 terms whose
+   coefficients follow the B matrix of scripts/fixtures/circuit.json (1
+   and r - 1); ptxas registers of K9 and S1;
 13. the phase-2 ceremony on phase 10's circuit (2^18 constraints): a radix
    file written with the port's kernels from seeded tau, alpha, beta; `new`,
    `contribute`, `beacon` (2^10) and `verify_contribution` twice through the
    port's CLI functions, each timed as a user runs it, with its K1 / K9 /
-   S1 / K3-K5 launches; copies with one l point or delta_g2 changed are
+   S1 / K3-K5 launches, and the blake2b of `new`'s .params and of the
+   radix file; copies with one l point or delta_g2 changed are
    rejected; `prove` on the result verifies; K9 and S1 against their plain
    versions on the sets `new` took (plain on a prefix; S1 on the segments
    that lie wholly in it), with S1's time, launches and tile sweep;
@@ -83,7 +91,8 @@ phases:
    PHASE2_TPU_NO_GLV + PHASE2_TPU_NO_GLS: K8 + K9): compute_constrained at
    size 21, batch 2^16, from phase 5's challenge and seed, gives phase 5's
    response hash with the configuration's kernels launched once per chunk
-   call and the default ones never; wall time and ladder device time; and
+   call and the default ones never; wall time and ladder device time (per
+   launch of each); and
    `new` at 2^18 constraints under PHASE2_TPU_NO_SIGNED5 (the G1 terms on
    K7) writes phase 13's .params bytes; K7 against its plain version on the
    set `new` took (plain on its first PLAIN_SCAN_N lanes).
@@ -105,7 +114,7 @@ from a scalar's first nonzero window with the multiples its digits use
 (_k1_muls, _k2_muls, _k7_muls, _k10_muls,
 _windowed_muls); this ladder's own count stands beside it
 (ladder_muls). Then one add per finite term after the first of its
-segment (_s1_muls), the products of an NTT (_ntt_muls), a mixed
+segment (_s1_muls), the products of an NTT other than by 1 (_ntt_muls), a mixed
 add per point of a bucket after its first (_k3_muls), the adds of a
 serial running sum over the buckets (_k4_muls); the kernel's own count
 stands beside each (kernel_muls). K5, whose time is a chain's latency,
@@ -249,6 +258,27 @@ def cuda_ms(fn, reps: int) -> float:
 
     fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """ms per call of fn's device work alone, after one warm-up call: a spin
+    kernel (torch.cuda._sleep) holds the stream while the host enqueues all
+    reps, so the CUDA events around them see the kernels back to back and
+    none of the host's time between launches, which at small sizes is
+    longer than the kernels' (torch.profiler, tried for this first, came back
+    empty in some processes)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # about 50 ms at 1980 MHz
     start.record()
     for _ in range(reps):
         fn()
@@ -751,7 +781,8 @@ def phase_contribute(workdir: str, records: list[dict], size: int = SMOKE_SIZE, 
         f"bytes) {w['encode']:.3f} | hashing (challenge + response) {w['hashing']:.3f} | "
         f"other (keypair, file I/O) {other:.3f}")
     log(f"  device s: K1 + K2 kernels {timers.device_s('ladders'):.3f} (CUDA events); new_constrained {t_new:.3f} s")
-    log(f"  hash chain ok; {checked} spot checks == refimpl ({t_check:.1f} s)")
+    log(f"  hash chain ok; {checked} spot checks == refimpl ({t_check:.1f} s); response blake2b "
+        f"{hashlib.blake2b(_read(response)).hexdigest()[:16]} (the file's)")
     for group in ("g1", "g2"):
         _profile_contribute_chunk(group, batch)
     return response_hash
@@ -768,11 +799,12 @@ def _chunk_launches(params, g1: str, g2: str) -> dict:
     return {**dict.fromkeys(batch_exp.LAUNCHES, 0), g1: 3 * low + high, g2: low}
 
 
-def _profile(fn, kinds) -> str:
+def _profile(fn, kinds, counts_out: dict | None = None) -> str:
     """Run fn under torch.profiler; device time by kind (the first kind
     whose key is in a kernel's name; "copies" for copies and sets, "glue
     kernels" for the rest) and the device's idle share between the first
-    and the last device activity."""
+    and the last device activity; the launches of each kind go into
+    counts_out where given."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -802,6 +834,8 @@ def _profile(fn, kinds) -> str:
             cur_end = max(cur_end, end)
     busy += cur_end - cur_start
     window = max(e for _, e, _ in spans) - min(s for s, _, _ in spans)
+    if counts_out is not None:
+        counts_out.update(counts)
     parts = ", ".join(f"{k} {v / 1000:.3f} ms ({counts[k]})" for k, v in sums.items())
     return (f"host wall {wall * 1000:.3f} ms; device {parts}; "
             f"idle {100 * (1 - busy / window):.1f}% of the {window / 1000:.3f} ms device window")
@@ -1437,105 +1471,197 @@ def _profile_power_pairs(response: str, params) -> None:
 # ---------------------------------------------------------------------------
 
 NTT_EXPS = (1, 2, 3, 10, 18, 20)  # kernel == plain, forward and inverse
-NTT_BIG_EXP = 24  # the largest exp K6 takes: round trip and a sparse spot check against host integers
+NTT_THREE_PASS = {18: (6, 6, 6), 20: (7, 7, 6)}  # forced three-pass plans, kernel == plain
+NTT_BIG_EXPS = (24, 25, 26, 27, 28)  # round trip and a sparse spot check against host integers
 PROVE_EXP = 18  # the prover's domain (phase 10)
 
 
 def _fr_random(m: int, gen) -> "torch.Tensor":
     """m canonical Fr values (also valid Montgomery forms) as int64 (m, 16)
-    limbs on the card: random 16-bit limbs, the top one below r's."""
+    limbs on the card: random 16-bit limbs, the top one below r's; drawn
+    with `gen` on its own device, the same values for the same seed."""
     import torch
     from phase2_bn254_tpu_torch.refimpl.field import R_MOD
 
-    x = torch.randint(0, 1 << 16, (m, 16), generator=gen, dtype=torch.int64)
-    x[:, 15] = torch.randint(0, R_MOD >> 240, (m,), generator=gen, dtype=torch.int64)
+    x = torch.randint(0, 1 << 16, (m, 16), generator=gen, dtype=torch.int64, device=gen.device)
+    x[:, 15] = torch.randint(0, R_MOD >> 240, (m,), generator=gen, dtype=torch.int64, device=gen.device)
     return x.to(DEVICE)
 
 
-def _ntt_muls(exp: int) -> int:
-    """Multiplies of the Fr Montgomery products an N-point four-step NTT
-    needs, N = 2^exp: N/2 log2(N) butterfly products and one inter-twiddle
-    product per element (the iNTT's 1/N folded into the twiddles). The
-    bound counts these."""
-    return ((1 << exp) // 2 * exp + (1 << exp)) * MULS_PER_FQ_PRODUCT
+def _ntt_butterfly_products(exp: int, plan) -> int:
+    """Products of the row DFTs of `plan`'s passes, those by w^0 = 1 left
+    out: a C-point row does C/2 log2(C) butterflies, C - 1 of them with
+    twiddle 1."""
+    return sum((1 << (exp - lc)) * ((1 << lc) // 2 * lc - ((1 << lc) - 1)) for lc in plan)
 
 
-def _ntt_kernel_muls(exp: int) -> int:
-    """Multiplies csrc/ntt.cu does for one `ntt`: the above and one product
-    more per element, since it builds each inter-twiddle w^(j1 k2) as tw_lo
-    * tw_hi rather than reading it from an N-entry table. A cost of the
-    design, recorded beside the bound."""
-    return _ntt_muls(exp) + (1 << exp) * MULS_PER_FQ_PRODUCT
+def _ntt_muls(exp: int, plan=None, factors: int = 0) -> int:
+    """Multiplies of the Fr Montgomery products an NTT at 2^exp needs on
+    `plan` (default ntt.pass_plan): the butterflies' products other than by
+    1, one inter-twiddle product per element between passes (the
+    inverse's 1/N among them) and one per element for each folded factor
+    (`factors`: 1 for coset_ntt's g^i, 1 for icoset_ntt's geninv^k / z).
+    The bound counts these."""
+    from phase2_bn254_tpu_torch.ops import ntt
+
+    plan = ntt.pass_plan(exp) if plan is None else plan
+    m = 1 << exp
+    return (_ntt_butterfly_products(exp, plan) + m * (max(len(plan) - 1, 0) + factors)) * MULS_PER_FQ_PRODUCT
+
+
+def _ntt_kernel_muls(exp: int, plan=None, factors: int = 0) -> int:
+    """Multiplies csrc/ntt.cu does for one call: the butterflies' products
+    but by 1 (the kernel skips those too), and two products per element for
+    each inter-twiddle and folded factor, since it builds each factor as lo *
+    hi rather than reading it from an N-entry table. A cost of the design,
+    recorded beside the bound."""
+    from phase2_bn254_tpu_torch.ops import ntt
+
+    plan = ntt.pass_plan(exp) if plan is None else plan
+    twiddled = max(len(plan) - 1, 1 if len(plan) else 0)
+    return (_ntt_butterfly_products(exp, plan) + 2 * (1 << exp) * (twiddled + factors)) * MULS_PER_FQ_PRODUCT
 
 
 def _ntt_bytes(exp: int) -> int:
-    """Bytes an `ntt` must move: its input and output (int64 digits, 128
-    bytes an element) and its twiddle tables (C/2 + C + R + R/2 elements)."""
-    log2r = exp // 2
-    r, c = 1 << log2r, 1 << (exp - log2r)
-    return 128 * (2 * (1 << exp) + c // 2 + c + r + r // 2)
+    """Bytes an `ntt` must move: its input and output, int64 digits, 128
+    bytes an element (the tables, a few thousand 32-byte entries, left
+    out)."""
+    return 128 * 2 * (1 << exp)
 
 
-def phase_ntt(card: Card, records: list[dict]) -> None:
+def _ntt_case(card: Card, exp: int, x, inverse: bool, plan=None, pre=None, post=None, reps: int = 5) -> dict:
+    """One four_step call on the card against its plain version on the same
+    input, limb for limb; times and bound."""
+    import torch
+    from phase2_bn254_tpu_torch.ops import ntt
+
+    before = ntt.LAUNCHES["lane_dft"]
+    got = ntt.four_step(exp, x, inverse, plan, pre, post)
+    launches = ntt.LAUNCHES["lane_dft"] - before
+    want, plain_ms = once_ms(lambda: ntt.four_step(exp, x, inverse, plan, pre, post, lane=ntt.lane_dft_plain))
+    if not torch.equal(got, want):
+        raise AssertionError(f"K6 exp {exp} inverse {inverse} plan {plan} factors {pre, post}: kernel and plain "
+                             f"version differ (max abs limb error {max_limb_err([got], [want])})")
+    factors = (pre is not None) + (post is not None)
+    call_ms = cuda_ms(lambda: ntt.four_step(exp, x, inverse, plan, pre, post), reps)
+    ms = device_ms(lambda: ntt.four_step(exp, x, inverse, plan, pre, post), reps)
+    bound_ms, bound_by = card.bound(_ntt_bytes(exp), _ntt_muls(exp, plan, factors))
+    return {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "launches": launches, "muls": _ntt_muls(exp, plan, factors),
+            "kernel_muls": _ntt_kernel_muls(exp, plan, factors)}
+
+
+def _ntt_big(card: Card, exp: int) -> dict:
+    """ntt at 2^exp, too large for the plain version: inverse(forward(x))
+    == x (x drawn again from its seed after the forward call, so that the
+    card holds at most an input, an output and one packed intermediate), and
+    300 outputs of a 4-term input against a DFT on host integers, both
+    directions; the forward call's kernel time."""
     import torch
     from phase2_bn254_tpu_torch.field import fp
     from phase2_bn254_tpu_torch.ops import ntt
     from phase2_bn254_tpu_torch.refimpl.field import R_MOD
+
+    m = 1 << exp
+    dev = torch.device(DEVICE)
+    torch.cuda.empty_cache()
+    x = _fr_random(m, torch.Generator(device=dev).manual_seed(exp))
+    ms = device_ms(lambda: ntt.ntt(exp, x, False), 2)  # each call's output dropped before the next
+    y = ntt.ntt(exp, x, False)
+    del x
+    z = ntt.ntt(exp, y, True)
+    del y
+    if not torch.equal(z, _fr_random(m, torch.Generator(device=dev).manual_seed(exp))):
+        raise AssertionError(f"K6 exp {exp}: the inverse of the forward NTT is not the input")
+    del z
+    rng = random.Random(exp)
+    nonzero = {rng.randrange(m): rng.randrange(R_MOD) for _ in range(4)}
+    sparse = torch.zeros((m, 16), dtype=torch.int64, device=dev)
+    for j, v in nonzero.items():
+        sparse[j] = torch.tensor(fp.int_to_limbs(fp.FR_CTX.to_mont_int(v)), device=dev)
+    ks = sorted({0, 1, m - 1} | {rng.randrange(m) for _ in range(297)})
+    d = ntt.Domain(exp)
+    for inverse in (False, True):
+        out = ntt.ntt(exp, sparse, inverse)[torch.tensor(ks, device=dev)].cpu()
+        w, scale = (d.omegainv, d.minv) if inverse else (d.omega, 1)
+        for k, limbs in zip(ks, out):
+            want = sum(v * pow(w, j * k % m, R_MOD) for j, v in nonzero.items()) * scale % R_MOD
+            if fp.FR_CTX.from_mont_int(fp.limbs_to_int(limbs)) != want:
+                raise AssertionError(f"K6 exp {exp} inverse {inverse}: output {k} differs from the host DFT")
+    del sparse, out
+    bound_ms, bound_by = card.bound(_ntt_bytes(exp), _ntt_muls(exp))
+    return {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by, "spot": len(ks), "plan": ntt.pass_plan(exp),
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def phase_ntt(card: Card, records: list[dict]) -> None:
+    import torch
+    from phase2_bn254_tpu_torch.ops import ntt
 
     gen = torch.Generator().manual_seed(9)
     per = {}
     for exp in NTT_EXPS:
         x = _fr_random(1 << exp, gen)
         for inverse in (False, True):
-            got = ntt.ntt(exp, x, inverse)
-            want, plain_ms = once_ms(lambda: ntt.ntt_plain(exp, x, inverse))
-            if not torch.equal(got, want):
-                raise AssertionError(f"K6 exp {exp} inverse {inverse}: kernel and plain version differ "
-                                     f"(max abs limb error {max_limb_err([got], [want])})")
-            ms = cuda_ms(lambda: ntt.ntt(exp, x, inverse), 5)
-            bound_ms, bound_by = card.bound(_ntt_bytes(exp), _ntt_muls(exp))
-            per[(exp, inverse)] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
-        del x, got, want
+            per[(exp, inverse)] = _ntt_case(card, exp, x, inverse)
+        for inverse in (False, True) if exp in NTT_THREE_PASS else ():
+            per[(exp, inverse, "3")] = _ntt_case(card, exp, x, inverse, NTT_THREE_PASS[exp])
+        del x
     log("phase 9 K6 (lane_dft): ntt == ntt_plain limb for limb, forward and inverse, at exp "
-        + ", ".join(map(str, NTT_EXPS)) + " (ms per ntt call, 2 launches; exp 1: 1)")
-    for (exp, inverse), p in per.items():
-        log(f"  exp {exp} {'inverse' if inverse else 'forward'}: kernel {p['ms']:.3f} ms, plain {p['plain_ms']:.3f} ms, "
-            f"bound {p['bound_ms']:.4f} ms ({p['bound_by']}: {_ntt_muls(exp)} multiplies, {_ntt_bytes(exp)} bytes; "
-            f"the kernel does {_ntt_kernel_muls(exp)})")
+        + ", ".join(map(str, NTT_EXPS)) + " (kernel ms: one call's device time with the host's launch time hidden, "
+        "device_ms; the call's, CUDA events, beside; launches one per pass of ntt.pass_plan), and with "
+        "forced three-pass plans " + ", ".join(f"{e}: {p}" for e, p in NTT_THREE_PASS.items()))
+    for key, p in per.items():
+        exp, inverse = key[:2]
+        log(f"  exp {exp} {'inverse' if inverse else 'forward'}{' three passes' if len(key) > 2 else ''}: kernel "
+            f"{p['ms']:.4f} ms ({p['launches']} launches; the call {p['call_ms']:.4f} ms), plain {p['plain_ms']:.3f} "
+            f"ms, bound {p['bound_ms']:.4f} ms ({p['bound_by']}: {p['muls']} multiplies, {_ntt_bytes(exp)} bytes; the "
+            f"kernel does {p['kernel_muls']})")
 
-    # the largest domain: round trip, and a sparse input against host integers
-    exp, m = NTT_BIG_EXP, 1 << NTT_BIG_EXP
-    x = _fr_random(m, gen)
-    y = ntt.ntt(exp, x, False)
-    if not torch.equal(ntt.ntt(exp, y, True), x):
-        raise AssertionError(f"K6 exp {exp}: the inverse of the forward NTT is not the input")
-    big_ms = cuda_ms(lambda: ntt.ntt(exp, x, False), 3)
-    del x, y
-    rng = random.Random(24)
-    nonzero = {rng.randrange(m): rng.randrange(R_MOD) for _ in range(4)}
-    sparse = torch.zeros((m, 16), dtype=torch.int64, device=DEVICE)
-    for j, v in nonzero.items():
-        sparse[j] = torch.tensor(fp.int_to_limbs(fp.FR_CTX.to_mont_int(v)), device=DEVICE)
-    ks = sorted({0, 1, m - 1} | {rng.randrange(m) for _ in range(297)})
-    d = ntt.Domain(exp)
-    for inverse in (False, True):
-        out = ntt.ntt(exp, sparse, inverse)[torch.tensor(ks, device=DEVICE)]
-        w, scale = (d.omegainv, d.minv) if inverse else (d.omega, 1)
-        for k, limbs in zip(ks, out.cpu()):
-            want = sum(v * pow(w, j * k % m, R_MOD) for j, v in nonzero.items()) * scale % R_MOD
-            if fp.FR_CTX.from_mont_int(fp.limbs_to_int(limbs)) != want:
-                raise AssertionError(f"K6 exp {exp} inverse {inverse}: output {k} differs from the host DFT")
-    del sparse
-    big_bound, big_by = card.bound(_ntt_bytes(exp), _ntt_muls(exp))
-    log(f"  exp {exp}: inverse(forward(x)) == x; {len(ks)} outputs of a 4-term input == host DFT, both directions; "
-        f"forward kernel {big_ms:.3f} ms, bound {big_bound:.4f} ms ({big_by}); plain not run (its temporaries "
-        f"exceed the card's memory)")
+    # the prover's folded coset forms against their plain versions
+    cosets = {}
+    for exp in (10, PROVE_EXP, 20):
+        x = _fr_random(1 << exp, gen)
+        cosets[(exp, "coset_ntt")] = _ntt_case(card, exp, x, False, pre=ntt.MULT_GEN)
+        cosets[(exp, "icoset_ntt(divide_by_z)")] = _ntt_case(card, exp, x, True,
+                                                              post=(ntt.Domain(exp).geninv, ntt.z_inverse(exp)))
+        if not torch.equal(ntt.coset_ntt(exp, x),
+                           ntt.ntt_plain(exp, ntt.distribute_powers(exp, x, ntt.MULT_GEN), False)):
+            raise AssertionError(f"coset_ntt at exp {exp} differs from ntt(distribute_powers)")
+        del x
+    for (exp, name), p in cosets.items():
+        log(f"  {name} exp {exp} (factors folded into the passes): kernel == plain limb for limb; kernel "
+            f"{p['ms']:.4f} ms ({p['launches']} launches; the call {p['call_ms']:.4f} ms), plain {p['plain_ms']:.3f} "
+            f"ms, bound {p['bound_ms']:.4f} ms ({p['bound_by']}: {p['muls']} multiplies; the kernel does "
+            f"{p['kernel_muls']})")
+
+    big = {}
+    for exp in NTT_BIG_EXPS:
+        # skipped only where the input and ntt's own bytes exceed the card's memory; any other
+        # out-of-memory error is a fault and fails the phase
+        need, total = 128 * (1 << exp) + ntt.device_bytes(exp), torch.cuda.mem_get_info()[1]
+        if need > total:
+            big[exp] = {"skipped": f"{need} bytes needed (input {128 << exp} + ntt {ntt.device_bytes(exp)}); the card "
+                                   f"has {total} bytes"}
+            log(f"  exp {exp}: the card's memory does not hold it: {big[exp]['skipped']}")
+            continue
+        torch.cuda.reset_peak_memory_stats()
+        big[exp] = _ntt_big(card, exp)
+        b = big[exp]
+        log(f"  exp {exp} (plan {b['plan']}): inverse(forward(x)) == x; {b['spot']} outputs of a 4-term input == "
+            f"host DFT, both directions; forward kernel {b['ms']:.3f} ms, bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']}); peak device memory {b['peak_bytes']} bytes; plain not run (its temporaries exceed "
+            f"the card's memory)")
+    torch.cuda.empty_cache()
+    for line in _ptxas_of(("lane_dft_kernel",)):
+        log(f"  ptxas: {line}")
     main = per[(PROVE_EXP, False)]
     rec = record(card, "lane_dft", "phase2_bn254_tpu_torch/csrc/ntt.cu", "phase2_bn254_tpu/ops/pallas_ntt.py:229",
                  0, main["ms"], main["plain_ms"], (_ntt_bytes(PROVE_EXP), _ntt_muls(PROVE_EXP)),
-                 shape=f"one ntt() call (2 launches) at 2^{PROVE_EXP}, forward; other exps beside",
-                 by_exp={f"{e}{'i' if inv else ''}": p for (e, inv), p in per.items()},
-                 exp24_forward_ms=big_ms, exp24_bound_ms=big_bound, muls=_ntt_muls(PROVE_EXP),
+                 shape=f"one ntt() call (2 launches) at 2^{PROVE_EXP}, forward; other exps and forms beside",
+                 by_exp={f"{k[0]}{'i' if k[1] else ''}{'_3pass' if len(k) > 2 else ''}": p for k, p in per.items()},
+                 cosets={f"{name} {exp}": p for (exp, name), p in cosets.items()},
+                 big={str(e): b for e, b in big.items()}, muls=_ntt_muls(PROVE_EXP),
                  kernel_muls=_ntt_kernel_muls(PROVE_EXP))
     records.append(rec)
 
@@ -1816,9 +1942,30 @@ def phase_prove(card: Card, workdir: str, records: list[dict], exp: int = PROVE_
     log(f"  witness (the circuit's assumed mix): {_shares_text(witness_shares(assignment))}")
     dev = torch.device(DEVICE)
     prover._h_coefficients(assignment, dev)  # warm
-    out = _profile(lambda: prover._h_coefficients(assignment, dev), {"K6": ("lane_dft",)})
+    h_counts = {}
+    out = _profile(lambda: prover._h_coefficients(assignment, dev), {"K6": ("lane_dft",)}, h_counts)
     log(f"  profile _h_coefficients at 2^{exp}: {out}")
+    log(f"  h step: {sum(h_counts.values())} device launches (K6 {h_counts['K6']}, glue kernels "
+        f"{h_counts['glue kernels']}, copies and sets {h_counts['copies']}); {w['h']:.3f} s in the timed run")
+    log(f"  proof with r, s from a seeded ChaChaRng (`prove` as a user runs it otherwise): blake2b "
+        f"{_seeded_proof_hash(argv)}")
     _prover_msm_kernels(card, kept["msm_sets"], records)
+
+
+def _seeded_proof_hash(argv: list[str]) -> str:
+    """blake2b of proof.json from `prove` with argv, its r and s drawn from
+    ChaChaRng.from_digest_be(SEED) instead of the operating system's
+    entropy, so that two trees' proofs can be compared byte for byte."""
+    from phase2_bn254_tpu_torch.cli import phase2 as cli2
+    from phase2_bn254_tpu_torch.crypto.chacha import ChaChaRng
+
+    rng = cli2.participant_rng
+    cli2.participant_rng = lambda *a: ChaChaRng.from_digest_be(SEED)
+    try:
+        cli2.main_prove(argv)
+    finally:
+        cli2.participant_rng = rng
+    return hashlib.blake2b(_read(argv[3])).hexdigest()[:16]
 
 
 def phase_fixture_proof(workdir: str) -> None:
@@ -1868,31 +2015,34 @@ PLAIN_SCAN_N = 1 << 17
 
 def _windowed_muls(group: str, scalars):
     """Multiplies (N,) k P takes on these scalars by the plain windowed
-    ladder (K8 on G1, K9 on G2), as far as this data needs it: the multiples
-    up to each point's largest 4-bit window, 4 doublings per window after
-    the first nonzero one, one add per nonzero window after the first (k = 1
-    needs none)."""
+    ladder (K8 on G1, K9 on G2, csrc/ladders.cuh windowed_ladder_point), as
+    far as this data needs it: k above (r - 1)/2 as (r - k)(-P) (no
+    multiplies), the multiples up to each point's largest 4-bit window by a
+    doubling and mixed adds, 4 doublings per window after the first nonzero
+    one, one add per nonzero window after the first (k = 1 and k = r - 1
+    need none)."""
     from phase2_bn254_tpu_torch.ops import batch_exp
 
     ops = OP_MULS[group]
-    win = batch_exp.scalar_windows_msb(scalars)
+    win = batch_exp.scalar_windows_msb(batch_exp.half_recode(scalars)[0])
     nz = win != 0
     adds = (nz.sum(0) - 1).clamp(min=0)
-    return _table_muls(ops, win.amax(0)) + _ladder_doublings(nz, 4) * ops["dbl"] + adds * ops["add"]
+    return _table_muls(ops, win.amax(0), mixed=True) + _ladder_doublings(nz, 4) * ops["dbl"] + adds * ops["add"]
 
 
 def _windowed_kernel_muls(group: str, scalars) -> int:
-    """Multiplies K8 / K9 (csrc/ladders.cuh windowed_ladder_point) do on
-    these scalars: the table (2P through the doubling branch, 3P..15P), 4
-    doublings per window (64), and one add per nonzero digit after the first
-    (an add into infinity or of T[0] costs none)."""
+    """Multiplies K8 / K9 do on these scalars: what the ladder needs
+    (`_windowed_muls`; the adds of T[0] are skipped and cost none) but the
+    table, which the kernels build whole (T[2..15]) where a digit above 1
+    occurs: by general adds on G1, by a doubling and mixed adds on G2."""
+    import torch
     from phase2_bn254_tpu_torch.ops import batch_exp
 
     ops = OP_MULS[group]
-    n = scalars.shape[0]
-    table = ops["add_head"] + ops["dbl"] + 13 * ops["add"]
-    adds = int(((batch_exp.scalar_windows_msb(scalars) != 0).sum(0) - 1).clamp(min=0).sum())
-    return n * (table + batch_exp.N_WINDOWS * 4 * ops["dbl"]) + adds * ops["add"]
+    top = batch_exp.scalar_windows_msb(batch_exp.half_recode(scalars)[0]).amax(0)
+    whole = torch.where(top >= 2, torch.full_like(top, 15), top)
+    return int((_windowed_muls(group, scalars) - _table_muls(ops, top, mixed=True)
+                + _table_muls(ops, whole, mixed=group == "g2")).sum())
 
 
 def _k9_kernel_muls(scalars) -> int:
@@ -2062,6 +2212,32 @@ def _k9_case(x, y, scalars, plain_n: int | None = None) -> dict:
             "kernel_muls": _k9_kernel_muls(scalars)}
 
 
+FIXTURE_MIX_N = 1 << 18  # K9 on the fixture's coefficient mix (phase 12)
+
+
+def _fixture_b_mix() -> dict:
+    """{coefficient: count} of the B matrix of scripts/fixtures/circuit.json:
+    the scalars its `new` gives K9 (one G2 term per B entry)."""
+    from phase2_bn254_tpu_torch.refimpl.field import R_MOD
+
+    with open(os.path.join(REPO, "scripts", "fixtures", "circuit.json")) as f:
+        constraints = json.load(f)["constraints"]
+    mix = {}
+    for _, b, _ in constraints:
+        for v in b.values():
+            mix[int(v) % R_MOD] = mix.get(int(v) % R_MOD, 0) + 1
+    return mix
+
+
+def _coefficient_name(v: int) -> str:
+    from phase2_bn254_tpu_torch.refimpl.field import R_MOD
+
+    for name, w in (("", v), ("r - ", R_MOD - v)):
+        if w & (w - 1) == 0:
+            return f"{name}{w}" if w < 1 << 16 else f"{name}2^{w.bit_length() - 1}"
+    return str(v)
+
+
 def _skewed_terms(group: str, n: int, rng: random.Random):
     """n terms on tiled points: a third of them in segment 1 (the fixture
     circuit's share of B terms on ONE), the rest over segments 3.. with
@@ -2114,12 +2290,26 @@ def phase_segsum_kernels(card: Card, records: list[dict], n: int = KERNEL_N) -> 
             f"{c['plain_ms']:.3f} ms, bound {b:.3f} ms ({by}: {c['work'][1]} multiplies, {c['work'][0]} bytes; the "
             f"kernel does {c['kernel_muls']}); by tile (threads x terms): "
             + ", ".join(f"{k} {v:.4f}" for k, v in c["tiles_ms"].items()) + " ms")
+    mix = _fixture_b_mix()
+    pts, _ = _tiled_points("g2", FIXTURE_MIX_N, dev, rng)
+    kmix = convert.ints_to_limbs(rng.choices(list(mix), weights=list(mix.values()), k=FIXTURE_MIX_N), dev)
+    fixture = _k9_case(pts.x, pts.y, kmix, plain_n=PLAIN_LADDER_N)
+    fixture["bound_ms"], fixture["bound_by"] = card.bound(*fixture["work"])
+    log(f"phase 12 K9 on a G2 set with the B coefficients of scripts/fixtures/circuit.json ("
+        + ", ".join(f"{_coefficient_name(v)}: {c}" for v, c in mix.items()) + f" of {sum(mix.values())}): "
+        f"N={FIXTURE_MIX_N}, kernel == plain limb for limb on the first {fixture['plain_n']}; kernel "
+        f"{fixture['ms']:.4f} ms, plain {fixture['plain_ms']:.3f} ms ({fixture['plain_n']} points), bound "
+        f"{fixture['bound_ms']:.4f} ms ({fixture['bound_by']}: {fixture['work'][1]} multiplies, {fixture['work'][0]} "
+        f"bytes; the kernel does {fixture['kernel_muls']})")
+    del pts, kmix
     for line in _ptxas_of(("batch_exp_g2_windowed_kernel", "segment_sums_kernel")):
         log(f"  ptxas: {line}")
     records.append(record(card, "batch_exp_g2_windowed", "phase2_bn254_tpu_torch/csrc/batch_exp_g2_windowed.cu",
                           "phase2_bn254_tpu/ops/pallas_exp.py:449", k9["err"], k9["ms"], k9["plain_ms"], k9["work"],
                           shape=f"N={n} G2 points, edge and random scalars", muls=k9["work"][1],
                           ladder_muls=k9["ladder_muls"], kernel_muls=k9["kernel_muls"],
+                          fixture_mix={k: fixture[k] for k in ("n", "ms", "plain_ms", "plain_n", "bound_ms",
+                                                               "bound_by", "kernel_muls")},
                           **_three_fq_fields(card, k9["work"][0], _three_fq(_function_muls, "g2", k))))
     g2 = scans["g2"]
     b2, by2 = card.bound(*g2["work"])
@@ -2296,6 +2486,8 @@ def phase_ceremony(card: Card, workdir: str, records: list[dict], exp: int = CER
         f"beacon (2^10) -> verify_contribution twice pass; prove on the result verifies")
     log("  wall s (each tool as a user runs it): " + " | ".join(f"{k} {v:.3f}" for k, v in wall.items())
         + f"; .params {os.path.getsize(params[3])} bytes")
+    log(f"  new's .params blake2b {hashlib.blake2b(_read(params[1])).hexdigest()[:16]}, the radix file's "
+        f"{hashlib.blake2b(_read(os.path.join(radix, f'phase1radix2m{exp}'))).hexdigest()[:16]}")
     for name in ("new", "contribute", "beacon", "verify_contribution 1->2"):
         log(f"  launches {name}: " + ", ".join(f"{k} {v}" for k, v in launches[name].items() if v))
     for tool, split in parts.items():
@@ -2604,7 +2796,7 @@ def phase_configurations(card: Card, workdir: str, records: list[dict], response
         _zero_counts()
         timers = _Timers()
         for name in batch_exp.LAUNCHES:
-            timers.device_of("ladders", batch_exp, name)
+            timers.device_of(name, batch_exp, name)
         try:
             with _ladder_env(names):
                 t0 = time.time()
@@ -2622,14 +2814,17 @@ def phase_configurations(card: Card, workdir: str, records: list[dict], response
         if got != response_hash:
             raise AssertionError(f"PHASE2_TPU_{label}: response hash {got.hex()[:16]} differs from phase 5's "
                                  f"{response_hash.hex()[:16]}")
+        device = {name: timers.device_s(name) for name in (g1, g2)}
         log(f"phase 15 PHASE2_TPU_{label}: size {size} batch {batch} response == phase 5's (blake2b "
             f"{got.hex()[:16]}); {g1} launches {want[g1]}, {g2} launches {want[g2]}, the default ladders none; "
-            f"wall {wall:.3f} s, ladder kernels {timers.device_s('ladders'):.3f} s device (CUDA events)")
+            f"wall {wall:.3f} s, ladder kernels {sum(device.values()):.3f} s device (CUDA events): "
+            + ", ".join(f"{k} {1e3 * v / want[k]:.3f} ms a launch" for k, v in device.items()))
         for r in records:
             if r["name"] in (g1, g2):
                 r.setdefault("launches_by_path", {})[f"compute_constrained size {size}, PHASE2_TPU_{label}"] = \
                     want[r["name"]]
                 r["contribute_wall_s"] = wall
+                r["contribute_ms_per_launch"] = 1e3 * device[r["name"]] / want[r["name"]]
 
     circuit_json = os.path.join(workdir, f"circuit_{exp}.json")
     out = os.path.join(workdir, "circom1_no_signed5.params")

@@ -2,23 +2,24 @@
 //
 // Replaces the TPU kernel phase2_bn254_tpu/ops/pallas_exp.py
 // pallas_batch_exp (_batch_exp_kernel): out[i] = k_i * P_i for canonical
-// scalars k_i, without an endomorphism split: T[j] = j P for j = 0..15, then
-// for each of the 64 4-bit windows of k, most significant first, 4 doublings
-// and one add of T[d]. The per-point ladder is ladders.cuh's
-// windowed_ladder_point, the one K9 runs over Fq2; it is a template over the
+// scalars k_i, without an endomorphism split, by 4-bit windows of k, most
+// significant first. The per-point ladder is ladders.cuh's
+// windowed_ladder_point, the one K9 runs over Fq2 (k > (r - 1)/2 as (r -
+// k)(-P), a start at the first nonzero window, the table only where a
+// digit above 1 occurs, here by general adds); it is a template over the
 // field type, as the TPU kernel is generic in its limb count, and is
-// instantiated here for BN254 Fq only. The windows are cut from the scalar's
-// 16-bit digits (the TPU kernel reads a 64 x N digit array).
+// instantiated here for BN254 Fq only. The windows are cut from the scalar's 16-bit digits (the
+// TPU kernel reads a 64 x N digit array).
 // In: x, y int64 (N, 16) Montgomery affine, finite points; k int64 (N, 16)
 // canonical 16-bit digits. Out: x, y, z int64 (N, 16), Jacobian, Montgomery,
-// fully reduced (k = 0 gives z = 0). The ceremony runs it for G1 under
+// fully reduced (k = 0 gives (0, 1, 0)). The ceremony runs it for G1 under
 // PHASE2_TPU_NO_GLV (ops/backend.py Ladders).
 //
 // What bounds it on the card: 32-bit integer multiply throughput, about
-// 2,900 Fq products a point (256 doublings of 7, up to 63 adds of 16, the
-// table), some 1.5 times K1's, which halves the ladder with the GLV split and
-// widens its windows. The per-thread table of 16 Jacobian points (1.5 KB)
-// lives in local memory and is read once per window. The design is K1's and
+// 2,900 Fq products a point for uniform scalars (252 doublings of 7, up to
+// 63 adds of 16, the table), some 1.5 times K1's, which halves the ladder
+// with the GLV split and widens its windows. The per-thread table of up to
+// 16 Jacobian points (1.5 KB) lives in local memory. The design is K1's and
 // K9's: one point per thread, no cross-thread carries.
 //
 // Outside nvcc (no __CUDACC__) only the per-point function is compiled, so a
@@ -38,9 +39,13 @@ __device__ void batch_exp_g1_windowed_point(const int64_t* x, const int64_t* y, 
 #ifdef __CUDACC__
 namespace {
 
+// 128 threads a block, launch bounds asking 4 blocks an SM (at most 128
+// registers, 16 warps an SM): on an H100 3.3% faster than without them (146
+// registers), than asking 3 and than 64 threads, 4.5% faster than 256
+// (scripts/bench_shapes.py K8)
 constexpr int kThreads = 128;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 4)
 batch_exp_g1_windowed_kernel(const int64_t* __restrict__ x, const int64_t* __restrict__ y,
                              const int64_t* __restrict__ k, int64_t* __restrict__ ox,
                              int64_t* __restrict__ oy, int64_t* __restrict__ oz, int n) {

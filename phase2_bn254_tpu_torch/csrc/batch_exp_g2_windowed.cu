@@ -2,25 +2,25 @@
 //
 // Replaces the TPU kernel phase2_bn254_tpu/ops/pallas_exp.py
 // pallas_batch_exp_g2 (_batch_exp_kernel_g2): out[i] = k_i * Q_i for
-// canonical scalars k_i, without an endomorphism split. The table holds
-// T[j] = j Q for j = 0..15 (T[0] = infinity, T[2] = Q + Q through the
-// doubling branch); then for each of the 64 4-bit windows of k, most
-// significant first, 4 doublings and one add of T[d]. The windows are cut
-// here from the scalar's 16-bit digits (the TPU kernel reads a 64 x N digit
-// array); they are the digits of ops/batch_exp.scalar_windows_msb. The
+// canonical scalars k_i, without an endomorphism split, by 4-bit windows of
+// k, most significant first (the TPU kernel reads a 64 x N digit array; here
+// each thread cuts the windows from its scalar's 16-bit digits). The
 // per-point ladder is ladders.cuh's windowed_ladder_point, which K8 runs
-// over Fq.
+// over Fq; it does only the work the scalar needs: k > (r - 1)/2 is taken
+// as (r - k)(-Q), the ladder starts at the first nonzero window, and the
+// table j Q is built, by mixed adds, only where a digit above 1 occurs.
 // In: x, y int64 (N, 2, 16) Montgomery affine ([c0, c1]), finite points;
 // k int64 (N, 16) canonical 16-bit digits. Out: x, y, z int64 (N, 2, 16),
-// Jacobian, Montgomery, fully reduced (k = 0 gives z = 0).
+// Jacobian, Montgomery, fully reduced (k = 0 gives (0, 1, 0)).
 //
-// What bounds it on the card: 32-bit integer multiply throughput, about
-// 7,400 Fq products a point (256 doublings of 16, up to 63 adds of 43, the
-// table), some 1.7 times K2's, which splits k in four with psi. The
-// per-thread table of 16 Fq2 Jacobian points (3 KB) lives in local memory
-// and is read once per window. The design is K2's: one point per thread, no
-// cross-thread carries, the table in local memory; the phase-2 QAP
-// evaluation calls it once per `new` on the b_g2 terms.
+// What bounds it on the card: 32-bit integer multiply throughput, for
+// uniform scalars about 4 doublings and 1 add a window over ~63 windows (an
+// Fq2 product 656 multiplies, a square 528: ops/batch_exp.py's plain version
+// does the same adds), some 1.7 times K2, which splits k in four with psi.
+// The phase-2 QAP evaluation calls it once per `new` on the b_g2 terms,
+// whose coefficients are the circuit's B entries: 1, r - 1 and small powers
+// of two, which take one window and no table. The per-thread table (at most
+// 16 Fq2 Jacobian points, 3 KB) lives in local memory.
 //
 // Outside nvcc (no __CUDACC__) only the per-point function is compiled, so a
 // host C++ compiler can run the arithmetic on the CPU.
@@ -39,6 +39,9 @@ __device__ void batch_exp_g2_windowed_point(const int64_t* x, const int64_t* y, 
 #ifdef __CUDACC__
 namespace {
 
+// 128 threads a block: on an H100 3.6% faster than 256 (9% on `new`'s
+// terms) and within 1% of 64 (scripts/bench_shapes.py K9; 255 registers
+// allow 256 threads an SM in every shape)
 constexpr int kThreads = 128;
 
 __global__ void __launch_bounds__(kThreads)

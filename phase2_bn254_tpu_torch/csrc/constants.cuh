@@ -1,5 +1,5 @@
 // BN254 constants as 8 little-endian 32-bit limbs (FQ_P2 16), Montgomery form
-// (R = 2^256) except FQ_P, FR_P, FQ_R2, FQ_P2 and the EXP_ exponents. Written by
+// (R = 2^256) except FQ_P, FR_P, FR_HALF, FQ_R2, FQ_P2 and the EXP_ exponents. Written by
 // ops/_build.py constants_header() from the refimpl integers;
 // tests/test_torch_batch_exp.py checks it.
 #pragma once
@@ -49,5 +49,7 @@ static __constant__ uint32_t EXP_G2_B[8] = {0x6c3e7ea3u, 0x9e10460bu, 0xb438e546
 static __constant__ uint32_t FR_P[8] = {0xf0000001u, 0x43e1f593u, 0x79b97091u, 0x2833e848u, 0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u};
 // R mod r (Montgomery one of Fr)
 static __constant__ uint32_t FR_ONE[8] = {0x4ffffffbu, 0xac96341cu, 0x9f60cd29u, 0x36fc7695u, 0x7879462eu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u};
+// (r - 1) / 2 as an integer: the windowed ladders take k above it as (r - k)(-P)
+static __constant__ uint32_t FR_HALF[8] = {0xf8000000u, 0xa1f0fac9u, 0x3cdcb848u, 0x9419f424u, 0x40c0ac2eu, 0xdc2822dbu, 0x7098d014u, 0x18322739u};
 // q^2 as an integer, 16 limbs: the offset of the Fq2 product's c0 (host path)
 static __constant__ uint32_t FQ_P2[16] = {0x275d69b1u, 0x3b5458a2u, 0x09eac101u, 0xa602072du, 0x6d96cadcu, 0x4a50189cu, 0x7a1242c8u, 0x04689e95u, 0x34c6b38du, 0x26edfa5cu, 0x16375606u, 0xb00b8551u, 0x0348d21cu, 0x599a6f7cu, 0x763cbf9cu, 0x0925c4b8u};

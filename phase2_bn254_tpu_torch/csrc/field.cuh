@@ -480,21 +480,39 @@ __device__ __forceinline__ bool gt(const Fp& a, const Fp& b) {
 // 16 x 16-bit int64 digits (the tensors' layout) <-> 8 x 32-bit limbs
 // ---------------------------------------------------------------------------
 
+// On the card each access is 16 bytes, two digits: every caller passes an
+// element of a contiguous int64 (..., 16) tensor, whose elements lie 128
+// bytes apart from an aligned base.
 template <class E>
 __device__ __forceinline__ E load_limbs(const int64_t* d) {
   E r;
+#if defined(__CUDA_ARCH__)
+  const longlong2* q = reinterpret_cast<const longlong2*>(d);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const longlong2 t = q[k];
+    r.v[k] = (uint32_t)t.x | ((uint32_t)t.y << 16);
+  }
+#else
 #pragma unroll
   for (int k = 0; k < 8; ++k) r.v[k] = (uint32_t)d[2 * k] | ((uint32_t)d[2 * k + 1] << 16);
+#endif
   return r;
 }
 
 template <class E>
 __device__ __forceinline__ void store_limbs(int64_t* d, const E& a) {
+#if defined(__CUDA_ARCH__)
+  longlong2* q = reinterpret_cast<longlong2*>(d);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) q[k] = make_longlong2(a.v[k] & 0xFFFF, a.v[k] >> 16);
+#else
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
     d[2 * k] = a.v[k] & 0xFFFF;
     d[2 * k + 1] = a.v[k] >> 16;
   }
+#endif
 }
 
 __device__ __forceinline__ Fp load_fp(const int64_t* d) { return load_limbs<Fp>(d); }

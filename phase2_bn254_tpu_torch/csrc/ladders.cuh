@@ -3,31 +3,74 @@
 // the GLS endomorphism powers psi^c of K2 and K10.
 #pragma once
 
+#include <type_traits>
+
 #include "field.cuh"
 
-// out[i] = k_i * P_i for canonical scalars k (N, 16): T[j] = j P for
-// j = 0..15 (T[0] = infinity, T[2] = P + P through the doubling branch),
-// then for each of the 64 4-bit windows of k, most significant first, 4
-// doublings and one add of T[d]. The windows are cut from the scalar's
-// 16-bit digits (ops/batch_exp.scalar_windows_msb). x, y: (N, kDigits<F>)
-// Montgomery affine, finite; out: Jacobian, fully reduced (k = 0 gives
-// z = 0). Any field type with load_el / store_el and jac_infinity.
+// out[i] = k_i * P_i for canonical scalars k (N, 16), each thread doing
+// only the work its scalar needs:
+// * a scalar above (r - 1)/2 is taken as (r - k)(-P): one 256-bit
+//   subtraction and -y, so every ladder runs on at most 253 bits and a
+//   circuit's coefficients r - 1 and r - 2^j cost what 1 and 2^j do;
+// * the ladder starts at the first nonzero 4-bit window (most significant
+//   first) with acc = T[d], no doublings before it; after it each window
+//   does 4 doublings and, for a nonzero digit d, one add of T[d];
+// * T[2..15] (T[j] = j P) is built only where a digit above 1 occurs, so a
+//   scalar whose digits are 0 and 1 (1, r - 1, 2^j) builds nothing. Over
+//   Fq2 by a doubling and mixed adds of the affine P; over Fq by general
+//   adds, which on an H100 run the G1 ladder 2% faster (the mixed-add form
+//   and a table built only up to the largest digit were slower there:
+//   scripts/bench_shapes.py K8). Both give the limbs of general adds, as
+//   every value is fully reduced.
+// The scalar and the table live in local memory, T[1] loaded in place. The
+// limbs are those of the full 64-window ladder over the recoded scalar (an
+// add into infinity returns its other operand, and an add of T[0] returns
+// acc); a zero scalar gives (0, 1, 0), as that ladder does. The windows are
+// cut from the scalar's 16-bit digits (ops/batch_exp.scalar_windows_msb).
+// x, y: (N, kDigits<F>) Montgomery affine, finite; out: Jacobian, fully
+// reduced. Any field type with load_el / store_el, neg and jac_infinity.
 template <class F>
 __device__ void windowed_ladder_point(const int64_t* x, const int64_t* y, const int64_t* k, int64_t* ox,
                                       int64_t* oy, int64_t* oz, int64_t i) {
+  Fr s = load_limbs<Fr>(k + 16 * i);
   Jac<F> table[16];
-  table[0] = jac_infinity<F>();
   load_el(x + kDigits<F> * i, table[1].x);
   load_el(y + kDigits<F> * i, table[1].y);
-  table[1].z = table[0].y;  // one
-  for (int j = 2; j < 16; ++j) table[j] = jac_add(table[j - 1], table[1]);  // j = 2 is P + P
+  table[1].z = jac_infinity<F>().y;  // one
+  int64_t borrow = 0;  // (r - 1)/2 - k < 0: k above (r - 1)/2
+#pragma unroll
+  for (int l = 0; l < 8; ++l) borrow = ((int64_t)FR_HALF[l] - (int64_t)s.v[l] + borrow) >> 32;
+  if (borrow < 0) {
+    int64_t b = 0;
+#pragma unroll
+    for (int l = 0; l < 8; ++l) {
+      const int64_t t = (int64_t)FR_P[l] - (int64_t)s.v[l] + b;
+      s.v[l] = (uint32_t)t;
+      b = t >> 32;
+    }
+    table[1].y = neg(table[1].y);
+  }
+  int first = 0, top = 0;  // the first nonzero window (0 if none is), the largest digit
+  for (int w = 0; w < 64; ++w) {  // window w holds bits 4w .. 4w + 3
+    const int d = (int)((s.v[w >> 3] >> (4 * (w & 7))) & 0xF);
+    if (d != 0) first = w;
+    top = d > top ? d : top;
+  }
+  if (top >= 2) {
+    if constexpr (std::is_same_v<F, Fp>) {
+      for (int j = 2; j < 16; ++j) table[j] = jac_add(table[j - 1], table[1]);  // j = 2 doubles
+    } else {
+      table[2] = jac_double(table[1]);
+      for (int j = 3; j < 16; ++j) table[j] = jac_madd(table[j - 1], table[1].x, table[1].y);
+    }
+  }
 
-  const int64_t* s = k + 16 * i;
-  Jac<F> acc = jac_infinity<F>();
-  for (int w = 63; w >= 0; --w) {  // window w holds bits 4w .. 4w + 3
+  const int d0 = (int)((s.v[first >> 3] >> (4 * (first & 7))) & 0xF);
+  Jac<F> acc = d0 == 0 ? jac_infinity<F>() : table[d0];
+  for (int w = first - 1; w >= 0; --w) {
     for (int t = 0; t < 4; ++t) acc = jac_double(acc);
-    int d = (int)((s[w >> 2] >> (4 * (w & 3))) & 0xF);
-    acc = jac_add(acc, table[d]);
+    const int d = (int)((s.v[w >> 3] >> (4 * (w & 7))) & 0xF);
+    if (d != 0) acc = jac_add(acc, table[d]);
   }
   store_jac(ox, oy, oz, i, acc);
 }

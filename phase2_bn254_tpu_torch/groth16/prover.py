@@ -4,9 +4,10 @@
 Synthesize the witness assignment, then on `TorchBackend`'s device:
 
 * `_h_coefficients`: a, b, c interpolated and evaluated on the coset (three
-  inverse NTTs, three coset NTTs: K6), a * b - c divided by the vanishing
-  polynomial, one inverse coset NTT; a, b, c and h stay limb tensors on the
-  device;
+  inverse NTTs, three coset NTTs: K6, the coset powers folded into the
+  passes), a * b - c, then one inverse coset NTT with the division by the
+  vanishing polynomial folded into its last pass; a, b, c and h stay limb
+  tensors on the device;
 * the query MSMs (K3, K4, K5), launched back to back through
   `TorchBackend.msm_many_async` and then waited for. The JAX package runs
   eight (h, l, a over the inputs and over the aux variables, and the same
@@ -78,7 +79,7 @@ def _h_coefficients(prover: ProvingAssignment, device) -> torch.Tensor:
 
     a, b, c = (ntt.coset_ntt(exp, ntt.ntt(exp, mont(v), True)) for v in (prover.a, prover.b, prover.c))
     ab = fp.sub(CTX, fp.mont_mul(CTX, a, b), c)
-    h = ntt.icoset_ntt(exp, ntt.divide_by_z_on_coset(exp, ab))
+    h = ntt.icoset_ntt(exp, ab, divide_by_z=True)  # icoset_ntt(divide_by_z_on_coset(ab)), one ntt call
     return fp.from_mont(CTX, h)[: m - 1]  # truncate last
 
 

@@ -48,7 +48,7 @@ ENTRY_POINTS = {
     **{f"p2_bucket_reduce_{g}": (6, 4) for g in ("g1", "g2")},
     **{f"p2_combine_windows_{g}": (6, 3) for g in ("g1", "g2")},
     **{f"p2_decompress_{g}": (5, 1) for g in ("g1", "g2")},
-    "p2_lane_dft": (5, 7),
+    "p2_lane_dft": (9, 14),
     **{f"p2_segment_sums_{g}": (11, 3) for g in ("g1", "g2")},
     "p2_field_ops": (6, 2),
 }
@@ -95,11 +95,12 @@ def constants_header() -> str:
         ("EXP_G2_B", (Q - 1) // 2, "exponent (q - 1) / 2: the G2 square root's (1 + alpha) power"),
         ("FR_P", R_MOD, "the scalar field's modulus r"),
         ("FR_ONE", mont(1, R_MOD), "R mod r (Montgomery one of Fr)"),
+        ("FR_HALF", (R_MOD - 1) // 2, "(r - 1) / 2 as an integer: the windowed ladders take k above it as (r - k)(-P)"),
         ("FQ_P2", Q * Q, "q^2 as an integer, 16 limbs: the offset of the Fq2 product's c0 (host path)"),
     ]
     lines = [
         "// BN254 constants as 8 little-endian 32-bit limbs (FQ_P2 16), Montgomery form",
-        "// (R = 2^256) except FQ_P, FR_P, FQ_R2, FQ_P2 and the EXP_ exponents. Written by",
+        "// (R = 2^256) except FQ_P, FR_P, FR_HALF, FQ_R2, FQ_P2 and the EXP_ exponents. Written by",
         "// ops/_build.py constants_header() from the refimpl integers;",
         "// tests/test_torch_batch_exp.py checks it.",
         "#pragma once",
@@ -223,10 +224,14 @@ def on_card(wrapper: str, t: torch.Tensor) -> bool:
 
 def check(wrapper: str, name: str, t: torch.Tensor, shape: tuple, device: torch.device,
           dtype: torch.dtype = torch.int64) -> None:
-    """Raise unless t is a contiguous `dtype` tensor of `shape` on `device`."""
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or t.device != device or not t.is_contiguous():
-        raise ValueError(f"{wrapper}: {name}: want contiguous {dtype} {tuple(shape)} on {device}, "
-                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    """Raise unless t is a contiguous `dtype` tensor of `shape` on
+    `device`, 16-byte aligned where it has rows (2-D or more): the kernels
+    move a row's int64 digits two at a time and its packed words four."""
+    if (t.dtype != dtype or tuple(t.shape) != tuple(shape) or t.device != device or not t.is_contiguous()
+            or (t.dim() >= 2 and t.data_ptr() % 16)):
+        raise ValueError(f"{wrapper}: {name}: want contiguous {dtype} {tuple(shape)} on {device}, rows 16-byte "
+                         f"aligned, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device} at {t.data_ptr():#x}")
 
 
 def launch(entry: str, device: torch.device, *args) -> None:

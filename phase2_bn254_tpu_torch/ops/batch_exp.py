@@ -39,6 +39,7 @@ import torch
 from ..curve import group as G
 from ..field import fp
 from ..field.fq2 import FQ, FQ2
+from ..refimpl.field import R_MOD
 from ..refimpl.gls import G2C1, G2C2
 from ..refimpl.glv import BETA
 from . import _build, gls, glv
@@ -52,6 +53,7 @@ G2_WINDOWS = GLS_WINDOWS5  # 14
 LAUNCHES = {"batch_exp_glv_signed": 0, "batch_exp_gls_signed": 0, "batch_exp_g2_windowed": 0,
             "batch_exp_g1_windowed": 0, "batch_exp_glv": 0, "batch_exp_gls": 0}
 N_WINDOWS = 64  # 4-bit windows of a canonical scalar (K9)
+_R_HALF = torch.tensor(fp.int_to_limbs((R_MOD - 1) // 2), dtype=torch.int64)  # the K8 / K9 recoding's bound
 
 
 def tau_powers(tau_start: torch.Tensor, tau_pows: torch.Tensor, coeff: torch.Tensor, log2n: int) -> torch.Tensor:
@@ -201,12 +203,24 @@ def scalar_windows_msb(scalars: torch.Tensor) -> torch.Tensor:
     return glv.windows4(scalars, N_WINDOWS)
 
 
+def half_recode(scalars: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Canonical scalars int64 (N, 16) -> (k', neg): k' = r - k and neg true
+    where k > (r - 1)/2, else k' = k (so k P = k' (+-P), k' <= (r - 1)/2)."""
+    neg = fp.gt(scalars, _R_HALF.to(scalars.device).expand_as(scalars))
+    return fp.select(neg, fp.neg(fp.FR_CTX, scalars), scalars), neg
+
+
 def _windowed_plain(f, x, y, scalars) -> G.JacobianBatch:
     """Plain K8 (f = FQ) and K9 (f = FQ2). x, y: Montgomery affine, finite;
-    scalars: int64 (N, 16) canonical. T[j] = j P for j = 0..15, then per
-    window (MSB first) 4 doublings and one add of T[d]; the windows before
-    the first nonzero digit of the batch are skipped (`_first_live_window`)."""
-    table = _table(f, x, y, 16)
+    scalars: int64 (N, 16) canonical. Per lane k > (r - 1)/2 is taken as
+    (r - k)(-P) (`half_recode`, as the kernels do); then T[j] = j P for j =
+    0..15 and per window (MSB first) 4 doublings and one add of T[d]; the
+    windows before the first nonzero digit of the batch are skipped
+    (`_first_live_window`). The kernels' later per-lane start, their table
+    (mixed adds over Fq2) and their skipped adds of T[0] leave the same
+    limbs."""
+    scalars, neg = half_recode(scalars)
+    table = _table(f, x, f.select(neg, f.neg(y), y), 16)
     acc = G.jac_zero(f, (x.shape[0],), x.device)
     digits = scalar_windows_msb(scalars)
     for d in digits[_first_live_window(digits) :]:

@@ -4,39 +4,53 @@ of `phase2_bn254_tpu/ops/ntt.py`, and of its Pallas four-step kernel K6,
 
 `ntt(exp, coeffs, inverse)`: int64 (2^exp, 16) Montgomery Fr -> the
 natural-order DFT out[k] = sum_j a_j w^(jk), w = omega (or omegainv, and then
-times 1/m), bellman's serial_fft semantics. It runs the four-step method as
-two launches of one kernel, K6 `lane_dft` (csrc/ntt.cu), for N = R C with
-R = 2^(exp // 2), C = 2^(exp - exp // 2):
+times 1/m), bellman's serial_fft semantics, for every exp from 0 to 28 (Fr's
+two-adicity). It runs the four-step method generalised to k passes,
+`four_step`, one launch of K6 `lane_dft` (csrc/ntt.cu) per entry of the
+pass plan (`pass_plan`: log2 lengths n_0, n_1, ... of at most 2^12
+elements, the most a block's shared memory holds; two passes up to exp 24,
+three above). With N = n_0 M, pass 0 takes rows j' < M of a[j' + M j]: an
+n_0-point DFT over j, times the inter-twiddle w^(j' k) (and 1/N for the
+inverse), stored at b[k M + j']. The rest is N / n_0 independent M-point
+DFTs, each contiguous in b, and pass 1 splits each of them the same way in
+place; the last pass (no twiddle) writes the digits k_0, k_1, ... of the
+output index in reverse: out[k_0 + n_0 k_1 + n_0 n_1 k_2]. A pass's row
+therefore has a two-level address (its batch and its row in the batch), see
+`Pass`. The intermediates between passes are packed (int32 (N, 8): 8 32-bit
+limbs, 32 bytes an element where the int64 layout takes 128); `ntt`'s input
+and output keep the int64 layout the rest of the port uses.
 
-1. rows j1 < R of the matrix a[j1 + R j2]: a C-point DFT over j2 with root
-   w^R, times the inter-twiddle w^(j1 k2) (and 1/N for the inverse), stored
-   transposed, b[k2 R + j1];
-2. rows k2 < C of b: an R-point DFT over j1 with root w^C, stored at
-   out[k2 + C k1].
-
-For exp = 1 (R = 1) the first pass is the whole DFT, 1/N included. One path
-for every exp from 1 to 24 (C <= 4096 elements in a block's shared memory);
-above 24 `ntt` raises NotImplementedError (ROADMAP.md queue 2, K6 item).
-
-The twiddle tables are built on the tensors' device by log-doubling
-(`geometric`): the stage table w_C^j (j < C/2) of each pass and the two
-halves of the inter-twiddle, w^i (i < C) and scale w^(C i) (i < R), whose
-product at i = e mod C, e div C is w^e scale for e = j1 k2 < N.
+Tables (built once per exp, direction, factors and device by log-doubling,
+`geometric`, and kept, packed): each pass's stage table w_C^j (j < C/2)
+and, but for the last pass, the two halves of its inter-twiddle. The
+coset helpers fold their pointwise factors into the passes: `coset_ntt`
+multiplies each input a_i by g^i in pass 0's load, and `icoset_ntt`
+multiplies each output by geninv^k (times 1/(g^N - 1) with divide_by_z) in
+the last pass's store, each factor split as lo[i mod 2^b] hi[i >> b] as the
+inter-twiddle is. So a coset NTT is one `ntt` call, with no pointwise pass
+and no table built per call.
 
 `lane_dft` launches the kernel for CUDA tensors (or raises) and counts the
-launch in `LAUNCHES["lane_dft"]`; for CPU tensors it takes the plain version,
-`lane_dft_plain`, the same function in whole-tensor torch ops (its DFT,
-`dft_rows_plain`, is the JAX package's `_ntt_xla` stage loop, ops/ntt.py:
+launch in `LAUNCHES["lane_dft"]`; for CPU tensors it takes the plain
+version, `lane_dft_plain`, the same function in whole-tensor torch ops (its
+DFT, `dft_rows_plain`, is the JAX package's `_ntt_xla` stage loop, ops/ntt.py:
 110-130, batched over rows). Values are fully reduced, so the two agree limb
 for limb.
 
-The pointwise coset helpers (`distribute_powers`, `coset_ntt`, `icoset_ntt`,
-`divide_by_z_on_coset`) are plain torch on the tensors' device.
+`distribute_powers` and `divide_by_z_on_coset` stay the pointwise helpers
+they are in the JAX package (plain torch on the tensors' device).
+
+Memory: besides its input (128 bytes an element), `ntt` at exp holds its
+output and one packed intermediate (the middle of three passes runs in
+place), 160 bytes an element (`device_bytes`): 5 GiB at 2^25, 40 GiB at
+2^28, where input, output and intermediate take 72 GiB together. Where the
+card runs out, it raises MemoryError with those numbers.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -47,7 +61,8 @@ from . import _build
 
 CTX = fp.FR_CTX
 MULT_GEN = FR_GENERATOR  # Fr::multiplicative_generator() = 7
-MAX_EXP = 24  # the longer pass holds C = 2^(exp - exp // 2) <= 4096 elements (128 KiB) in shared memory
+MAX_PASS_LOG = 12  # a pass's row, 2^12 packed elements (128 KiB), in one block's shared memory
+TWO_PASS_MAX_EXP = 2 * MAX_PASS_LOG
 
 # kernel launches; only a launch of the kernel counts
 LAUNCHES = {"lane_dft": 0}
@@ -81,59 +96,151 @@ def geometric(ratio: int, log2n: int, device, start: int = 1) -> torch.Tensor:
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def _bitrev(log2n: int, device: torch.device) -> torch.Tensor:
-    idx = torch.arange(1 << log2n, device=device)
-    rev = torch.zeros_like(idx)
-    for b in range(log2n):
-        rev |= ((idx >> b) & 1) << (log2n - 1 - b)
-    return rev
+def pack(digits: torch.Tensor) -> torch.Tensor:
+    """int64 (..., 16) 16-bit digits -> int32 (..., 8) 32-bit limbs (the
+    bits of each uint32 limb)."""
+    w = digits[..., 0::2] | (digits[..., 1::2] << 16)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
 
 
-@functools.lru_cache(maxsize=8)
-def _tables(exp: int, inverse: bool, device: torch.device):
-    """(stage table of pass 1, inter-twiddle w^i (i < C), scale w^(C i)
-    (i < R), stage table of pass 2), on `device`."""
+def unpack(limbs: torch.Tensor) -> torch.Tensor:
+    """int32 (..., 8) -> int64 (..., 16) digits (inverse of `pack`)."""
+    w = limbs.to(torch.int64) & 0xFFFFFFFF
+    return torch.stack([w & 0xFFFF, w >> 16], dim=-1).flatten(-2)
+
+
+def pass_plan(exp: int) -> tuple[int, ...]:
+    """log2 lengths of `ntt`'s passes at exp, first pass first: none at exp
+    0, one at exp 1, two up to exp 24 and three above, as even as they go
+    with the longer ones first (24: 12, 12; 25: 9, 8, 8; 28: 10, 9, 9); each
+    at most MAX_PASS_LOG."""
+    Domain(exp)  # the range check
+    k = min(exp, 2 if exp <= TWO_PASS_MAX_EXP else 3)
+    return tuple(exp // k + (i < exp % k) for i in range(k)) if k else ()
+
+
+def device_bytes(exp: int) -> int:
+    """Device bytes `ntt` holds at exp beyond its input: the int64 output
+    and, with two passes or more, one packed intermediate."""
+    m = 1 << exp
+    return 128 * m + (32 * m if len(pass_plan(exp)) > 1 else 0)
+
+
+class Factors(NamedTuple):
+    """A per-element factor lo[i mod 2^bits] * hi[i >> bits], packed tables."""
+    lo: torch.Tensor
+    hi: torch.Tensor
+    bits: int
+
+
+class Pass(NamedTuple):
+    """One K6 pass: `rows` rows of 2^log2c elements; row r = (r_hi, r_lo),
+    r_lo = r mod 2^rlo_bits, element j at in[r_hi ins[0] + r_lo ins[1] + j
+    ins[2]], output k at out[r_hi outs[0] + r_lo outs[1] + k outs[2]]; the
+    stage table w_C^j (j < C/2); the inter-twiddle at e = r_lo k; factors
+    by input and by output address (None: none)."""
+    rows: int
+    log2c: int
+    rlo_bits: int
+    ins: tuple[int, int, int]
+    outs: tuple[int, int, int]
+    stage: torch.Tensor
+    twiddle: Factors | None = None
+    load: Factors | None = None
+    store: Factors | None = None
+
+
+def _factors(ratio: int, bits: int, total_bits: int, device, scale: int = 1) -> Factors:
+    """scale * ratio^i for i < 2^total_bits, split at bit `bits`."""
+    lo = pack(geometric(ratio, bits, device, start=scale))
+    hi = pack(geometric(pow(ratio, 1 << bits, R_MOD), total_bits - bits, device))
+    return Factors(lo, hi, bits)
+
+
+@functools.lru_cache(maxsize=16)
+def _plan_passes(exp: int, inverse: bool, plan: tuple[int, ...], pre: int | None, post: tuple[int, int] | None,
+                 device: torch.device) -> tuple[Pass, ...]:
+    """The passes of `four_step` (see the module docstring), with their
+    tables on `device`."""
     d = Domain(exp)
     w = d.omegainv if inverse else d.omega
-    log2r = exp // 2
-    log2c = exp - log2r
-    scale = d.minv if inverse else 1
-    stage1 = geometric(pow(w, 1 << log2r, R_MOD), log2c - 1, device)
-    lo = geometric(w, log2c, device)
-    hi = geometric(pow(w, 1 << log2c, R_MOD), log2r, device, start=scale)
-    stage2 = geometric(pow(w, 1 << log2c, R_MOD), log2r - 1, device) if log2r else None
-    return stage1, lo, hi, stage2
+    passes = []
+    prefix = 0  # log2 of the passes' output digits so far (the batches)
+    for p, lc in enumerate(plan):
+        suffix = exp - prefix - lc  # log2 of the rows in a batch
+        stage = pack(geometric(pow(w, 1 << (exp - lc), R_MOD), lc - 1, device))
+        last = p == len(plan) - 1
+        if not last:
+            # row = batch * S + r_lo: address batch (C S) + r_lo + S j, in and out
+            strides = (1 << (lc + suffix), 1, 1 << suffix)
+            spec = dict(rows=1 << (prefix + suffix), rlo_bits=suffix, ins=strides, outs=strides)
+        else:
+            # S = 1, row = batch, in at batch C + j; the batch's digits reversed on output:
+            # batch = (k_0, k_1) -> k_0 + n_0 k_1, and k at stride 2^prefix
+            split = plan[-2] if p >= 2 else prefix
+            lo_out = 1 << (prefix - split)
+            spec = dict(rows=1 << prefix, rlo_bits=split, ins=(1 << (lc + split), 1 << lc, 1),
+                        outs=(1, lo_out, 1 << prefix))
+        twiddle = None
+        if p == 0:  # the inter-twiddle w^(r k) (r < M, k < n_0), 1/N of the inverse folded in
+            twiddle = _factors(w, lc, exp, device, scale=d.minv if inverse else 1)
+        elif not last:
+            twiddle = _factors(pow(w, 1 << prefix, R_MOD), lc, exp - prefix, device)
+        load = _factors(pre, exp - lc, exp, device) if p == 0 and pre is not None else None
+        store = _factors(post[0], prefix, exp, device, scale=post[1]) if last and post is not None else None
+        passes.append(Pass(log2c=lc, stage=stage, twiddle=twiddle, load=load, store=store, **spec))
+        prefix += lc
+    return tuple(passes)
+
+
+def four_step(exp: int, coeffs: torch.Tensor, inverse: bool, plan: tuple[int, ...] | None = None,
+              pre: int | None = None, post: tuple[int, int] | None = None, lane=None) -> torch.Tensor:
+    """The k-pass NTT of int64 (2^exp, 16) Montgomery Fr coeffs over `plan`
+    (at most three log2 pass lengths summing to exp, each at most
+    MAX_PASS_LOG; by default `pass_plan(exp)`): with pre = g, input i is
+    first multiplied by g^i; with post = (ratio, scale), output k by scale
+    ratio^k. One `lane` call (`lane_dft`, the default, or `lane_dft_plain`)
+    per pass; a new tensor on the coeffs' device."""
+    lane = lane or lane_dft
+    d = Domain(exp)
+    if tuple(coeffs.shape) != (d.m, fp.NLIMBS) or coeffs.dtype != torch.int64:
+        raise ValueError(f"ntt: want int64 ({d.m}, {fp.NLIMBS}) limbs, got {coeffs.dtype} {tuple(coeffs.shape)}")
+    plan = pass_plan(exp) if plan is None else tuple(plan)
+    if sum(plan) != exp or len(plan) > 3 or not all(1 <= lc <= MAX_PASS_LOG for lc in plan):
+        raise ValueError(f"ntt: plan {plan} is not at most 3 lengths of 2^1..2^{MAX_PASS_LOG} elements "
+                         f"summing to 2^{exp} (a pass's row address has two levels)")
+    if not plan:
+        x = coeffs.clone()
+        if pre is not None or post is not None:
+            scale = post[1] if post is not None else 1
+            x = fp.mont_mul(CTX, x, convert.ints_to_limbs([CTX.to_mont_int(scale)], x.device)[0])
+        return x
+    try:
+        passes = _plan_passes(exp, inverse, plan, pre, post, coeffs.device)
+        # the output first, then the one packed intermediate, which the middle
+        # pass updates in place: every call asks the caching allocator for
+        # the same two sizes in the same order, so at 2^28 no large cached
+        # block is split for a smaller one and the card holds the call
+        result = torch.empty_like(coeffs)
+        x = coeffs
+        for p, spec in enumerate(passes):
+            last = p == len(passes) - 1
+            x = lane(x, spec, packed_out=not last, out=result if last else x if p else None)
+        return x
+    except torch.OutOfMemoryError as e:
+        raise MemoryError(f"ntt at exp {exp}: the card ran out of memory; the call needs {device_bytes(exp)} bytes "
+                          f"beside its {128 * d.m}-byte input") from e
 
 
 def ntt(exp: int, coeffs: torch.Tensor, inverse: bool) -> torch.Tensor:
     """The DFT of int64 (2^exp, 16) Montgomery Fr coeffs (JAX `ops.ntt.ntt`),
-    by two K6 passes; a new tensor on the coeffs' device."""
-    return _four_step(exp, coeffs, inverse, lane_dft)
+    by `pass_plan(exp)`'s K6 passes; a new tensor on the coeffs' device."""
+    return four_step(exp, coeffs, inverse)
 
 
 def ntt_plain(exp: int, coeffs: torch.Tensor, inverse: bool) -> torch.Tensor:
-    """`ntt` through the plain version of both passes, on any device."""
-    return _four_step(exp, coeffs, inverse, lane_dft_plain)
-
-
-def _four_step(exp: int, coeffs: torch.Tensor, inverse: bool, lane) -> torch.Tensor:
-    if exp > MAX_EXP:
-        raise NotImplementedError(f"ntt at exp {exp}: K6 takes exp <= {MAX_EXP} (ROADMAP.md queue 2, the K6 item: "
-                                  "a third pass for exp 25-28)")
-    d = Domain(exp)
-    if tuple(coeffs.shape) != (d.m, fp.NLIMBS):
-        raise ValueError(f"ntt: want ({d.m}, {fp.NLIMBS}) limbs, got {tuple(coeffs.shape)}")
-    if d.m == 1:
-        return coeffs.clone()
-    log2r = exp // 2
-    log2c = exp - log2r
-    r, c = 1 << log2r, 1 << log2c
-    stage1, lo, hi, stage2 = _tables(exp, inverse, coeffs.device)
-    b = lane(coeffs, r, log2c, 1, r, 1, r, stage1, lo, hi, log2c)
-    if log2r == 0:
-        return b
-    return lane(b, c, log2r, r, 1, 1, c, stage2)
+    """`ntt` through the plain version of each pass, on any device."""
+    return four_step(exp, coeffs, inverse, lane=lane_dft_plain)
 
 
 # ---------------------------------------------------------------------------
@@ -142,8 +249,8 @@ def _four_step(exp: int, coeffs: torch.Tensor, inverse: bool, lane) -> torch.Ten
 
 def dft_rows_plain(x: torch.Tensor, log2c: int, stage_tw: torch.Tensor) -> torch.Tensor:
     """Radix-2 DIT DFT along axis 1 of (rows, C, 16) Montgomery limbs in
-    bit-reversed order -> natural order; stage_tw[j] = w^j, j < C/2. The
-    JAX `_ntt_xla` stage loop, batched over rows."""
+    bit-reversed order -> natural order; stage_tw[j] = w^j, j < C/2 (int64
+    digits). The JAX `_ntt_xla` stage loop, batched over rows."""
     rows, c = x.shape[:2]
     for s in range(1, log2c + 1):
         mlen, half = 1 << s, 1 << (s - 1)
@@ -155,64 +262,119 @@ def dft_rows_plain(x: torch.Tensor, log2c: int, stage_tw: torch.Tensor) -> torch
     return x
 
 
-def lane_dft_plain(x, rows, log2c, irs, ics, ors, ocs, stage_tw, tw_lo=None, tw_hi=None, lo_bits=0) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _bitrev(log2n: int, device: torch.device) -> torch.Tensor:
+    idx = torch.arange(1 << log2n, device=device)
+    rev = torch.zeros_like(idx)
+    for b in range(log2n):
+        rev |= ((idx >> b) & 1) << (log2n - 1 - b)
+    return rev
+
+
+def _addresses(spec: Pass, strides: tuple[int, int, int], device) -> torch.Tensor:
+    """(rows, C) element addresses of a pass's input or output."""
+    r = torch.arange(spec.rows, device=device)[:, None]
+    j = torch.arange(1 << spec.log2c, device=device)[None, :]
+    return (r >> spec.rlo_bits) * strides[0] + (r & ((1 << spec.rlo_bits) - 1)) * strides[1] + j * strides[2]
+
+
+def _times(y: torch.Tensor, f: Factors, e: torch.Tensor) -> torch.Tensor:
+    """y * f.lo[e mod 2^bits] * f.hi[e >> bits] (Montgomery)."""
+    lo, hi = unpack(f.lo), unpack(f.hi)
+    return fp.mont_mul(CTX, y, fp.mont_mul(CTX, lo[e & ((1 << f.bits) - 1)], hi[e >> f.bits]))
+
+
+def lane_dft_plain(x: torch.Tensor, spec: Pass, packed_out: bool = False, out: torch.Tensor | None = None):
     """Plain PyTorch K6: the pass of `lane_dft` in whole-tensor ops."""
-    c = 1 << log2c
-    view = torch.as_strided(x, (rows, c, fp.NLIMBS), (irs * fp.NLIMBS, ics * fp.NLIMBS, 1))
-    y = dft_rows_plain(view[:, _bitrev(log2c, x.device)], log2c, stage_tw)
-    if tw_lo is not None:
-        e = torch.arange(rows, device=x.device)[:, None] * torch.arange(c, device=x.device)[None, :]
-        y = fp.mont_mul(CTX, y, fp.mont_mul(CTX, tw_lo[e & ((1 << lo_bits) - 1)], tw_hi[e >> lo_bits]))
-    out = torch.empty_like(x)
-    torch.as_strided(out, (rows, c, fp.NLIMBS), (ors * fp.NLIMBS, ocs * fp.NLIMBS, 1)).copy_(y)
-    return out
+    digits = unpack(x) if x.dtype == torch.int32 else x
+    src = _addresses(spec, spec.ins, x.device)
+    v = digits[src]
+    if spec.load is not None:
+        v = _times(v, spec.load, src)
+    y = dft_rows_plain(v[:, _bitrev(spec.log2c, x.device)], spec.log2c, unpack(spec.stage))
+    if spec.twiddle is not None:
+        r_lo = torch.arange(spec.rows, device=x.device)[:, None] & ((1 << spec.rlo_bits) - 1)
+        y = _times(y, spec.twiddle, r_lo * torch.arange(1 << spec.log2c, device=x.device)[None, :])
+    dst = _addresses(spec, spec.outs, x.device)
+    if spec.store is not None:
+        y = _times(y, spec.store, dst)
+    res = torch.empty_like(digits)
+    res[dst] = y
+    res = pack(res) if packed_out else res
+    return res if out is None else out.copy_(res)
 
 
-def lane_dft(x, rows, log2c, irs, ics, ors, ocs, stage_tw, tw_lo=None, tw_hi=None, lo_bits=0) -> torch.Tensor:
-    """K6: one four-step pass (see csrc/ntt.cu) over x, int64 (rows 2^log2c,
-    16) Montgomery Fr: row r, element j at x[r irs + j ics]; element k of
-    row r's DFT (times tw_lo[e mod 2^lo_bits] tw_hi[e >> lo_bits], e = r k,
-    when tw_lo is given) goes to out[r ors + k ocs]. Returns out, a new
-    tensor. CPU tensors take the plain version; CUDA tensors launch
+def lane_dft(x: torch.Tensor, spec: Pass, packed_out: bool = False, out: torch.Tensor | None = None):
+    """K6: one pass (see csrc/ntt.cu and `Pass`) over x, int64 (N, 16)
+    digits or int32 (N, 8) packed Montgomery Fr, N = rows 2^log2c, into
+    `out` (packed with packed_out; a new tensor where out is None; x itself
+    where the pass's input and output addresses are the same). Returns
+    out. CPU tensors take the plain version; CUDA tensors launch
     csrc/ntt.cu."""
-    c = 1 << log2c
-    n = rows * c
-    for name, (rs, cs) in (("input", (irs, ics)), ("output", (ors, ocs))):
-        if (rows - 1) * rs + (c - 1) * cs >= n or min(rs, cs) < 1:
-            raise ValueError(f"lane_dft: {name} strides ({rs}, {cs}) leave the {n} elements")
+    c = 1 << spec.log2c
+    n = spec.rows * c
+    for name, strides in (("input", spec.ins), ("output", spec.outs)):
+        hi_rows = (spec.rows - 1) >> spec.rlo_bits
+        lo_rows = min(spec.rows, 1 << spec.rlo_bits) - 1
+        if hi_rows * strides[0] + lo_rows * strides[1] + (c - 1) * strides[2] >= n or min(strides) < 0:
+            raise ValueError(f"lane_dft: {name} strides {strides} leave the {n} elements")
+    if out is x and spec.ins != spec.outs:
+        raise ValueError("lane_dft: in place only where the input and output addresses are the same")
     if not _build.on_card("lane_dft", x):
-        return lane_dft_plain(x, rows, log2c, irs, ics, ors, ocs, stage_tw, tw_lo, tw_hi, lo_bits)
-    if log2c < 1 or c > 1 << (MAX_EXP - MAX_EXP // 2):
-        raise ValueError(f"lane_dft: pass length 2^{log2c} outside [2, {1 << (MAX_EXP - MAX_EXP // 2)}]")
-    _build.check("lane_dft", "x", x, (n, fp.NLIMBS), x.device)
-    _build.check("lane_dft", "stage_tw", stage_tw, (c // 2, fp.NLIMBS), x.device)
-    if tw_lo is not None:
-        _build.check("lane_dft", "tw_lo", tw_lo, (1 << lo_bits, fp.NLIMBS), x.device)
-        _build.check("lane_dft", "tw_hi", tw_hi, (-(-n // (1 << lo_bits)), fp.NLIMBS), x.device)
-    out = torch.empty_like(x)
-    _build.launch("p2_lane_dft", x.device, x, out, stage_tw, tw_lo, tw_hi, rows, log2c, lo_bits, irs, ics, ors, ocs)
+        return lane_dft_plain(x, spec, packed_out, out)
+    if not 1 <= spec.log2c <= MAX_PASS_LOG:
+        raise ValueError(f"lane_dft: pass length 2^{spec.log2c} outside [2, 2^{MAX_PASS_LOG}]")
+    packed_in = x.dtype == torch.int32
+    _build.check("lane_dft", "x", x, (n, 8 if packed_in else fp.NLIMBS), x.device, x.dtype)
+    _build.check("lane_dft", "stage", spec.stage, (c // 2, 8), x.device, torch.int32)
+    tables = []
+    for name, f, size in (("twiddle", spec.twiddle, None), ("load", spec.load, None), ("store", spec.store, None)):
+        if f is None:
+            tables += [None, None, 0]
+            continue
+        _build.check("lane_dft", f"{name}.lo", f.lo, (1 << f.bits, 8), x.device, torch.int32)
+        _build.check("lane_dft", f"{name}.hi", f.hi, (f.hi.shape[0], 8), x.device, torch.int32)
+        tables += [f.lo, f.hi, f.bits]
+    shape, dtype = ((n, 8), torch.int32) if packed_out else ((n, fp.NLIMBS), torch.int64)
+    if out is None:
+        out = torch.empty(shape, dtype=dtype, device=x.device)
+    _build.check("lane_dft", "out", out, shape, x.device, dtype)
+    (tw_lo, tw_hi, tw_bits), (fin_lo, fin_hi, fin_bits), (fout_lo, fout_hi, fout_bits) = \
+        tables[0:3], tables[3:6], tables[6:9]
+    _build.launch("p2_lane_dft", x.device, x, out, spec.stage, tw_lo, tw_hi, fin_lo, fin_hi, fout_lo, fout_hi,
+                  spec.rows, spec.log2c, spec.rlo_bits, tw_bits, fin_bits, fout_bits, *spec.ins, *spec.outs,
+                  int(packed_in), int(packed_out))
     LAUNCHES["lane_dft"] += 1
     return out
 
 
 # ---------------------------------------------------------------------------
-# pointwise coset helpers (JAX ops/ntt.py:265-296)
+# coset helpers (JAX ops/ntt.py:265-296)
 # ---------------------------------------------------------------------------
 
 def distribute_powers(exp: int, coeffs: torch.Tensor, g: int) -> torch.Tensor:
-    """coeffs[i] * g^i (domain.rs:176-189); g is a host int."""
+    """coeffs[i] * g^i (domain.rs:176-189); g is a host int. Pointwise,
+    plain torch: `coset_ntt` folds the same factors into its first pass."""
     return fp.mont_mul(CTX, coeffs, geometric(g, exp, coeffs.device))
 
 
 def coset_ntt(exp: int, coeffs: torch.Tensor) -> torch.Tensor:
-    return ntt(exp, distribute_powers(exp, coeffs, MULT_GEN), False)
+    """ntt(distribute_powers(coeffs, g)), the powers applied in pass 0's load."""
+    return four_step(exp, coeffs, False, pre=MULT_GEN)
 
 
-def icoset_ntt(exp: int, coeffs: torch.Tensor) -> torch.Tensor:
-    return distribute_powers(exp, ntt(exp, coeffs, True), Domain(exp).geninv)
+def z_inverse(exp: int) -> int:
+    """1/(g^m - 1): z is constant on the coset (domain.rs:217-230)."""
+    return pow(pow(MULT_GEN, 1 << exp, R_MOD) - 1, -1, R_MOD)
+
+
+def icoset_ntt(exp: int, coeffs: torch.Tensor, divide_by_z: bool = False) -> torch.Tensor:
+    """distribute_powers(ntt^-1(coeffs), geninv), the powers applied in the
+    last pass's store; with divide_by_z, of divide_by_z_on_coset(coeffs),
+    its constant folded into the same factors."""
+    return four_step(exp, coeffs, True, post=(Domain(exp).geninv, z_inverse(exp) if divide_by_z else 1))
 
 
 def divide_by_z_on_coset(exp: int, coeffs: torch.Tensor) -> torch.Tensor:
     """Multiply by 1/(g^m - 1): z is constant on the coset (domain.rs:217-230)."""
-    zinv = pow(pow(MULT_GEN, 1 << exp, R_MOD) - 1, -1, R_MOD)
-    return fp.mont_mul(CTX, coeffs, convert.ints_to_limbs([CTX.to_mont_int(zinv)], coeffs.device)[0])
+    return fp.mont_mul(CTX, coeffs, convert.ints_to_limbs([CTX.to_mont_int(z_inverse(exp))], coeffs.device)[0])

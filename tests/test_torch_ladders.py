@@ -13,7 +13,9 @@ them, against the JAX package and refimpl.
   the edge scalars of tests/test_torch_batch_exp.py and random ones;
 * the CUDA sources' per-point code (csrc/batch_exp_glv.cu,
   batch_exp_g1_windowed.cu, batch_exp_gls.cu) compiled with g++ against the
-  plain versions, limb for limb;
+  plain versions, limb for limb; ladders.cuh's windowed ladder (K8 and K9)
+  on the edge scalars of its recoding and its per-thread start, also
+  against refimpl;
 * `Ladders.from_env` over the eight combinations of the three variables,
   against the table of the JAX package's `ops/backend.py:133-172` and
   `ops/segsum.py:104-115`;
@@ -159,11 +161,16 @@ _HOST_SHIM = r"""
 #define __noinline__
 #define __constant__
 #include "batch_exp_g1_windowed.cu"
+#include "batch_exp_g2_windowed.cu"
 #include "batch_exp_glv.cu"
 #include "batch_exp_gls.cu"
 extern "C" void host_k8(const int64_t* x, const int64_t* y, const int64_t* k, int64_t* ox, int64_t* oy,
                         int64_t* oz, int n) {
   for (int i = 0; i < n; ++i) batch_exp_g1_windowed_point(x, y, k, ox, oy, oz, i);
+}
+extern "C" void host_k9(const int64_t* x, const int64_t* y, const int64_t* k, int64_t* ox, int64_t* oy,
+                        int64_t* oz, int n) {
+  for (int i = 0; i < n; ++i) batch_exp_g2_windowed_point(x, y, k, ox, oy, oz, i);
 }
 extern "C" void host_k7(const int64_t* x, const int64_t* y, const int64_t* d1, const int64_t* d2,
                         const int64_t* negs, int64_t* ox, int64_t* oy, int64_t* oz, int n, int nw) {
@@ -196,6 +203,40 @@ def test_cuda_sources_arithmetic_on_host_matches_plain(ladder_cases, host_lib, n
     windows = [] if name == "k8" else [ctypes.c_int(inputs[0].shape[-2])]
     getattr(host_lib, f"host_{name}")(*ptrs, ctypes.c_int(len(vals)), *windows)
     assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+# ladders.cuh's windowed ladder at the edges of its recoding and its start:
+# k <= (r - 1)/2 runs as it is, k above as (r - k)(-P); one window, small
+# digits (a table built up to 1, 2, 15 or 16 = 1 0), a single high bit
+WINDOWED_EDGE = [0, 1, 2, 15, 16, 1 << 5, 1 << 64, 1 << 128, 1 << 253, (R_MOD - 1) // 2, (R_MOD + 1) // 2,
+                 R_MOD - 2, R_MOD - 1, R_MOD - 16, R_MOD - (1 << 100)]
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_windowed_ladder_edge_scalars_on_host(host_lib, group):
+    """K8 (G1) and K9 (G2), csrc/ladders.cuh windowed_ladder_point compiled
+    by g++, on WINDOWED_EDGE: limb for limb with the plain version (which
+    takes the same recoding), and k P against refimpl after normalizing."""
+    import random
+
+    from phase2_bn254_tpu_torch.refimpl import curve as rc
+
+    rng = random.Random(f"windowed {group}")
+    gen = rc.G1_GEN if group == "g1" else rc.G2_GEN
+    pts = [gen.mul(rng.randrange(1, R_MOD)) for _ in WINDOWED_EDGE]
+    aff = convert.points_to_affine(pts, group, "cpu")
+    k = convert.ints_to_limbs(WINDOWED_EDGE, "cpu")
+    plain = batch_exp.batch_exp_g1_windowed if group == "g1" else batch_exp.batch_exp_g2_windowed
+    want = plain(aff.x, aff.y, k)
+    out = [torch.empty_like(aff.x) for _ in range(3)]
+    getattr(host_lib, "host_k8" if group == "g1" else "host_k9")(
+        *[ctypes.c_void_p(t.data_ptr()) for t in (aff.x, aff.y, k, *out)], ctypes.c_int(len(WINDOWED_EDGE)))
+    assert all(torch.equal(a, b) for a, b in zip(out, want))
+    got = convert.affine_to_points(G.jac_normalize(FQ if group == "g1" else FQ2, G.JacobianBatch(*out)), group)
+    assert got == [p.mul(v) for p, v in zip(pts, WINDOWED_EDGE)]
+    recoded, neg = batch_exp.half_recode(k)
+    assert neg.tolist() == [v > (R_MOD - 1) // 2 for v in WINDOWED_EDGE]
+    assert convert.limbs_to_ints(recoded) == [min(v, R_MOD - v) if v else 0 for v in WINDOWED_EDGE]
 
 
 def test_wrappers_take_no_other_device():
