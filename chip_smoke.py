@@ -95,7 +95,19 @@ phases:
    launch of each); and
    `new` at 2^18 constraints under PHASE2_TPU_NO_SIGNED5 (the G1 terms on
    K7) writes phase 13's .params bytes; K7 against its plain version on the
-   set `new` took (plain on its first PLAIN_SCAN_N lanes).
+   set `new` took (plain on its first PLAIN_SCAN_N lanes);
+16. the BLS12-381 engine (`bls12_381/`): its 12-limb field code (fieldops.cu)
+   against field/fp.py / fq2.py on 2^16 Fq and 2^16 Fq2 pairs, the edge
+   operands first; K8-BLS and K9-BLS (the windowed ladders over BLS12-381's
+   Fq and Fq2) against their plain versions at 2^16 points with the edge
+   scalars first, limb for limb on the first PLAIN_BLS_N lanes; the slice
+   at 2^16 compressed G1 and 2^16 compressed G2 points (decode_batch,
+   device.ladder, normalize, encode_batch, each part timed, the kernel's
+   launches counted from zero around it), its bytes on BLS_SAMPLE lanes
+   spread over the batch against the host chain (host decode, Point.mul,
+   host encode), and tampered encodings (no compression flag, an infinity
+   flag, x = q, a non-residue x) rejected; time per call, bound
+   (MULS_PER_BLS_*), ptxas registers and spills.
 
 Each kernel's bound is the larger of two times: the bytes of its inputs and
 outputs over the card's memory rate, and its 32-bit integer multiplies over
@@ -180,10 +192,22 @@ def _op_muls(product: int, square: int) -> dict:
     return {op: FIELD_PRODUCTS[op] * product + FIELD_SQUARES[op] * square for op in FIELD_PRODUCTS}
 
 
+# ... and the same at BLS12-381 width (ops/_ptx.py on 12 x 32-bit limbs):
+# 144 limb products a_j b_i and 144 reduction products m q_j (a low and a
+# high half each), 12 products m; a square's 66 cross products and 12
+# squares; an Fq2 product's three unreduced 12 x 12 products and two
+# reductions of 12 rows, a square's two and two
+MULS_PER_BLS_FQ_PRODUCT = 2 * (144 + 144) + 12  # 588
+MULS_PER_BLS_FQ_SQUARE = 2 * (78 + 144) + 12  # 456
+MULS_PER_BLS_FQ2_PRODUCT = 3 * 2 * 144 + 2 * (2 * 144 + 12)  # 1464
+MULS_PER_BLS_FQ2_SQUARE = 2 * 2 * 144 + 2 * (2 * 144 + 12)  # 1176
+
 # 32-bit multiplies per group operation: the unit every bound and count
 # below is in
 OP_MULS = {"g1": _op_muls(MULS_PER_FQ_PRODUCT, MULS_PER_FQ_SQUARE),
-           "g2": _op_muls(MULS_PER_FQ2_PRODUCT, MULS_PER_FQ2_SQUARE)}
+           "g2": _op_muls(MULS_PER_FQ2_PRODUCT, MULS_PER_FQ2_SQUARE),
+           "bls_g1": _op_muls(MULS_PER_BLS_FQ_PRODUCT, MULS_PER_BLS_FQ_SQUARE),
+           "bls_g2": _op_muls(MULS_PER_BLS_FQ2_PRODUCT, MULS_PER_BLS_FQ2_SQUARE)}
 
 
 @contextlib.contextmanager
@@ -2015,8 +2039,9 @@ PLAIN_SCAN_N = 1 << 17
 
 def _windowed_muls(group: str, scalars):
     """Multiplies (N,) k P takes on these scalars by the plain windowed
-    ladder (K8 on G1, K9 on G2, csrc/ladders.cuh windowed_ladder_point), as
-    far as this data needs it: k above (r - 1)/2 as (r - k)(-P) (no
+    ladder (K8 on G1, K9 on G2, csrc/ladders.cuh windowed_ladder_point; on
+    "bls_g1" / "bls_g2" K8-BLS / K9-BLS, with BLS12-381's r and field costs),
+    as far as this data needs it: k above (r - 1)/2 as (r - k)(-P) (no
     multiplies), the multiples up to each point's largest 4-bit window by a
     doubling and mixed adds, 4 doublings per window after the first nonzero
     one, one add per nonzero window after the first (k = 1 and k = r - 1
@@ -2024,7 +2049,7 @@ def _windowed_muls(group: str, scalars):
     from phase2_bn254_tpu_torch.ops import batch_exp
 
     ops = OP_MULS[group]
-    win = batch_exp.scalar_windows_msb(batch_exp.half_recode(scalars)[0])
+    win = batch_exp.scalar_windows_msb(batch_exp.half_recode(scalars, _scalar_modulus(group))[0])
     nz = win != 0
     adds = (nz.sum(0) - 1).clamp(min=0)
     return _table_muls(ops, win.amax(0), mixed=True) + _ladder_doublings(nz, 4) * ops["dbl"] + adds * ops["add"]
@@ -2039,10 +2064,19 @@ def _windowed_kernel_muls(group: str, scalars) -> int:
     from phase2_bn254_tpu_torch.ops import batch_exp
 
     ops = OP_MULS[group]
-    top = batch_exp.scalar_windows_msb(batch_exp.half_recode(scalars)[0]).amax(0)
+    top = batch_exp.scalar_windows_msb(batch_exp.half_recode(scalars, _scalar_modulus(group))[0]).amax(0)
     whole = torch.where(top >= 2, torch.full_like(top, 15), top)
     return int((_windowed_muls(group, scalars) - _table_muls(ops, top, mixed=True)
-                + _table_muls(ops, whole, mixed=group == "g2")).sum())
+                + _table_muls(ops, whole, mixed=group.endswith("g2"))).sum())
+
+
+def _scalar_modulus(group: str) -> int:
+    """r of the curve of `group` ("g1", "g2": BN254; "bls_g1", "bls_g2")."""
+    if group.startswith("bls_"):
+        from phase2_bn254_tpu_torch.bls12_381.field import R_MOD
+    else:
+        from phase2_bn254_tpu_torch.refimpl.field import R_MOD
+    return R_MOD
 
 
 def _k9_kernel_muls(scalars) -> int:
@@ -2867,9 +2901,221 @@ def phase_configurations(card: Card, workdir: str, records: list[dict], response
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the BLS12-381 engine
+# ---------------------------------------------------------------------------
+
+BLS_N = 1 << 16  # points of each group through phase 16's kernels and slice (KERNEL_N)
+PLAIN_BLS_N = 1 << 12  # the prefix of phase 16's lanes the plain K8-BLS / K9-BLS are held to
+BLS_SAMPLE = 64  # lanes of the slice held to the host chain, spread over the batch
+BLS_CASES = {  # group -> (tag, wrapper, source, the TPU kernel the JAX package runs at this width)
+    "g1": ("K8-BLS", "batch_exp_bls_g1_windowed", "phase2_bn254_tpu_torch/csrc/batch_exp_g1_windowed.cu",
+           "phase2_bn254_tpu/ops/pallas_exp.py:358"),
+    "g2": ("K9-BLS", "batch_exp_bls_g2_windowed", "phase2_bn254_tpu_torch/csrc/batch_exp_g2_windowed.cu",
+           "phase2_bn254_tpu/ops/pallas_exp.py:449"),
+}
+
+
+def _bls_edge_scalars(n: int, rng: random.Random) -> list[int]:
+    """The windowed ladder's edges over BLS12-381's r, then uniform scalars."""
+    from phase2_bn254_tpu_torch.bls12_381.field import R_MOD
+
+    edge = [0, 1, 2, 15, 16, (R_MOD - 1) // 2, (R_MOD + 1) // 2, R_MOD - 2, R_MOD - 1, R_MOD - 16, 1 << 64,
+            1 << 253, 1 << 254, (1 << 254) + 1, 16 ** 63 + 15]
+    return edge + [rng.randrange(R_MOD) for _ in range(n - len(edge))]
+
+
+def _bls_points(group: str, n: int, rng: random.Random, distinct: int = 64):
+    """n points, `distinct` random multiples m_j G tiled; an AffineBatch on
+    the card."""
+    import torch
+    from phase2_bn254_tpu_torch.bls12_381 import curve as hc
+    from phase2_bn254_tpu_torch.bls12_381 import device as D
+    from phase2_bn254_tpu_torch.bls12_381.field import R_MOD
+
+    gen = hc.G1_GEN if group == "g1" else hc.G2_GEN
+    base = D.points_to_batch([gen.mul(rng.randrange(1, R_MOD)) for _ in range(distinct)], group, DEVICE)
+    reps = -(-n // distinct)
+    return type(base)(*(t.repeat((reps,) + (1,) * (t.dim() - 1))[:n].contiguous() for t in base))
+
+
+def _bls_field() -> None:
+    """BLS12-381's Fq / Fq2 field code (csrc/fieldops.cu: the 12-limb PTX)
+    against field/fp.py / fq2.py on FIELD_N pairs, the edge operands first."""
+    from phase2_bn254_tpu_torch.ops import fieldops
+
+    rng = random.Random(16)
+    for field in ("bls_fq", "bls_fq2"):
+        pairs = fieldops.edge_pairs_fq2(rng, field) if fieldops.is_fq2(field) else fieldops.edge_pairs(field, rng)
+        edge = len(pairs)
+        pairs += [(fieldops.random_element(field, rng), fieldops.random_element(field, rng))
+                  for _ in range(FIELD_N - edge)]
+        a, b = (fieldops.to_limbs([pair[k] for pair in pairs], field, DEVICE) for k in (0, 1))
+        got = fieldops.field_ops(a, b, field)
+        err = max_limb_err(got, fieldops.field_ops_plain(a, b, field))
+        if err:
+            raise AssertionError(f"field code {field}: the kernel and its plain version differ (max abs limb error "
+                                 f"{err})")
+        ms = cuda_ms(lambda: fieldops.field_ops(a, b, field), 5)
+        log(f"phase 16 field {field}: {FIELD_N} pairs ({edge} edge pairs first): a b, a^2, a + b, a - b == "
+            f"field/{'fq2' if fieldops.is_fq2(field) else 'fp'}.py limb for limb; {ms:.4f} ms a launch")
+
+
+def _bls_kernel_case(card: Card, group: str, rng: random.Random) -> dict:
+    """K8-BLS or K9-BLS on BLS_N points with the edge scalars first, against
+    its plain version on the first PLAIN_BLS_N lanes, limb for limb; its
+    time, its work and its bound."""
+    from phase2_bn254_tpu_torch.bls12_381 import device as D
+    from phase2_bn254_tpu_torch.ops import batch_exp
+
+    tag, name, _, _ = BLS_CASES[group]
+    kernel, plain = getattr(batch_exp, name), getattr(batch_exp, name + "_plain")
+    pts = _bls_points(group, BLS_N, rng)
+    k = D.scalars_to_canon(_bls_edge_scalars(BLS_N, rng), DEVICE)
+    pn = min(PLAIN_BLS_N, BLS_N)
+    got = kernel(pts.x, pts.y, k)
+    want, plain_ms = once_ms(lambda: plain(pts.x[:pn], pts.y[:pn], k[:pn]))
+    err = max_limb_err([t[:pn] for t in got], want)
+    if err:
+        raise AssertionError(f"{tag}: kernel and plain version differ on the first {pn} lanes (max abs limb error "
+                             f"{err})")
+    ms = cuda_ms(lambda: kernel(pts.x, pts.y, k), 3)
+    key = "bls_" + group
+    need = int(_windowed_muls(key, k).sum())
+    work = (nbytes(pts.x, pts.y, k, *got), need)
+    return {"ms": ms, "plain_ms": plain_ms, "plain_n": pn, "err": err, "work": work,
+            "kernel_muls": _windowed_kernel_muls(key, k)}
+
+
+def _bls_tampered(group: str, raw: bytes, lane: int, case: str) -> bytes:
+    """raw (compressed encodings) with the encoding of `lane` changed as
+    `case` says."""
+    from phase2_bn254_tpu_torch.bls12_381 import curve as hc
+    from phase2_bn254_tpu_torch.bls12_381.field import Fq2, Q
+
+    size = 48 if group == "g1" else 96
+    t = bytearray(raw[lane * size : (lane + 1) * size])
+    if case == "flag":
+        t[0] &= 0x7F
+    elif case == "infinity":
+        t[0] |= 0x40
+    elif case == "coordinate":
+        t[:48] = Q.to_bytes(48, "big")
+        t[0] |= 0x80
+    else:  # a non-residue x
+        rng = random.Random(f"tamper {group}")
+        while True:
+            x = rng.randrange(Q) if group == "g1" else Fq2(rng.randrange(Q), rng.randrange(Q))
+            if hc.get_point_from_x(x, False, group) is None:
+                break
+        t[:] = x.to_bytes(48, "big") if group == "g1" else x.c1.to_bytes(48, "big") + x.c0.to_bytes(48, "big")
+        t[0] |= 0x80
+    return raw[: lane * size] + bytes(t) + raw[(lane + 1) * size :]
+
+
+BLS_TAMPERS = {"flag": "compressed bit not set", "infinity": "point at infinity", "coordinate": "not below field",
+               "non_residue": "off curve or non-residue"}
+
+
+def _bls_slice(group: str, rng: random.Random) -> dict:
+    """The slice as a user drives it at BLS_N compressed points: decode_batch,
+    the kernel (device.ladder), normalize, encode_batch, each part timed
+    (wall, synchronized); the kernel's launches counted from zero around
+    it; the bytes of BLS_SAMPLE lanes against the host chain; the tampered
+    encodings rejected."""
+    import torch
+    from phase2_bn254_tpu_torch.bls12_381 import codecs_device as C
+    from phase2_bn254_tpu_torch.bls12_381 import curve as hc
+    from phase2_bn254_tpu_torch.bls12_381 import device as D
+    from phase2_bn254_tpu_torch.bls12_381.field import R_MOD
+    from phase2_bn254_tpu_torch.curve import group as G
+    from phase2_bn254_tpu_torch.ops import batch_exp
+
+    tag, name, _, _ = BLS_CASES[group]
+    # distinct input points: 64 host multiples of G tiled, times random
+    # scalars on the card (the kernel, before the counted run), encoded
+    base = _bls_points(group, BLS_N, rng)
+    spread = D.scalars_to_canon([rng.randrange(1, 1 << 64) for _ in range(BLS_N)], DEVICE)
+    raw = C.encode_batch(D.mul_batch(base, spread, group), group, True)
+    vals = [rng.randrange(1, R_MOD) for _ in range(BLS_N)]
+    k = D.scalars_to_canon(vals, DEVICE)
+    torch.cuda.synchronize()
+    _zero_counts()
+    parts, t_all = {}, time.time()
+
+    def timed(part, fn):
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        parts[part] = time.time() - t0
+        return out
+
+    batch = timed("decode", lambda: C.decode_batch(raw, group, BLS_N, True, device=DEVICE))
+    jac = timed("kernel", lambda: D.ladder(batch, k, group))
+    aff = timed("normalize", lambda: G.jac_normalize(D.field_ops(group), jac))
+    out = timed("encode", lambda: C.encode_batch(aff, group, True))
+    wall = time.time() - t_all
+    launches = batch_exp.LAUNCHES[name]
+    if launches != 1 or sum(batch_exp.LAUNCHES.values()) != 1:
+        raise AssertionError(f"{tag}: the slice launched {dict(batch_exp.LAUNCHES)}, want one {name}")
+    size = 48 if group == "g1" else 96
+    decode = hc.g1_from_compressed if group == "g1" else hc.g2_from_compressed
+    encode = hc.g1_to_compressed if group == "g1" else hc.g2_to_compressed
+    lanes = [i * (BLS_N // BLS_SAMPLE) + rng.randrange(BLS_N // BLS_SAMPLE) for i in range(BLS_SAMPLE)]
+    t0 = time.time()
+    for i in lanes:
+        want = encode(decode(raw[i * size : (i + 1) * size], check=False).mul(vals[i]))
+        if out[i * size : (i + 1) * size] != want:
+            raise AssertionError(f"{tag}: slice lane {i} differs from the host chain")
+    host_s = time.time() - t0
+    m = min(256, BLS_N)  # the tampered batches: the first m encodings, one changed
+    for case, message in BLS_TAMPERS.items():
+        try:
+            C.decode_batch(_bls_tampered(group, raw[: m * size], m // 2, case), group, m, True, device=DEVICE)
+        except ValueError as e:
+            if message not in str(e):
+                raise AssertionError(f"{tag}: tampered ({case}) rejected with {e!r}, want {message!r}") from e
+        else:
+            raise AssertionError(f"{tag}: a tampered ({case}) encoding decoded")
+    return {"launches": launches, "wall": wall, "parts": parts, "host_s": host_s, "bytes": len(raw)}
+
+
+def phase_bls(card: Card, records: list[dict]) -> None:
+    """Phase 16: the BLS12-381 engine: its field code, K8-BLS and K9-BLS
+    against their plain versions, and the slice (decode, kernel, normalize,
+    encode) at BLS_N compressed points of each group against the host
+    chain."""
+    t0 = time.time()
+    _bls_field()
+    rng = random.Random(1616)
+    for group, (tag, name, source, replaces) in BLS_CASES.items():
+        c = _bls_kernel_case(card, group, rng)
+        sl = _bls_slice(group, rng)
+        rec = record(card, name, source, replaces, c["err"], c["ms"], c["plain_ms"], c["work"],
+                     shape=f"N={BLS_N} BLS12-381 {group.upper()} points, edge and random scalars",
+                     plain_n=c["plain_n"], muls=c["work"][1], kernel_muls=c["kernel_muls"],
+                     slice_wall_s=sl["wall"], slice_parts_s=sl["parts"])
+        rec["launches"] = sl["launches"]
+        rec["launches_by_path"] = {f"the BLS12-381 slice, {BLS_N} compressed {group.upper()} points": sl["launches"]}
+        records.append(rec)
+        n = BLS_N
+        log(f"phase 16 {tag} ({name}): N={n}, edge scalars first: kernel == plain limb for limb on the first "
+            f"{c['plain_n']} lanes; kernel {c['ms']:.3f} ms/call, plain {c['plain_ms']:.3f} ms ({c['plain_n']} lanes), "
+            f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}: {c['work'][1] / n:.0f} multiplies/point, the kernel "
+            f"does {c['kernel_muls'] / n:.0f})")
+        log(f"phase 16 {tag} slice: {n} compressed {group.upper()} points ({sl['bytes']} bytes) -> decode -> "
+            f"kernel -> normalize -> encode; launches {sl['launches']}; wall {sl['wall']:.3f} s: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in sl["parts"].items())
+            + f"; {BLS_SAMPLE} lanes == the host chain ({sl['host_s']:.1f} s on the host); tampered encodings "
+            f"rejected: {', '.join(BLS_TAMPERS)}")
+    for line in _ptxas_of(("batch_exp_bls_g1_windowed_kernel", "batch_exp_bls_g2_windowed_kernel")):
+        log(f"  ptxas: {line}")
+    log(f"phase 16: {time.time() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 
 def run_phases(card: Card, workdir: str, records: list[dict]) -> None:
-    """Phases 3-15 (phases 1 and 2 run before the working directory exists)."""
+    """Phases 3-16 (phases 1 and 2 run before the working directory exists)."""
     phase_golden(workdir)
     phase_parity(workdir)
     response_hash = phase_contribute(workdir, records)
@@ -2883,6 +3129,7 @@ def run_phases(card: Card, workdir: str, records: list[dict]) -> None:
     phase_ceremony(card, workdir, records)
     phase_ladder_kernels(card, records)
     phase_configurations(card, workdir, records, response_hash)
+    phase_bls(card, records)
     phase_fixture_ceremony(workdir)
 
 

@@ -1,0 +1,12 @@
+"""BLS12-381 engine of the port (counterpart of `phase2_bn254_tpu/bls12_381/`).
+
+The host layer is the port's own copy of the JAX package's JAX-free
+modules: exact Fq, Fq2 and Fr values and constants (`field`), the G1 / G2
+group law and the zcash point codecs (`curve`). The device layer is the
+port's: `device` (contexts, host <-> tensor converters, the plain batch
+multiplication and the windowed ladders K8-BLS / K9-BLS on the card) and
+`codecs_device` (zcash bytes <-> AffineBatch, decompression in plain
+torch). The pairing (Fq6, Fq12) is not ported yet.
+"""
+
+from . import curve, field  # noqa: F401

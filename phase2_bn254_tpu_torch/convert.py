@@ -1,11 +1,14 @@
 """State carried between the JAX package and the port, and between host and
 device.
 
-* AffineBatch coordinates: the JAX package holds uint32 (N, 16) for G1 and
-  (N, 2, 16) for G2, Montgomery limbs; the port holds the same limbs as
-  int64 tensors. `affine_from_numpy` / `affine_to_numpy` convert, through
-  numpy so that this module never imports JAX.
-* Canonical limbs <-> Python ints, and refimpl Points <-> AffineBatch.
+* AffineBatch coordinates: the JAX package holds uint32 (N, n) for G1 and
+  (N, 2, n) for G2, Montgomery limbs (n = 16 for BN254, 24 for BLS12-381);
+  the port holds the same limbs as int64 tensors. `affine_from_numpy` /
+  `affine_to_numpy` convert, through numpy so that this module never
+  imports JAX.
+* Canonical limbs <-> Python ints, and host Points <-> AffineBatch: refimpl
+  Points (BN254) or, with curve="bls12_381", the port's
+  `bls12_381.curve` Points.
 * `to_device`: a host tensor to a device without waiting for the device
   (pinned memory, non-blocking copy), so uploads do not stall the stream.
 """
@@ -52,26 +55,39 @@ def affine_to_numpy(batch: AffineBatch):
     )
 
 
-def ints_to_limbs(vals, device) -> torch.Tensor:
-    """Python ints -> int64 (N, 16) little-endian 16-bit limbs on `device`."""
-    buf = b"".join(int(v).to_bytes(2 * fp.NLIMBS, "little") for v in vals)
-    arr = np.frombuffer(buf, dtype="<u2").reshape(-1, fp.NLIMBS).astype(np.int64)
+def ints_to_limbs(vals, device, nlimbs: int = fp.NLIMBS) -> torch.Tensor:
+    """Python ints -> int64 (N, nlimbs) little-endian 16-bit limbs on `device`."""
+    buf = b"".join(int(v).to_bytes(2 * nlimbs, "little") for v in vals)
+    arr = np.frombuffer(buf, dtype="<u2").reshape(-1, nlimbs).astype(np.int64)
     return to_device(arr, device)
 
 
 def limbs_to_ints(t: torch.Tensor) -> list[int]:
-    """int64 (N, 16) limbs -> Python ints."""
+    """int64 (N, n) limbs -> Python ints."""
     buf = t.detach().cpu().numpy().astype("<u2").tobytes()
-    n = 2 * fp.NLIMBS
+    n = 2 * t.shape[-1]
     return [int.from_bytes(buf[i : i + n], "little") for i in range(0, len(buf), n)]
 
 
-def points_to_affine(points, group: str, device) -> AffineBatch:
-    """refimpl Points -> Montgomery AffineBatch on `device`."""
-    ctx = fp.FQ_CTX
+def _engine(curve: str):
+    """(Fq context, host curve module, host Fq2 class) of the named curve."""
+    if curve == "bn254":
+        return fp.FQ_CTX, rc, Fq2
+    if curve == "bls12_381":
+        from .bls12_381 import curve as bc
+        from .bls12_381.field import Fq2 as BlsFq2
+
+        return fp.BLS_FQ_CTX, bc, BlsFq2
+    raise ValueError(f"no curve {curve!r}")
+
+
+def points_to_affine(points, group: str, device, curve: str = "bn254") -> AffineBatch:
+    """Host Points of `curve` -> Montgomery AffineBatch on `device` (a point
+    at infinity as (0, 1) with its inf flag, as the JAX package writes it)."""
+    ctx, _, Fq2 = _engine(curve)
 
     def mont(vals):
-        return ints_to_limbs([ctx.to_mont_int(v) for v in vals], device)
+        return ints_to_limbs([ctx.to_mont_int(v) for v in vals], device, ctx.nlimbs)
 
     if group == "g1":
         x = mont([0 if p.inf else p.x for p in points])
@@ -85,9 +101,9 @@ def points_to_affine(points, group: str, device) -> AffineBatch:
     return AffineBatch(x, y, inf)
 
 
-def affine_to_points(batch: AffineBatch, group: str) -> list:
-    """Montgomery AffineBatch -> refimpl Points."""
-    ctx = fp.FQ_CTX
+def affine_to_points(batch: AffineBatch, group: str, curve: str = "bn254") -> list:
+    """Montgomery AffineBatch -> host Points of `curve`."""
+    ctx, rc, Fq2 = _engine(curve)
 
     def ints(t):
         return [ctx.from_mont_int(v) for v in limbs_to_ints(t)]

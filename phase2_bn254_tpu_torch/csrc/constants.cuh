@@ -1,6 +1,7 @@
 // BN254 constants as 8 little-endian 32-bit limbs (FQ_P2 16), Montgomery form
-// (R = 2^256) except FQ_P, FR_P, FR_HALF, FQ_R2, FQ_P2 and the EXP_ exponents. Written by
-// ops/_build.py constants_header() from the refimpl integers;
+// (R = 2^256) except FQ_P, FR_P, FR_HALF, FQ_R2, FQ_P2 and the EXP_ exponents; the
+// BLS12-381 ones (BLS_) on 12 limbs for Fq (24 for q^2), 8 for Fr, R = 2^384. Written by
+// ops/_build.py constants_header() from the refimpl and bls12_381.field integers;
 // tests/test_torch_batch_exp.py checks it.
 #pragma once
 
@@ -8,6 +9,7 @@
 
 static constexpr uint32_t FQ_PINV = 0xe4866389u;  // -q^-1 mod 2^32
 static constexpr uint32_t FR_PINV = 0xefffffffu;  // -r^-1 mod 2^32
+static constexpr uint32_t BLS_FQ_PINV = 0xfffcfffdu;  // BLS12-381: -q^-1 mod 2^32
 // the modulus q
 static __constant__ uint32_t FQ_P[8] = {0xd87cfd47u, 0x3c208c16u, 0x6871ca8du, 0x97816a91u, 0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u};
 // R mod q (Montgomery one)
@@ -53,3 +55,13 @@ static __constant__ uint32_t FR_ONE[8] = {0x4ffffffbu, 0xac96341cu, 0x9f60cd29u,
 static __constant__ uint32_t FR_HALF[8] = {0xf8000000u, 0xa1f0fac9u, 0x3cdcb848u, 0x9419f424u, 0x40c0ac2eu, 0xdc2822dbu, 0x7098d014u, 0x18322739u};
 // q^2 as an integer, 16 limbs: the offset of the Fq2 product's c0 (host path)
 static __constant__ uint32_t FQ_P2[16] = {0x275d69b1u, 0x3b5458a2u, 0x09eac101u, 0xa602072du, 0x6d96cadcu, 0x4a50189cu, 0x7a1242c8u, 0x04689e95u, 0x34c6b38du, 0x26edfa5cu, 0x16375606u, 0xb00b8551u, 0x0348d21cu, 0x599a6f7cu, 0x763cbf9cu, 0x0925c4b8u};
+// BLS12-381: the modulus q, 12 limbs
+static __constant__ uint32_t BLS_FQ_P[12] = {0xffffaaabu, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu, 0xf6b0f624u, 0x6730d2a0u, 0xf38512bfu, 0x64774b84u, 0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
+// 2^384 mod q (Montgomery one, R = 2^384)
+static __constant__ uint32_t BLS_FQ_ONE[12] = {0x0002fffdu, 0x76090000u, 0xc40c0002u, 0xebf4000bu, 0x53c758bau, 0x5f489857u, 0x70525745u, 0x77ce5853u, 0xa256ec6du, 0x5c071a97u, 0xfa80e493u, 0x15f65ec3u};
+// q^2 as an integer, 24 limbs: the offset of the Fq2 product's c0 (host path)
+static __constant__ uint32_t BLS_FQ_P2[24] = {0x1c718e39u, 0x26aa0000u, 0x76382eabu, 0x7ced6b1du, 0x62113cfdu, 0x162c3383u, 0x3e71b743u, 0x66bf91edu, 0x7091a049u, 0x292e85a8u, 0x86185c7bu, 0x1d68619cu, 0x0978ef01u, 0xf5314933u, 0x16ddca6eu, 0x50a62cfdu, 0x349e8bd0u, 0x66e59e49u, 0x0e7046b4u, 0xe2dc90e5u, 0xa22f25e9u, 0x4bd278eau, 0xb8c35fc7u, 0x02a437a4u};
+// the scalar field's modulus r, 8 limbs
+static __constant__ uint32_t BLS_FR_P[8] = {0x00000001u, 0xffffffffu, 0xfffe5bfeu, 0x53bda402u, 0x09a1d805u, 0x3339d808u, 0x299d7d48u, 0x73eda753u};
+// (r - 1) / 2 as an integer: the windowed ladders take k above it as (r - k)(-P)
+static __constant__ uint32_t BLS_FR_HALF[8] = {0x80000000u, 0x7fffffffu, 0x7fff2dffu, 0xa9ded201u, 0x04d0ec02u, 0x199cec04u, 0x94cebea4u, 0x39f6d3a9u};

@@ -2,14 +2,17 @@
 // point or per lane, for the kernels of this directory (batch_exp_g1.cu,
 // batch_exp_g2.cu, batch_exp_g2_windowed.cu, batch_exp_g1_windowed.cu,
 // batch_exp_glv.cu, batch_exp_gls.cu, msm.cu, decompress.cu,
-// segsum.cu, fieldops.cu; Fr for ntt.cu).
+// segsum.cu, fieldops.cu; Fr for ntt.cu); and BLS12-381's Fq and Fq2 (BFp,
+// BFp2) for the BLS instantiations of the windowed ladders
+// (batch_exp_g1_windowed.cu, batch_exp_g2_windowed.cu) and fieldops.cu.
 //
 // An Fq element (Fp) or an Fr element (Fr) is 8 little-endian 32-bit limbs
 // in Montgomery form with R = 2^256, the same values as the 16 x 16-bit
 // limbs of the JAX package and of field/fp.py; loads and stores convert
-// between the two. Every value stays fully reduced in [0, p): equality and
-// the zero test are limb compares, and the kernels' outputs equal the plain
-// PyTorch versions' limb for limb.
+// between the two. A BLS12-381 Fq element (BFp) is 12 limbs, R = 2^384 (the
+// JAX package's 24 x 16-bit limbs). Every value stays fully reduced in [0,
+// p): equality and the zero test are limb compares, and the kernels' outputs
+// equal the plain PyTorch versions' limb for limb.
 //
 // On the card (__CUDA_ARCH__) the product, the square, the sum and the
 // difference are the inline PTX carry chains of field_ptx.cuh (written by
@@ -52,6 +55,18 @@ struct Fp2 {
   Fp c0, c1;
 };
 
+struct BFp {  // BLS12-381 Fq
+  uint32_t v[12];
+};
+
+struct BFp2 {  // BLS12-381 Fq2 = Fq[u] / (u^2 + 1)
+  BFp c0, c1;
+};
+
+// 32-bit limbs of a single-limb-array element type (Fp, Fr, BFp)
+template <class E>
+constexpr int kLimbs = (int)(sizeof(E) / 4);
+
 template <class F>
 struct Jac {
   F x, y, z;
@@ -91,17 +106,18 @@ __device__ __forceinline__ bool eq(const Fp& a, const Fp& b) {
   return acc == 0;
 }
 
-// The host arithmetic below is written once over the modulus p (8 limbs)
-// and its -p^-1 mod 2^32, for both moduli (254 bits each, so a + b < 2^255
-// and the CIOS result t < 2p < 2^256). E is Fp or Fr.
+// The host arithmetic below is written once over the modulus p (N =
+// kLimbs<E> limbs) and its -p^-1 mod 2^32, for every modulus (two spare bits
+// at least: BN254's 254 bits in 256, BLS12-381's 381 in 384, so a + b < 2^(32
+// N) and the CIOS result t < 2p < 2^(32 N)). E is Fp, Fr or BFp.
 
-// r - p if r >= p, else r (r < 2^256)
+// r - p if r >= p, else r (r < 2^(32 N))
 template <class E>
 __device__ __forceinline__ E reduce_once_mod(const E& r, const uint32_t* p) {
   E s;
   int64_t b = 0;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < kLimbs<E>; ++i) {
     int64_t t = (int64_t)r.v[i] - (int64_t)p[i] + b;
     s.v[i] = (uint32_t)t;
     b = t >> 32;  // 0 or -1
@@ -114,12 +130,12 @@ __device__ __forceinline__ E add_mod(const E& a, const E& b, const uint32_t* p) 
   E r;
   uint64_t c = 0;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < kLimbs<E>; ++i) {
     c += (uint64_t)a.v[i] + b.v[i];
     r.v[i] = (uint32_t)c;
     c >>= 32;
   }
-  return reduce_once_mod(r, p);  // a + b < 2p < 2^255: no carry out
+  return reduce_once_mod(r, p);  // a + b < 2p < 2^(32 N): no carry out
 }
 
 template <class E>
@@ -127,7 +143,7 @@ __device__ __forceinline__ E sub_mod(const E& a, const E& b, const uint32_t* p) 
   E r;
   int64_t br = 0;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < kLimbs<E>; ++i) {
     int64_t t = (int64_t)a.v[i] - (int64_t)b.v[i] + br;
     r.v[i] = (uint32_t)t;
     br = t >> 32;
@@ -135,7 +151,7 @@ __device__ __forceinline__ E sub_mod(const E& a, const E& b, const uint32_t* p) 
   if (br < 0) {
     uint64_t c = 0;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < kLimbs<E>; ++i) {
       c += (uint64_t)r.v[i] + p[i];
       r.v[i] = (uint32_t)c;
       c >>= 32;
@@ -144,40 +160,41 @@ __device__ __forceinline__ E sub_mod(const E& a, const E& b, const uint32_t* p) 
   return r;
 }
 
-// Montgomery product a * b * 2^-256 mod p (CIOS)
+// Montgomery product a * b * 2^(-32 N) mod p (CIOS)
 template <class E>
 __device__ __forceinline__ E mont_mul_mod(const E& a, const E& b, const uint32_t* p, uint32_t pinv) {
-  uint32_t t[10];
+  constexpr int N = kLimbs<E>;
+  uint32_t t[N + 2];
 #pragma unroll
-  for (int i = 0; i < 10; ++i) t[i] = 0;
+  for (int i = 0; i < N + 2; ++i) t[i] = 0;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < N; ++i) {
     uint64_t c = 0;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < N; ++j) {
       c += (uint64_t)a.v[j] * b.v[i] + t[j];
       t[j] = (uint32_t)c;
       c >>= 32;
     }
-    c += t[8];
-    t[8] = (uint32_t)c;
-    t[9] = (uint32_t)(c >> 32);
+    c += t[N];
+    t[N] = (uint32_t)c;
+    t[N + 1] = (uint32_t)(c >> 32);
     uint32_t m = t[0] * pinv;
     c = ((uint64_t)m * p[0] + t[0]) >> 32;
 #pragma unroll
-    for (int j = 1; j < 8; ++j) {
+    for (int j = 1; j < N; ++j) {
       c += (uint64_t)m * p[j] + t[j];
       t[j - 1] = (uint32_t)c;
       c >>= 32;
     }
-    c += t[8];
-    t[7] = (uint32_t)c;
-    t[8] = t[9] + (uint32_t)(c >> 32);
+    c += t[N];
+    t[N - 1] = (uint32_t)c;
+    t[N] = t[N + 1] + (uint32_t)(c >> 32);
   }
   E r;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) r.v[i] = t[i];
-  return reduce_once_mod(r, p);  // t < 2p < 2^256, so t[8] == 0
+  for (int i = 0; i < N; ++i) r.v[i] = t[i];
+  return reduce_once_mod(r, p);  // t < 2p < 2^(32 N), so t[N] == 0
 }
 
 // one definition per field of +, -, x and the square: the PTX chains on the
@@ -216,6 +233,7 @@ __device__ __forceinline__ E mont_mul_mod(const E& a, const E& b, const uint32_t
 
 P2_FIELD_OPS(Fp, fq, FQ_P, FQ_PINV)
 P2_FIELD_OPS(Fr, fr, FR_P, FR_PINV)
+P2_FIELD_OPS(BFp, bls_fq, BLS_FQ_P, BLS_FQ_PINV)
 
 __device__ __forceinline__ Fp neg(const Fp& a) { return sub(fp_zero(), a); }
 __device__ __forceinline__ Fp dbl(const Fp& a) { return add(a, a); }
@@ -257,17 +275,18 @@ __device__ __forceinline__ Fp2 conj(const Fp2& a) { return {a.c0, neg(a.c1)}; }
 // c1 = 2 a0 a1, two products and two reductions. On the card these are
 // ptx_mul_fq2 / ptx_sqr_fq2 of field_ptx.cuh; off it the C++ below.
 #if !defined(__CUDA_ARCH__)
-// w = a b, 8 x 8 words into 16
+// w = a b, N x N words into 2N
+template <int N>
 __device__ __forceinline__ void wide_mul(uint32_t* w, const uint32_t* a, const uint32_t* b) {
-  for (int i = 0; i < 16; ++i) w[i] = 0;
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < 2 * N; ++i) w[i] = 0;
+  for (int i = 0; i < N; ++i) {
     uint64_t c = 0;
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < N; ++j) {
       c += (uint64_t)a[j] * b[i] + w[i + j];
       w[i + j] = (uint32_t)c;
       c >>= 32;
     }
-    w[i + 8] = (uint32_t)c;
+    w[i + N] = (uint32_t)c;
   }
 }
 
@@ -293,29 +312,63 @@ __device__ __forceinline__ void wide_sub(uint32_t* r, const uint32_t* a, const u
   }
 }
 
-// w 2^-256 mod q for a 16-word w below q 2^256: 8 rows of m q, then the
-// result t[8..15] < 2q through one conditional subtraction
-__device__ __forceinline__ Fp wide_reduce(const uint32_t* w) {
-  uint32_t t[17];
-  for (int i = 0; i < 16; ++i) t[i] = w[i];
-  t[16] = 0;
-  for (int i = 0; i < 8; ++i) {
-    uint32_t m = t[i] * FQ_PINV;
+// w 2^(-32 N) mod p for a 2N-word w below p 2^(32 N): N rows of m p, then
+// the result t[N..2N-1] < 2p through one conditional subtraction
+template <class E>
+__device__ __forceinline__ E wide_reduce(const uint32_t* w, const uint32_t* p, uint32_t pinv) {
+  constexpr int N = kLimbs<E>;
+  uint32_t t[2 * N + 1];
+  for (int i = 0; i < 2 * N; ++i) t[i] = w[i];
+  t[2 * N] = 0;
+  for (int i = 0; i < N; ++i) {
+    uint32_t m = t[i] * pinv;
     uint64_t c = 0;
-    for (int j = 0; j < 8; ++j) {
-      c += (uint64_t)m * FQ_P[j] + t[i + j];
+    for (int j = 0; j < N; ++j) {
+      c += (uint64_t)m * p[j] + t[i + j];
       t[i + j] = (uint32_t)c;
       c >>= 32;
     }
-    for (int k = i + 8; k < 17; ++k) {
+    for (int k = i + N; k < 2 * N + 1; ++k) {
       c += t[k];
       t[k] = (uint32_t)c;
       c >>= 32;
     }
   }
-  Fp r;
-  for (int i = 0; i < 8; ++i) r.v[i] = t[8 + i];
-  return reduce_once_mod(r, FQ_P);
+  E r;
+  for (int i = 0; i < N; ++i) r.v[i] = t[N + i];
+  return reduce_once_mod(r, p);
+}
+
+// The fused Fq2 product and square's host path over the base field E
+// (Fp or BFp) of modulus p, -p^-1 = pinv, p^2 = p2 (2N words)
+template <class E, class E2>
+__device__ __forceinline__ E2 fq2_mul_host(const E2& a, const E2& b, const uint32_t* p, uint32_t pinv,
+                                           const uint32_t* p2) {
+  constexpr int N = kLimbs<E>;
+  uint32_t sa[N], sb[N], v0[2 * N], v1[2 * N], c0[2 * N], c1[2 * N];
+  wide_add<N>(sa, a.c0.v, a.c1.v);
+  wide_add<N>(sb, b.c0.v, b.c1.v);
+  wide_mul<N>(v0, a.c0.v, b.c0.v);
+  wide_mul<N>(v1, a.c1.v, b.c1.v);
+  wide_mul<N>(c1, sa, sb);
+  wide_sub<2 * N>(c1, c1, v0);
+  wide_sub<2 * N>(c1, c1, v1);
+  wide_add<2 * N>(c0, v0, p2);
+  wide_sub<2 * N>(c0, c0, v1);
+  return {wide_reduce<E>(c0, p, pinv), wide_reduce<E>(c1, p, pinv)};
+}
+
+template <class E, class E2>
+__device__ __forceinline__ E2 fq2_sqr_host(const E2& a, const uint32_t* p, uint32_t pinv) {
+  constexpr int N = kLimbs<E>;
+  uint32_t sa[N], da[N], c0[2 * N], c1[2 * N];
+  wide_add<N>(sa, a.c0.v, a.c1.v);
+  wide_add<N>(da, a.c0.v, p);
+  wide_sub<N>(da, da, a.c1.v);
+  wide_mul<N>(c0, sa, da);
+  wide_mul<N>(c1, a.c0.v, a.c1.v);
+  wide_add<2 * N>(c1, c1, c1);
+  return {wide_reduce<E>(c0, p, pinv), wide_reduce<E>(c1, p, pinv)};
 }
 #endif
 
@@ -330,17 +383,7 @@ static __device__ __noinline__ Fp2 mul(Fp2 a, Fp2 b) {
   for (int k = 0; k < 8; ++k) o.c0.v[k] = r[k], o.c1.v[k] = r[8 + k];
   return o;
 #else
-  uint32_t sa[8], sb[8], v0[16], v1[16], c0[16], c1[16];
-  wide_add<8>(sa, a.c0.v, a.c1.v);
-  wide_add<8>(sb, b.c0.v, b.c1.v);
-  wide_mul(v0, a.c0.v, b.c0.v);
-  wide_mul(v1, a.c1.v, b.c1.v);
-  wide_mul(c1, sa, sb);
-  wide_sub<16>(c1, c1, v0);
-  wide_sub<16>(c1, c1, v1);
-  wide_add<16>(c0, v0, FQ_P2);
-  wide_sub<16>(c0, c0, v1);
-  return {wide_reduce(c0), wide_reduce(c1)};
+  return fq2_mul_host<Fp, Fp2>(a, b, FQ_P, FQ_PINV, FQ_P2);
 #endif
 }
 
@@ -355,18 +398,91 @@ static __device__ __noinline__ Fp2 sqr(Fp2 a) {
   for (int k = 0; k < 8; ++k) o.c0.v[k] = r[k], o.c1.v[k] = r[8 + k];
   return o;
 #else
-  uint32_t sa[8], da[8], c0[16], c1[16];
-  wide_add<8>(sa, a.c0.v, a.c1.v);
-  wide_add<8>(da, a.c0.v, FQ_P);
-  wide_sub<8>(da, da, a.c1.v);
-  wide_mul(c0, sa, da);
-  wide_mul(c1, a.c0.v, a.c1.v);
-  wide_add<16>(c1, c1, c1);
-  return {wide_reduce(c0), wide_reduce(c1)};
+  return fq2_sqr_host<Fp, Fp2>(a, FQ_P, FQ_PINV);
 #endif
 }
 
 __device__ __forceinline__ Fp2 mul_fp(const Fp2& a, const Fp& s) { return {mul(a.c0, s), mul(a.c1, s)}; }
+
+// ---------------------------------------------------------------------------
+// BLS12-381 Fq and Fq2 (12 x 32-bit limbs, R = 2^384): the same operations
+// and forms as BN254's above. The Fq2 product's lazy reduction has the room
+// it needs: c0 = a0 b0 - a1 b1 + q^2 < 2 q^2 and the square's c0 < 4 q^2
+// lie below q 2^384, as 4q < 2^384 (q < 2^381). On the card the PTX of
+// field_ptx.cuh (ptx_*_bls_fq, ptx_*_bls_fq2), off it the C++ host path.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ BFp bfp_zero() {
+  BFp r;
+#pragma unroll
+  for (int i = 0; i < 12; ++i) r.v[i] = 0;
+  return r;
+}
+
+__device__ __forceinline__ BFp bfp_one() {
+  BFp r;
+#pragma unroll
+  for (int i = 0; i < 12; ++i) r.v[i] = BLS_FQ_ONE[i];
+  return r;
+}
+
+__device__ __forceinline__ bool is_zero(const BFp& a) {
+  uint32_t acc = 0;
+#pragma unroll
+  for (int i = 0; i < 12; ++i) acc |= a.v[i];
+  return acc == 0;
+}
+
+__device__ __forceinline__ bool eq(const BFp& a, const BFp& b) {
+  uint32_t acc = 0;
+#pragma unroll
+  for (int i = 0; i < 12; ++i) acc |= a.v[i] ^ b.v[i];
+  return acc == 0;
+}
+
+__device__ __forceinline__ BFp neg(const BFp& a) { return sub(bfp_zero(), a); }
+__device__ __forceinline__ BFp dbl(const BFp& a) { return add(a, a); }
+static __device__ __noinline__ BFp mul(BFp a, BFp b) { return mul_inline(a, b); }
+static __device__ __noinline__ BFp sqr(BFp a) { return sqr_inline(a); }
+
+__device__ __forceinline__ BFp2 bfp2_zero() { return {bfp_zero(), bfp_zero()}; }
+__device__ __forceinline__ BFp2 bfp2_one() { return {bfp_one(), bfp_zero()}; }
+__device__ __forceinline__ bool is_zero(const BFp2& a) { return is_zero(a.c0) && is_zero(a.c1); }
+__device__ __forceinline__ bool eq(const BFp2& a, const BFp2& b) { return eq(a.c0, b.c0) && eq(a.c1, b.c1); }
+__device__ __forceinline__ BFp2 add(const BFp2& a, const BFp2& b) { return {add(a.c0, b.c0), add(a.c1, b.c1)}; }
+__device__ __forceinline__ BFp2 sub(const BFp2& a, const BFp2& b) { return {sub(a.c0, b.c0), sub(a.c1, b.c1)}; }
+__device__ __forceinline__ BFp2 neg(const BFp2& a) { return {neg(a.c0), neg(a.c1)}; }
+__device__ __forceinline__ BFp2 dbl(const BFp2& a) { return add(a, a); }
+
+static __device__ __noinline__ BFp2 mul(BFp2 a, BFp2 b) {
+#if defined(__CUDA_ARCH__)
+  uint32_t x[24], y[24], r[24];
+#pragma unroll
+  for (int k = 0; k < 12; ++k) x[k] = a.c0.v[k], x[12 + k] = a.c1.v[k], y[k] = b.c0.v[k], y[12 + k] = b.c1.v[k];
+  ptx_mul_bls_fq2(r, x, y);
+  BFp2 o;
+#pragma unroll
+  for (int k = 0; k < 12; ++k) o.c0.v[k] = r[k], o.c1.v[k] = r[12 + k];
+  return o;
+#else
+  return fq2_mul_host<BFp, BFp2>(a, b, BLS_FQ_P, BLS_FQ_PINV, BLS_FQ_P2);
+#endif
+}
+
+static __device__ __noinline__ BFp2 sqr(BFp2 a) {
+#if defined(__CUDA_ARCH__)
+  uint32_t x[24], r[24];
+#pragma unroll
+  for (int k = 0; k < 12; ++k) x[k] = a.c0.v[k], x[12 + k] = a.c1.v[k];
+  ptx_sqr_bls_fq2(r, x);
+  BFp2 o;
+#pragma unroll
+  for (int k = 0; k < 12; ++k) o.c0.v[k] = r[k], o.c1.v[k] = r[12 + k];
+  return o;
+#else
+  return fq2_sqr_host<BFp, BFp2>(a, BLS_FQ_P, BLS_FQ_PINV);
+#endif
+}
 
 // ---------------------------------------------------------------------------
 // Jacobian group law, generic over Fp / Fp2
@@ -383,6 +499,16 @@ __device__ __forceinline__ Jac<Fp> jac_infinity<Fp>() {
 template <>
 __device__ __forceinline__ Jac<Fp2> jac_infinity<Fp2>() {
   return {fp2_zero(), fp2_one(), fp2_zero()};
+}
+
+template <>
+__device__ __forceinline__ Jac<BFp> jac_infinity<BFp>() {
+  return {bfp_zero(), bfp_one(), bfp_zero()};
+}
+
+template <>
+__device__ __forceinline__ Jac<BFp2> jac_infinity<BFp2>() {
+  return {bfp2_zero(), bfp2_one(), bfp2_zero()};
 }
 
 // dbl-2009-l; infinity maps to infinity (z3 = 2yz = 0)
@@ -477,11 +603,11 @@ __device__ __forceinline__ bool gt(const Fp& a, const Fp& b) {
 }
 
 // ---------------------------------------------------------------------------
-// 16 x 16-bit int64 digits (the tensors' layout) <-> 8 x 32-bit limbs
+// 2N x 16-bit int64 digits (the tensors' layout) <-> N x 32-bit limbs
 // ---------------------------------------------------------------------------
 
 // On the card each access is 16 bytes, two digits: every caller passes an
-// element of a contiguous int64 (..., 16) tensor, whose elements lie 128
+// element of a contiguous int64 (..., 2N) tensor, whose elements lie 16 N
 // bytes apart from an aligned base.
 template <class E>
 __device__ __forceinline__ E load_limbs(const int64_t* d) {
@@ -489,13 +615,13 @@ __device__ __forceinline__ E load_limbs(const int64_t* d) {
 #if defined(__CUDA_ARCH__)
   const longlong2* q = reinterpret_cast<const longlong2*>(d);
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
+  for (int k = 0; k < kLimbs<E>; ++k) {
     const longlong2 t = q[k];
     r.v[k] = (uint32_t)t.x | ((uint32_t)t.y << 16);
   }
 #else
 #pragma unroll
-  for (int k = 0; k < 8; ++k) r.v[k] = (uint32_t)d[2 * k] | ((uint32_t)d[2 * k + 1] << 16);
+  for (int k = 0; k < kLimbs<E>; ++k) r.v[k] = (uint32_t)d[2 * k] | ((uint32_t)d[2 * k + 1] << 16);
 #endif
   return r;
 }
@@ -505,10 +631,10 @@ __device__ __forceinline__ void store_limbs(int64_t* d, const E& a) {
 #if defined(__CUDA_ARCH__)
   longlong2* q = reinterpret_cast<longlong2*>(d);
 #pragma unroll
-  for (int k = 0; k < 8; ++k) q[k] = make_longlong2(a.v[k] & 0xFFFF, a.v[k] >> 16);
+  for (int k = 0; k < kLimbs<E>; ++k) q[k] = make_longlong2(a.v[k] & 0xFFFF, a.v[k] >> 16);
 #else
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
+  for (int k = 0; k < kLimbs<E>; ++k) {
     d[2 * k] = a.v[k] & 0xFFFF;
     d[2 * k + 1] = a.v[k] >> 16;
   }
@@ -529,7 +655,18 @@ __device__ __forceinline__ void store_el(int64_t* d, const Fp2& a) {
   store_fp(d + 16, a.c1);
 }
 
-// int64 digits per element: 16 for Fq, 32 for Fq2
+// BLS12-381: Fq as 24 digits, Fq2 as 48 (c0 then c1)
+__device__ __forceinline__ void load_el(const int64_t* d, BFp& a) { a = load_limbs<BFp>(d); }
+__device__ __forceinline__ void load_el(const int64_t* d, BFp2& a) {
+  a = {load_limbs<BFp>(d), load_limbs<BFp>(d + 24)};
+}
+__device__ __forceinline__ void store_el(int64_t* d, const BFp& a) { store_limbs(d, a); }
+__device__ __forceinline__ void store_el(int64_t* d, const BFp2& a) {
+  store_limbs(d, a.c0);
+  store_limbs(d + 24, a.c1);
+}
+
+// int64 digits per element: 16 for Fq, 32 for Fq2 (BLS12-381: 24, 48)
 template <class F>
 constexpr int kDigits = (int)(sizeof(F) / 2);
 

@@ -1,16 +1,30 @@
 // Per-point pieces shared by the batch scalar multiplication kernels
-// (batch_exp_*.cu): the plain windowed ladder of K8 (G1) and K9 (G2), and
-// the GLS endomorphism powers psi^c of K2 and K10.
+// (batch_exp_*.cu): the plain windowed ladder of K8 (G1) and K9 (G2), at
+// BN254 and at BLS12-381 width (K8-BLS, K9-BLS), and the GLS endomorphism
+// powers psi^c of K2 and K10.
 #pragma once
 
 #include <type_traits>
 
 #include "field.cuh"
 
-// out[i] = k_i * P_i for canonical scalars k (N, 16), each thread doing
-// only the work its scalar needs:
+// The scalar field of a curve as the windowed ladder's recoding reads it:
+// limb l of r and of (r - 1)/2, 8 limbs each (r < 2^255 on both curves)
+struct Bn254Scalars {
+  __device__ static __forceinline__ uint32_t p(int l) { return FR_P[l]; }
+  __device__ static __forceinline__ uint32_t half(int l) { return FR_HALF[l]; }
+};
+
+struct Bls12381Scalars {
+  __device__ static __forceinline__ uint32_t p(int l) { return BLS_FR_P[l]; }
+  __device__ static __forceinline__ uint32_t half(int l) { return BLS_FR_HALF[l]; }
+};
+
+// out[i] = k_i * P_i for canonical scalars k (N, 16) of the scalar field S,
+// each thread doing only the work its scalar needs:
 // * a scalar above (r - 1)/2 is taken as (r - k)(-P): one 256-bit
-//   subtraction and -y, so every ladder runs on at most 253 bits and a
+//   subtraction and -y, so every ladder runs on at most 253 bits (254 on
+//   BLS12-381) and a
 //   circuit's coefficients r - 1 and r - 2^j cost what 1 and 2^j do;
 // * the ladder starts at the first nonzero 4-bit window (most significant
 //   first) with acc = T[d], no doublings before it; after it each window
@@ -28,8 +42,9 @@
 // acc); a zero scalar gives (0, 1, 0), as that ladder does. The windows are
 // cut from the scalar's 16-bit digits (ops/batch_exp.scalar_windows_msb).
 // x, y: (N, kDigits<F>) Montgomery affine, finite; out: Jacobian, fully
-// reduced. Any field type with load_el / store_el, neg and jac_infinity.
-template <class F>
+// reduced. Any field type with load_el / store_el, neg and jac_infinity
+// (Fp, Fp2 with S = Bn254Scalars; BFp, BFp2 with Bls12381Scalars).
+template <class F, class S = Bn254Scalars>
 __device__ void windowed_ladder_point(const int64_t* x, const int64_t* y, const int64_t* k, int64_t* ox,
                                       int64_t* oy, int64_t* oz, int64_t i) {
   Fr s = load_limbs<Fr>(k + 16 * i);
@@ -39,12 +54,12 @@ __device__ void windowed_ladder_point(const int64_t* x, const int64_t* y, const 
   table[1].z = jac_infinity<F>().y;  // one
   int64_t borrow = 0;  // (r - 1)/2 - k < 0: k above (r - 1)/2
 #pragma unroll
-  for (int l = 0; l < 8; ++l) borrow = ((int64_t)FR_HALF[l] - (int64_t)s.v[l] + borrow) >> 32;
+  for (int l = 0; l < 8; ++l) borrow = ((int64_t)S::half(l) - (int64_t)s.v[l] + borrow) >> 32;
   if (borrow < 0) {
     int64_t b = 0;
 #pragma unroll
     for (int l = 0; l < 8; ++l) {
-      const int64_t t = (int64_t)FR_P[l] - (int64_t)s.v[l] + b;
+      const int64_t t = (int64_t)S::p(l) - (int64_t)s.v[l] + b;
       s.v[l] = (uint32_t)t;
       b = t >> 32;
     }
@@ -57,7 +72,7 @@ __device__ void windowed_ladder_point(const int64_t* x, const int64_t* y, const 
     top = d > top ? d : top;
   }
   if (top >= 2) {
-    if constexpr (std::is_same_v<F, Fp>) {
+    if constexpr (std::is_same_v<F, Fp> || std::is_same_v<F, BFp>) {
       for (int j = 2; j < 16; ++j) table[j] = jac_add(table[j - 1], table[1]);  // j = 2 doubles
     } else {
       table[2] = jac_double(table[1]);

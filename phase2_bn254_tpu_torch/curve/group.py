@@ -30,11 +30,14 @@ class AffineBatch(NamedTuple):
     inf: torch.Tensor  # bool mask over the batch dims
 
 
-def curve_b(f, device) -> torch.Tensor:
-    """b of y^2 = x^3 + b, Montgomery: 3 on G1 (f Fq), 3 / (9 + u) on G2 (f Fq2)."""
+def curve_b(f, device, b=None) -> torch.Tensor:
+    """b of y^2 = x^3 + b, Montgomery, in f's field: the curve's b (an int
+    on G1, f Fq; an Fq2 value with c0, c1 on G2, f Fq2), by default BN254's:
+    3 on G1, 3 / (9 + u) on G2 (BLS12-381: 4 and 4 (1 + u))."""
     if f.components == 1:
-        return f.ctx.const(B_G1, device)
-    return torch.stack([f.ctx.const(B_G2.c0, device), f.ctx.const(B_G2.c1, device)])
+        return f.ctx.const(B_G1 if b is None else b, device)
+    b = B_G2 if b is None else b
+    return torch.stack([f.ctx.const(b.c0, device), f.ctx.const(b.c1, device)])
 
 
 def jac_zero(f, batch_shape, device) -> JacobianBatch:
@@ -105,6 +108,32 @@ def jac_add(f, p: JacobianBatch, q: JacobianBatch) -> JacobianBatch:
     y = f.select(p_inf, q.y, f.select(q_inf, p.y, y))
     z = f.select(p_inf, q.z, f.select(q_inf, p.z, z))
     return JacobianBatch(x, y, z)
+
+
+def batch_scalar_mul(f, points: AffineBatch, scalars: torch.Tensor) -> JacobianBatch:
+    """points[i] * scalars[i] over the masked group law (JAX
+    `group.batch_scalar_mul`, curve/group.py:160): T[d] = d P for d < 16 by
+    adds (P at infinity gives infinity throughout), then per 4-bit window of
+    the canonical scalars (N, D) 16-bit digits, most significant first, 4
+    doublings and one add of T[digit]. The windows before the first that any
+    lane needs are skipped (the accumulator is infinity there, and stays so
+    limb for limb)."""
+    n, dev = points.inf.shape[0], points.inf.device
+    base = affine_to_jac(f, points)
+    entries = [jac_zero(f, (n,), dev), base]
+    for _ in range(2, 16):
+        entries.append(jac_add(f, entries[-1], base))
+    table = JacobianBatch(*(torch.stack(c) for c in zip(*entries)))
+    w = torch.arange(4 * scalars.shape[-1] - 1, -1, -1, device=dev)
+    digits = ((scalars[:, w // 4] >> (4 * (w % 4))) & 0xF).T  # (windows, N), most significant first
+    live = (digits != 0).any(1)
+    lanes = torch.arange(n, device=dev)
+    acc = jac_zero(f, (n,), dev)
+    for d in digits[int(live.int().argmax()) if bool(live.any()) else digits.shape[0]:]:
+        for _ in range(4):
+            acc = jac_double(f, acc)
+        acc = jac_add(f, acc, JacobianBatch(*(c[d, lanes] for c in table)))
+    return acc
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,13 @@
 """Montgomery prime-field arithmetic on torch tensors (counterpart of
 `phase2_bn254_tpu/field/fp.py`).
 
-A field element is 16 little-endian 16-bit limbs in an int64 tensor of shape
-(..., 16), in Montgomery form with R = 2^256: the same limb values as the JAX
-package's uint32 arrays, so the two compare element for element. int64 holds
-every 16x16-bit product and every column sum of a product (< 2^56) exactly;
+A field element is n little-endian 16-bit limbs in an int64 tensor of shape
+(..., n), in Montgomery form with R = 2^(16 n): n = 16 (R = 2^256) for BN254's
+Fq and Fr, n = 24 (R = 2^384) for BLS12-381's Fq, each context's own count
+(`FpContext.nlimbs`), as in the JAX package. The limb values are those of the
+JAX package's uint32 arrays, so the two compare element for element. int64
+holds every 16x16-bit product and every column sum of a product (< 2^56)
+exactly;
 torch has no uint32 add, shift or compare on the CPU. Each op is a fixed,
 short sequence of whole-tensor ops (no per-digit loops): on the card every
 tensor op is a kernel launch and a pass over memory.
@@ -21,12 +24,12 @@ import functools
 
 import torch
 
+from ..bls12_381.field import Q as BLS_Q
 from ..refimpl.field import Q, R_MOD
 
-NLIMBS = 16
+NLIMBS = 16  # the default limb count (BN254)
 LIMB_BITS = 16
 MASK = 0xFFFF
-MONT_BITS = NLIMBS * LIMB_BITS  # 256
 DTYPE = torch.int64
 
 
@@ -43,16 +46,20 @@ def limbs_to_int(limbs) -> int:
 
 
 class FpContext:
-    """Constants of one prime field; caches their limb tensors per device."""
+    """Constants of one prime field on `nlimbs` 16-bit limbs (R = 2^(16
+    nlimbs), two spare bits above p, as the JAX package's FpContext); caches
+    their limb tensors per device."""
 
-    def __init__(self, p: int, name: str):
-        assert p % 2 == 1 and p.bit_length() <= MONT_BITS - 2
+    def __init__(self, p: int, name: str, nlimbs: int = NLIMBS):
+        assert p % 2 == 1 and p.bit_length() <= LIMB_BITS * nlimbs - 2
         self.p = p
         self.name = name
-        self.r = (1 << MONT_BITS) % p
-        self.r2 = pow(1 << MONT_BITS, 2, p)
-        self.rinv = pow(1 << MONT_BITS, -1, p)
-        self.pprime_full = (-pow(p, -1, 1 << MONT_BITS)) % (1 << MONT_BITS)  # -p^-1 mod R
+        self.nlimbs = nlimbs
+        self.mont_bits = LIMB_BITS * nlimbs
+        self.r = (1 << self.mont_bits) % p
+        self.r2 = pow(1 << self.mont_bits, 2, p)
+        self.rinv = pow(1 << self.mont_bits, -1, p)
+        self.pprime_full = (-pow(p, -1, 1 << self.mont_bits)) % (1 << self.mont_bits)  # -p^-1 mod R
         self._cache: dict[tuple[int, torch.device], torch.Tensor] = {}
 
     def to_mont_int(self, v: int) -> int:
@@ -62,28 +69,30 @@ class FpContext:
         return (v * self.rinv) % self.p
 
     def limbs(self, v: int, device) -> torch.Tensor:
-        """int64[16] limbs of the integer v (no Montgomery conversion), cached."""
+        """int64[nlimbs] limbs of the integer v (no Montgomery conversion), cached."""
         device = torch.device(device)
         key = (v, device)
         t = self._cache.get(key)
         if t is None:
-            t = torch.tensor(int_to_limbs(v), dtype=DTYPE, device=device)
+            t = torch.tensor(int_to_limbs(v, self.nlimbs), dtype=DTYPE, device=device)
             self._cache[key] = t
         return t
 
     def const(self, v: int, device) -> torch.Tensor:
-        """int64[16] Montgomery limbs of the field element v."""
+        """int64[nlimbs] Montgomery limbs of the field element v."""
         return self.limbs(self.to_mont_int(v % self.p), device)
 
     def zeros(self, batch_shape, device) -> torch.Tensor:
-        return torch.zeros((*batch_shape, NLIMBS), dtype=DTYPE, device=device)
+        return torch.zeros((*batch_shape, self.nlimbs), dtype=DTYPE, device=device)
 
     def ones_mont(self, batch_shape, device) -> torch.Tensor:
-        return self.limbs(self.r, device).expand(*batch_shape, NLIMBS).clone()
+        return self.limbs(self.r, device).expand(*batch_shape, self.nlimbs).clone()
 
 
 FQ_CTX = FpContext(Q, "fq")
 FR_CTX = FpContext(R_MOD, "fr")
+# BLS12-381's base field: 24 limbs, R = 2^384 (JAX bls12_381/device.py CTX_BLS_FQ)
+BLS_FQ_CTX = FpContext(BLS_Q, "bls_fq", nlimbs=24)
 
 
 # ---------------------------------------------------------------------------
@@ -137,17 +146,18 @@ def _ge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _pick_carried(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Carries digits u and v (< 2^31 each, as non-negative 16-digit
-    numbers) in one pass over both; returns v mod 2^256 where v >= 2^256,
-    else u mod 2^256."""
+    """Carries digits u and v (< 2^31 each, as non-negative n-digit
+    numbers) in one pass over both; returns v mod 2^(16 n) where v >= 2^(16
+    n), else u mod 2^(16 n)."""
+    n = u.shape[-1]
     both = _carry(torch.nn.functional.pad(torch.stack([u, v]), (0, 1)), passes=1)
-    return torch.where(both[1, ..., NLIMBS:] != 0, both[1, ..., :NLIMBS], both[0, ..., :NLIMBS])
+    return torch.where(both[1, ..., n:] != 0, both[1, ..., :n], both[0, ..., :n])
 
 
 def _sub_p_if_ge(ctx: FpContext, a: torch.Tensor) -> torch.Tensor:
-    """a - p if a >= p, for canonical digits a < 2^256: a + 2^256 - p
-    reaches 2^256 exactly when a >= p."""
-    return _pick_carried(a, a + ctx.limbs((1 << MONT_BITS) - ctx.p, a.device))
+    """a - p if a >= p, for canonical digits a < R: a + R - p reaches R
+    exactly when a >= p."""
+    return _pick_carried(a, a + ctx.limbs((1 << ctx.mont_bits) - ctx.p, a.device))
 
 
 # ---------------------------------------------------------------------------
@@ -157,29 +167,38 @@ def _sub_p_if_ge(ctx: FpContext, a: torch.Tensor) -> torch.Tensor:
 def mont_mul(ctx: FpContext, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a * b * R^-1 mod p for reduced Montgomery inputs (REDC on the whole
     product: m = (T mod R) (-p^-1) mod R, result (T + m p) / R < 2p)."""
+    n = ctx.nlimbs
     a, b = torch.broadcast_tensors(a, b)
-    t = _mul_columns(a, b)  # columns < 2^36
+    t = _mul_columns(a, b)  # columns < 2^37 (24 limbs)
     # T mod R is the value of the low columns mod R, carried or not
-    m = _carry(_mul_columns(t[..., :NLIMBS], ctx.limbs(ctx.pprime_full, a.device).expand_as(a))[..., :NLIMBS])
+    m = _carry(_mul_columns(t[..., :n], ctx.limbs(ctx.pprime_full, a.device).expand_as(a))[..., :n])
     u = _carry(t + _mul_columns(m, ctx.limbs(ctx.p, a.device).expand_as(a)))
-    return _sub_p_if_ge(ctx, u[..., NLIMBS:])
+    return _sub_p_if_ge(ctx, u[..., n:])
 
 
 def add(ctx: FpContext, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a + b - p if a + b >= p (a + b + 2^256 - p reaches 2^256), else a + b."""
+    """a + b - p if a + b >= p (a + b + R - p reaches R), else a + b."""
     s = a + b
-    return _pick_carried(s, s + ctx.limbs((1 << MONT_BITS) - ctx.p, a.device))
+    return _pick_carried(s, s + ctx.limbs((1 << ctx.mont_bits) - ctx.p, a.device))
 
 
 def sub(ctx: FpContext, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a - b if a >= b, else a - b + p: d = a + (2^256 - b) reaches 2^256
-    exactly when a >= b, and then d mod 2^256 = a - b; else d + p does."""
+    """a - b if a >= b, else a - b + p: d = a + (R - b) reaches R exactly
+    when a >= b, and then d mod R = a - b; else d + p does."""
     d = a + (MASK - b) + ctx.limbs(1, a.device)
     return _pick_carried(d + ctx.limbs(ctx.p, a.device), d)
 
 
 def neg(ctx: FpContext, a: torch.Tensor) -> torch.Tensor:
     return sub(ctx, torch.zeros_like(a), a)
+
+
+def int_minus(v: int, a: torch.Tensor) -> torch.Tensor:
+    """v - a for canonical digits a <= v < 2^(16 n), n = a's digit count:
+    v + (2^(16 n) - a) carried mod 2^(16 n)."""
+    n = a.shape[-1]
+    vl = torch.tensor(int_to_limbs(v, n), dtype=DTYPE, device=a.device)
+    return _carry(vl + (MASK - a) + torch.tensor(int_to_limbs(1, n), dtype=DTYPE, device=a.device))
 
 
 def is_zero(a: torch.Tensor) -> torch.Tensor:
@@ -263,7 +282,7 @@ def batch_inv_finish(ctx: FpContext, partial, tinv_mont: int, zero) -> torch.Ten
     from ..convert import to_device  # convert imports this module
 
     # a one-off operand: not cached, and uploaded without waiting for the stream
-    tinv = to_device(torch.tensor(int_to_limbs(tinv_mont), dtype=DTYPE), partial.device)
+    tinv = to_device(torch.tensor(int_to_limbs(tinv_mont, ctx.nlimbs), dtype=DTYPE), partial.device)
     out = mont_mul(ctx, partial, tinv)
     return select(zero, torch.zeros_like(out), out)
 

@@ -2,7 +2,8 @@
 `phase2_bn254_tpu/field/fq2.py`).
 
 The curve layer is generic over one of these objects, as in the JAX package.
-Layout: Fq = int64[..., 16]; Fq2 = int64[..., 2, 16] with c0 at index 0.
+Layout: Fq = int64[..., n]; Fq2 = int64[..., 2, n] with c0 at index 0, n the
+context's limb count (16 for BN254, 24 for BLS12-381: `BLS_FQ`, `BLS_FQ2`).
 """
 
 from __future__ import annotations
@@ -126,7 +127,7 @@ class Fq2Ops:
         return c1_gt | (c1_eq & fp.gt(a[..., 0, :], b[..., 0, :]))
 
     def zeros(self, batch_shape, device):
-        return torch.zeros((*batch_shape, 2, fp.NLIMBS), dtype=fp.DTYPE, device=device)
+        return torch.zeros((*batch_shape, 2, self.ctx.nlimbs), dtype=fp.DTYPE, device=device)
 
     def ones(self, batch_shape, device):
         return self.pack(self.ctx.ones_mont(batch_shape, device), self.ctx.zeros(batch_shape, device))
@@ -154,3 +155,5 @@ class Fq2Ops:
 
 FQ = FqOps(fp.FQ_CTX)
 FQ2 = Fq2Ops(fp.FQ_CTX)
+BLS_FQ = FqOps(fp.BLS_FQ_CTX)
+BLS_FQ2 = Fq2Ops(fp.BLS_FQ_CTX)

@@ -9,8 +9,8 @@ Nothing here runs at import time. `on_card`, `check` and `launch` are the
 boundary every kernel wrapper goes through.
 
 `csrc/constants.cuh` holds the field constants as 32-bit limbs; it is the
-output of `constants_header()`, which derives them from the `refimpl`
-integers, and the tests check the two agree. `field_ptx.cuh`, the field's
+output of `constants_header()`, which derives them from the `refimpl` and
+`bls12_381.field` integers, and the tests check the two agree. `field_ptx.cuh`, the field's
 PTX, is not kept in csrc/: `build()` writes it from `ops/_ptx.py` into the
 build directory.
 """
@@ -51,6 +51,8 @@ ENTRY_POINTS = {
     "p2_lane_dft": (9, 14),
     **{f"p2_segment_sums_{g}": (11, 3) for g in ("g1", "g2")},
     "p2_field_ops": (6, 2),
+    "p2_batch_exp_bls_g1_windowed": (6, 1),
+    "p2_batch_exp_bls_g2_windowed": (6, 1),
 }
 
 _lock = threading.Lock()
@@ -58,7 +60,9 @@ _lib = None
 
 
 def constants_header() -> str:
-    """The text of csrc/constants.cuh, from the refimpl integers."""
+    """The text of csrc/constants.cuh, from the refimpl integers (BN254) and
+    the port's bls12_381.field (BLS12-381)."""
+    from ..bls12_381 import field as bls
     from ..refimpl.field import B_G2, Q, R_MOD
     from ..refimpl.gls import G2C1, G2C2
     from ..refimpl.glv import BETA
@@ -97,11 +101,19 @@ def constants_header() -> str:
         ("FR_ONE", mont(1, R_MOD), "R mod r (Montgomery one of Fr)"),
         ("FR_HALF", (R_MOD - 1) // 2, "(r - 1) / 2 as an integer: the windowed ladders take k above it as (r - k)(-P)"),
         ("FQ_P2", Q * Q, "q^2 as an integer, 16 limbs: the offset of the Fq2 product's c0 (host path)"),
+        ("BLS_FQ_P", bls.Q, "BLS12-381: the modulus q, 12 limbs"),
+        ("BLS_FQ_ONE", (1 << 384) % bls.Q, "2^384 mod q (Montgomery one, R = 2^384)"),
+        ("BLS_FQ_P2", bls.Q * bls.Q, "q^2 as an integer, 24 limbs: the offset of the Fq2 product's c0 (host path)"),
+        ("BLS_FR_P", bls.R_MOD, "the scalar field's modulus r, 8 limbs"),
+        ("BLS_FR_HALF", (bls.R_MOD - 1) // 2, "(r - 1) / 2 as an integer: the windowed ladders take k above it as "
+                                               "(r - k)(-P)"),
     ]
+    widths = {"BLS_FQ_P": 12, "BLS_FQ_ONE": 12, "BLS_FQ_P2": 24}
     lines = [
         "// BN254 constants as 8 little-endian 32-bit limbs (FQ_P2 16), Montgomery form",
-        "// (R = 2^256) except FQ_P, FR_P, FR_HALF, FQ_R2, FQ_P2 and the EXP_ exponents. Written by",
-        "// ops/_build.py constants_header() from the refimpl integers;",
+        "// (R = 2^256) except FQ_P, FR_P, FR_HALF, FQ_R2, FQ_P2 and the EXP_ exponents; the",
+        "// BLS12-381 ones (BLS_) on 12 limbs for Fq (24 for q^2), 8 for Fr, R = 2^384. Written by",
+        "// ops/_build.py constants_header() from the refimpl and bls12_381.field integers;",
         "// tests/test_torch_batch_exp.py checks it.",
         "#pragma once",
         "",
@@ -109,9 +121,11 @@ def constants_header() -> str:
         "",
         f"static constexpr uint32_t FQ_PINV = 0x{(-pow(Q, -1, 1 << 32)) % (1 << 32):08x}u;  // -q^-1 mod 2^32",
         f"static constexpr uint32_t FR_PINV = 0x{(-pow(R_MOD, -1, 1 << 32)) % (1 << 32):08x}u;  // -r^-1 mod 2^32",
+        f"static constexpr uint32_t BLS_FQ_PINV = 0x{(-pow(bls.Q, -1, 1 << 32)) % (1 << 32):08x}u;  "
+        "// BLS12-381: -q^-1 mod 2^32",
     ]
     for name, v, doc in arrays:
-        n = max(8, -(-v.bit_length() // 32))
+        n = widths.get(name, max(8, -(-v.bit_length() // 32)))
         limbs = ", ".join(f"0x{(v >> (32 * k)) & 0xFFFFFFFF:08x}u" for k in range(n))
         if doc:
             lines.append(f"// {doc}")

@@ -18,6 +18,12 @@
 * K10 `batch_exp_gls`: the unsigned GLS quad ladder on G2, 4-bit windows of
   |k0..k3| with a sign flag per lane (pallas_exp.py:845-963), kernel in
   csrc/batch_exp_gls.cu.
+* K8-BLS `batch_exp_bls_g1_windowed` and K9-BLS `batch_exp_bls_g2_windowed`:
+  K8 and K9 at BLS12-381 width (the JAX package runs pallas_exp.py:358 /
+  :449 with its 24-limb field constants, bls12_381/device.py:147-177), the
+  same template over the 12 x 32-bit field in csrc/batch_exp_g1_windowed.cu
+  / batch_exp_g2_windowed.cu; points (N, 24) / (N, 2, 24), scalars (N, 16)
+  canonical mod BLS r.
 
 `batch_exp_g1` / `batch_exp_g2` pick one of these by name from canonical
 scalars, splitting them as the ladder needs (the choice is
@@ -38,7 +44,8 @@ import torch
 
 from ..curve import group as G
 from ..field import fp
-from ..field.fq2 import FQ, FQ2
+from ..bls12_381.field import R_MOD as BLS_R
+from ..field.fq2 import BLS_FQ, BLS_FQ2, FQ, FQ2
 from ..refimpl.field import R_MOD
 from ..refimpl.gls import G2C1, G2C2
 from ..refimpl.glv import BETA
@@ -51,9 +58,9 @@ G2_WINDOWS = GLS_WINDOWS5  # 14
 
 # kernel launches by wrapper name; only a launch of the kernel counts
 LAUNCHES = {"batch_exp_glv_signed": 0, "batch_exp_gls_signed": 0, "batch_exp_g2_windowed": 0,
-            "batch_exp_g1_windowed": 0, "batch_exp_glv": 0, "batch_exp_gls": 0}
-N_WINDOWS = 64  # 4-bit windows of a canonical scalar (K9)
-_R_HALF = torch.tensor(fp.int_to_limbs((R_MOD - 1) // 2), dtype=torch.int64)  # the K8 / K9 recoding's bound
+            "batch_exp_g1_windowed": 0, "batch_exp_glv": 0, "batch_exp_gls": 0,
+            "batch_exp_bls_g1_windowed": 0, "batch_exp_bls_g2_windowed": 0}
+N_WINDOWS = 64  # 4-bit windows of a canonical scalar (K9; BLS r < 2^255 fits them too)
 
 
 def tau_powers(tau_start: torch.Tensor, tau_pows: torch.Tensor, coeff: torch.Tensor, log2n: int) -> torch.Tensor:
@@ -203,30 +210,34 @@ def scalar_windows_msb(scalars: torch.Tensor) -> torch.Tensor:
     return glv.windows4(scalars, N_WINDOWS)
 
 
-def half_recode(scalars: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Canonical scalars int64 (N, 16) -> (k', neg): k' = r - k and neg true
-    where k > (r - 1)/2, else k' = k (so k P = k' (+-P), k' <= (r - 1)/2)."""
-    neg = fp.gt(scalars, _R_HALF.to(scalars.device).expand_as(scalars))
-    return fp.select(neg, fp.neg(fp.FR_CTX, scalars), scalars), neg
+def half_recode(scalars: torch.Tensor, r: int = R_MOD) -> tuple[torch.Tensor, torch.Tensor]:
+    """Canonical scalars int64 (N, 16) mod r (the scalar field's modulus:
+    BN254's by default) -> (k', neg): k' = r - k and neg true where k > (r -
+    1)/2, else k' = k (so k P = k' (+-P), k' <= (r - 1)/2)."""
+    half = torch.tensor(fp.int_to_limbs((r - 1) // 2), dtype=torch.int64, device=scalars.device)
+    neg = fp.gt(scalars, half.expand_as(scalars))
+    return fp.select(neg, fp.int_minus(r, scalars), scalars), neg
 
 
-def _windowed_plain(f, x, y, scalars) -> G.JacobianBatch:
-    """Plain K8 (f = FQ) and K9 (f = FQ2). x, y: Montgomery affine, finite;
-    scalars: int64 (N, 16) canonical. Per lane k > (r - 1)/2 is taken as
-    (r - k)(-P) (`half_recode`, as the kernels do); then T[j] = j P for j =
-    0..15 and per window (MSB first) 4 doublings and one add of T[d]; the
-    windows before the first nonzero digit of the batch are skipped
-    (`_first_live_window`). The kernels' later per-lane start, their table
-    (mixed adds over Fq2) and their skipped adds of T[0] leave the same
-    limbs."""
-    scalars, neg = half_recode(scalars)
+def _windowed_plain(f, x, y, scalars, r: int = R_MOD) -> G.JacobianBatch:
+    """Plain K8 (f = FQ), K9 (f = FQ2) and, with r BLS12-381's, K8-BLS (f =
+    BLS_FQ) and K9-BLS (f = BLS_FQ2). x, y: Montgomery affine, finite;
+    scalars: int64 (N, 16) canonical mod r. Per lane k > (r - 1)/2 is taken
+    as (r - k)(-P) (`half_recode`, as the kernels do); then T[j] = j P for j =
+    0..15 and per window (MSB first) 4 doublings and one add of T[d]
+    (`jac_add_sparse`: the limbs of `jac_add`, the arithmetic only on the
+    lanes where both points are finite); the windows before the first
+    nonzero digit of the batch are skipped (`_first_live_window`). The
+    kernels' later per-lane start, their table (mixed adds over Fq2) and
+    their skipped adds of T[0] leave the same limbs."""
+    scalars, neg = half_recode(scalars, r)
     table = _table(f, x, f.select(neg, f.neg(y), y), 16)
     acc = G.jac_zero(f, (x.shape[0],), x.device)
     digits = scalar_windows_msb(scalars)
     for d in digits[_first_live_window(digits) :]:
         for _ in range(4):
             acc = G.jac_double(f, acc)
-        acc = G.jac_add(f, acc, _gather(table, d))
+        acc = G.jac_add_sparse(f, acc, _gather(table, d))
     return acc
 
 
@@ -270,6 +281,52 @@ def batch_exp_g1_windowed(x, y, scalars) -> G.JacobianBatch:
     out = [torch.empty_like(x) for _ in range(3)]
     _build.launch("p2_batch_exp_g1_windowed", x.device, x, y, scalars, *out, n)
     LAUNCHES["batch_exp_g1_windowed"] += 1
+    return G.JacobianBatch(*out)
+
+
+# ---------------------------------------------------------------------------
+# K8-BLS, K9-BLS: the windowed ladders over BLS12-381's 12 x 32-bit field
+# ---------------------------------------------------------------------------
+
+def batch_exp_bls_g1_windowed_plain(x, y, scalars) -> G.JacobianBatch:
+    """Plain PyTorch K8-BLS. x, y: int64 (N, 24) Montgomery affine (R =
+    2^384), finite; scalars: int64 (N, 16) canonical mod BLS r."""
+    return _windowed_plain(BLS_FQ, x, y, scalars, BLS_R)
+
+
+def batch_exp_bls_g1_windowed(x, y, scalars) -> G.JacobianBatch:
+    """K8-BLS: k_i P_i for BLS12-381 G1 points and canonical scalars. CPU
+    tensors take the plain version; CUDA tensors launch
+    csrc/batch_exp_g1_windowed.cu's BLS instantiation."""
+    if not _build.on_card("batch_exp_bls_g1_windowed", x):
+        return batch_exp_bls_g1_windowed_plain(x, y, scalars)
+    n = x.shape[0]
+    for name, t, shape in (("x", x, (n, 24)), ("y", y, (n, 24)), ("scalars", scalars, (n, 16))):
+        _build.check("batch_exp_bls_g1_windowed", name, t, shape, x.device)
+    out = [torch.empty_like(x) for _ in range(3)]
+    _build.launch("p2_batch_exp_bls_g1_windowed", x.device, x, y, scalars, *out, n)
+    LAUNCHES["batch_exp_bls_g1_windowed"] += 1
+    return G.JacobianBatch(*out)
+
+
+def batch_exp_bls_g2_windowed_plain(x, y, scalars) -> G.JacobianBatch:
+    """Plain PyTorch K9-BLS. x, y: int64 (N, 2, 24) Montgomery affine,
+    finite; scalars: int64 (N, 16) canonical mod BLS r."""
+    return _windowed_plain(BLS_FQ2, x, y, scalars, BLS_R)
+
+
+def batch_exp_bls_g2_windowed(x, y, scalars) -> G.JacobianBatch:
+    """K9-BLS: k_i Q_i for BLS12-381 G2 points and canonical scalars. CPU
+    tensors take the plain version; CUDA tensors launch
+    csrc/batch_exp_g2_windowed.cu's BLS instantiation."""
+    if not _build.on_card("batch_exp_bls_g2_windowed", x):
+        return batch_exp_bls_g2_windowed_plain(x, y, scalars)
+    n = x.shape[0]
+    for name, t, shape in (("x", x, (n, 2, 24)), ("y", y, (n, 2, 24)), ("scalars", scalars, (n, 16))):
+        _build.check("batch_exp_bls_g2_windowed", name, t, shape, x.device)
+    out = [torch.empty_like(x) for _ in range(3)]
+    _build.launch("p2_batch_exp_bls_g2_windowed", x.device, x, y, scalars, *out, n)
+    LAUNCHES["batch_exp_bls_g2_windowed"] += 1
     return G.JacobianBatch(*out)
 
 

@@ -104,8 +104,8 @@ def job_times(tree: str) -> dict:
         kernel = None  # registers and spills of K6, K8 and K9 as this checkout builds them
         for line in f:
             if "Compiling entry function" in line:
-                kernel = next((k for k in ("lane_dft_kernel", "g1_windowed_kernel", "g2_windowed_kernel") if k in line),
-                              None)
+                kernel = next((k for k in ("lane_dft_kernel", "exp_g1_windowed_kernel", "exp_g2_windowed_kernel")
+                               if k in line), None)  # (not exp_bls_g1_windowed_kernel, K8-BLS)
             elif kernel and ("registers" in line or "spill" in line):
                 out.setdefault(f"ptxas {kernel}", []).append(line.split(":", 1)[-1].strip())
     device_ms = _device_ms()

@@ -43,6 +43,10 @@ on the wrappers' inputs and arguments. The groups:
   selects; `pl_recode`: that and the recoding; `pl_skip0`: no add of T[0];
   `pl_madd`: the table by a doubling and mixed adds; `pl_start`: the start
   at the first nonzero window);
+* K8-BLS and K9-BLS (the windowed ladders over BLS12-381's 12-limb Fq and
+  Fq2): 2^16 points with uniform scalars mod BLS r; 128 threads a block (the
+  port's), 64 and 256, and for K8-BLS launch bounds asking 2 and 3 blocks
+  of 128 an SM (`bounds2`, `bounds3`);
 * K2 (csrc/batch_exp_g2.cu, the signed GLS ladder) on chip_smoke's inputs
   (2^16 points, edge and random scalars): 256 threads (the port's), 64 and
   128, and launch bounds asking 3 blocks of 128 or 5 of 64 an SM;
@@ -85,7 +89,8 @@ import chip_smoke as S  # noqa: E402
 NTT_BLOCK = "while (e < 9 && (1 << (e - log2c)) < rows) ++e;"
 LOADS8 = [("field.cuh", "#if defined(__CUDA_ARCH__)\n  const longlong2* q", "#if 0\n  const longlong2* q"),
           ("field.cuh", "#if defined(__CUDA_ARCH__)\n  longlong2* q", "#if 0\n  longlong2* q")]
-LADDER_FN = re.compile(r"template <class F>\n__device__ void windowed_ladder_point\(.*?\n}\n", re.S)
+LADDER_FN = re.compile(r"template <class F, class S = Bn254Scalars>\n__device__ void windowed_ladder_point\(.*?\n}\n",
+                       re.S)
 # the parent's ladder: the table of 15 general adds, 64 windows, an add of T[d] every window, the digits read
 # from the scalar in device memory
 PARENT_LADDER = """template <class F>
@@ -214,12 +219,14 @@ V2_TABLES = {
 
 def _form(base: str, patches: list = ()) -> list:
     """A patch putting `base`, changed as text by `patches`, in the place of
-    the port's ladder in csrc/ladders.cuh."""
+    the port's ladder in csrc/ladders.cuh. The forms read BN254's r (FR_HALF,
+    FR_P) whatever their scalar field S: K8-BLS / K9-BLS built from them are
+    not run (the K8 and K9 groups time the BN254 kernels)."""
     for old, new in patches:
         if old not in base:
             raise RuntimeError(f"the ladder form does not hold {old!r}")
         base = base.replace(old, new)
-    return [("ladders.cuh", LADDER_FN, base)]
+    return [("ladders.cuh", LADDER_FN, base.replace("template <class F>\n", "template <class F, class S = Bn254Scalars>\n", 1))]
 
 
 # the parent's ladder with one of the port's features each: the scalar in registers, read by selects; that and
@@ -313,12 +320,12 @@ GROUPS = {
         "e2048": [(NTT_BLOCK, NTT_BLOCK.replace("e < 9", "e < 11"))],
         "loads8": LOADS8,
     }, "limbs"),
-    "K9": (("batch_exp_g2_windowed.cu",), ("g2_windowed_kernel",), {
+    "K9": (("batch_exp_g2_windowed.cu",), ("exp_g2_windowed_kernel",), {
         "port": [],
         **{f"t{t}": [("constexpr int kThreads = 128;", f"constexpr int kThreads = {t};")] for t in (64, 256)},
         **LADDER_FORMS,
     }, "points"),
-    "K8": (("batch_exp_g1_windowed.cu",), ("g1_windowed_kernel",), {
+    "K8": (("batch_exp_g1_windowed.cu",), ("exp_g1_windowed_kernel",), {
         "port": [],
         **{f"t{t}": [("constexpr int kThreads = 128;", f"constexpr int kThreads = {t};"),
                      ("__launch_bounds__(kThreads, 4)", "__launch_bounds__(kThreads)")] for t in (64, 256)},
@@ -327,6 +334,15 @@ GROUPS = {
         **LADDER_FORMS,
         **{name: _form(FIRST_LADDER, p) for name, p in FIRST_FORMS_K8.items()},
         **{name: _form(PARENT_LADDER, p) for name, p in PARENT_PLUS.items() if name != "pl_fast"},
+    }, "points"),
+    "K8-BLS": (("batch_exp_g1_windowed.cu",), ("bls_g1_windowed_kernel",), {
+        "port": [],
+        **{f"t{t}": [("constexpr int kBlsThreads = 128;", f"constexpr int kBlsThreads = {t};")] for t in (64, 256)},
+        **{f"bounds{b}": [("__launch_bounds__(kBlsThreads)", f"__launch_bounds__(kBlsThreads, {b})")] for b in (2, 3)},
+    }, "points"),
+    "K9-BLS": (("batch_exp_g2_windowed.cu",), ("bls_g2_windowed_kernel",), {
+        "port": [],
+        **{f"t{t}": [("constexpr int kBlsThreads = 128;", f"constexpr int kBlsThreads = {t};")] for t in (64, 256)},
     }, "points"),
     "K2": (("batch_exp_g2.cu",), ("gls_signed_kernel",), {"port": [], **K2_SHAPES}, "limbs"),
     "field": (("batch_exp_g1.cu", "batch_exp_g2.cu", "msm.cu"),
@@ -461,6 +477,16 @@ def _cases(groups: list[str]) -> dict:
     if "K8" in groups:
         g1, _ = S._tiled_points("g1", 1 << 16, dev, rng)
         cases["K8"] = {"2^16 uniform": (lambda: batch_exp.batch_exp_g1_windowed(g1.x, g1.y, uniform), 3, FQ)}
+    for group, name in (("K8-BLS", "g1"), ("K9-BLS", "g2")):
+        if group in groups:
+            from phase2_bn254_tpu_torch.bls12_381 import device as D
+            from phase2_bn254_tpu_torch.bls12_381.field import R_MOD as BLS_R
+
+            pts = S._bls_points(name, 1 << 16, rng)
+            k = D.scalars_to_canon([rng.randrange(BLS_R) for _ in range(1 << 16)], dev)
+            kernel = getattr(batch_exp, f"batch_exp_bls_{name}_windowed")
+            cases[group] = {"2^16 uniform": ((lambda p=pts, k=k, kernel=kernel: kernel(p.x, p.y, k)), 3,
+                                             D.field_ops(name))}
     if "K2" in groups or "field" in groups:
         n = S.KERNEL_N
         pts, _ = S._tiled_points("g1", n, dev, rng)

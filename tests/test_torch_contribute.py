@@ -7,7 +7,8 @@ pins for the exact backend), in this process and, through the port's own
 entry points (`cli.phase1.new_constrained` / `compute_constrained`, then
 `verify_transform_constrained`), in fresh processes: one where neither `jax`
 nor `phase2_bn254_tpu` can be imported, and one where both can but the port
-must leave them unloaded. Tolerance: byte-identical files.
+must leave them unloaded (both processes also import the port's BLS12-381
+engine). Tolerance: byte-identical files.
 """
 
 import hashlib
@@ -51,6 +52,8 @@ new_constrained(challenge, 4, 16)
 compute_constrained(challenge, response, 4, 16, ChaChaRng.from_digest_be(bytes(range(64))), device="cpu")
 if block:
     verify_transform_constrained(challenge, response, challenge + ".next", 4, 16, device="cpu")
+from phase2_bn254_tpu_torch.bls12_381 import codecs_device, device  # the BLS12-381 engine too
+assert device.FQ_OPS.ctx.nlimbs == 24
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "phase2_bn254_tpu")
           and sys.modules[m] is not None]
 assert not loaded, loaded

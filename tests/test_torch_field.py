@@ -9,7 +9,9 @@ The kernels' own field code has two paths, both held against `field/fp.py`
 here on `ops.fieldops.edge_pairs` and random pairs: the inline PTX of
 field_ptx.cuh (`ops._ptx.field_ptx_header()`), parsed and executed instruction by instruction with its
 carry flag, and the C++ CIOS that g++ builds from csrc/fieldops.cu (the
-card compares the PTX itself: tests/test_torch_field_gpu.py).
+card compares the PTX itself: tests/test_torch_field_gpu.py). Both paths
+also at BLS12-381 width ("bls_fq", "bls_fq2": 12 x 32-bit limbs, R =
+2^384).
 """
 
 import ctypes
@@ -45,7 +47,7 @@ CTXS = {"fq": (fp.FQ_CTX, jfp.FpContext(Q, "fq")), "fr": (fp.FR_CTX, jfp.FpConte
 def _elements(seed: int, p: int, n: int = N) -> list[int]:
     """Reduced Montgomery-form values: random, plus 0, 1, p - 1."""
     rng = np.random.default_rng(seed)
-    words = rng.integers(0, 1 << 32, size=(n - 3, 8), dtype=np.uint64)
+    words = rng.integers(0, 1 << 32, size=(n - 3, -(-p.bit_length() // 32)), dtype=np.uint64)
     vals = [sum(int(w) << (32 * i) for i, w in enumerate(row)) % p for row in words]
     return vals + [0, 1, p - 1]
 
@@ -175,57 +177,80 @@ def _parse_ptx(text: str) -> dict:
     return fns
 
 
-def _run_ptx(fn: dict, **arrays) -> list[int]:
-    """Execute one parsed function on 32-bit limbs. The carry flag is
-    undefined at the start of every asm statement (the compiler keeps it
-    across none); a chain's last add without .cc must lose no carry."""
-    env = {v: arrays[a][k] for v, a, k in fn["inputs"]}
-    env.update({v: 0 for v in fn["zeros"]})
-    for instrs, outs, ins in fn["blocks"]:
-        operands, local, cf = outs + ins, {}, None
+def _compile_ptx(fn: dict):
+    """One parsed function -> a Python function of its input arrays that
+    runs its instructions in order on 32-bit limbs, with the carry flag.
+    The carry flag is undefined at the start of every asm statement (the
+    compiler keeps it across none): an instruction that reads it must
+    follow one that set it in the same statement, and no instruction may
+    write an input operand (both checked here, once, for every path of the
+    straight-line code); a chain's last add without .cc must lose no carry
+    (checked at run time)."""
+    env = {}  # variable -> Python name
+
+    def name(v):
+        return env.setdefault(v, f"v{len(env)}")
+
+    lines = ["def run(arrays):"]
+    lines += [f"    {name(v)} = arrays[{a!r}][{k}]" for v, a, k in fn["inputs"]]
+    lines += [f"    {name(v)} = 0" for v in fn["zeros"]]
+    for b, (instrs, outs, ins) in enumerate(fn["blocks"]):
+        operands, has_cf = outs + ins, False
 
         def val(tok):
             if tok.startswith("%"):
-                return env[operands[int(tok[1:])]]
-            return local[tok] if tok in local else int(tok, 0)
+                return name(operands[int(tok[1:])])
+            if re.fullmatch(r"-?(0x[0-9a-fA-F]+|\d+)", tok):
+                return str(int(tok, 0))
+            return f"l{b}_{tok}"
 
         for op, (dst, *src) in instrs:
             base, *mods = op.split(".")
-            s = [val(t) for t in src]
+            x = [val(t) for t in src]
             if base in ("madc", "addc", "subc"):
-                assert cf is not None, f"{op} reads a carry its statement never set"
+                assert has_cf, f"{op} reads a carry its statement never set"
             if base in ("mad", "madc"):
-                prod = s[0] * s[1]
-                v = (prod & _M32 if "lo" in mods else prod >> 32) + s[2] + (cf if base == "madc" else 0)
+                prod = f"({x[0]} * {x[1]})"
+                v = f"{f'({prod} & {_M32})' if 'lo' in mods else f'({prod} >> 32)'} + {x[2]}" + (" + cf" if base == "madc" else "")
             elif base in ("add", "addc"):
-                v = s[0] + s[1] + (cf if base == "addc" else 0)
+                v = f"{x[0]} + {x[1]}" + (" + cf" if base == "addc" else "")
             elif base in ("sub", "subc"):
-                v = s[0] - s[1] - (cf if base == "subc" else 0)
+                v = f"{x[0]} - {x[1]}" + (" - cf" if base == "subc" else "")
             elif base == "mul":
-                v = (s[0] * s[1]) & _M32
+                v = f"({x[0]} * {x[1]}) & {_M32}"
             elif base == "and":
-                v = s[0] & s[1]
+                v = f"{x[0]} & {x[1]}"
             elif base == "setp":
-                v = int(s[0] != s[1])
+                v = f"int({x[0]} != {x[1]})"
             elif base == "selp":
-                v = s[0] if s[2] else s[1]
+                v = f"({x[0]} if {x[2]} else {x[1]})"
             else:
                 raise AssertionError(f"no model of {op}")
+            lines.append(f"    t = {v}")
             if "cc" in mods:
-                cf = int(v < 0) if base in ("sub", "subc") else v >> 32
+                lines.append("    cf = int(t < 0)" if base in ("sub", "subc") else "    cf = t >> 32")
+                has_cf = True
             elif base in ("mad", "madc", "add", "addc"):
-                assert v >> 32 == 0, f"{op} into {dst} lost a carry"
+                lines.append(f"    assert t >> 32 == 0, {op + ' into ' + dst + ' lost a carry'!r}")
             if dst.startswith("%"):
-                k = int(dst[1:])
-                assert k < len(outs), f"{op} writes the input operand {dst}"
-                env[operands[k]] = v & _M32
-            else:
-                local[dst] = v & _M32
-    return [env[v] for v in fn["outputs"]]
+                assert int(dst[1:]) < len(outs), f"{op} writes the input operand {dst}"
+            lines.append(f"    {val(dst)} = t & {_M32}")
+    lines.append(f"    return [{', '.join(name(v) for v in fn['outputs'])}]")
+    scope = {}
+    exec(compile("\n".join(lines), f"<ptx {len(lines)} lines>", "exec"), scope)
+    return scope["run"]
 
 
-def _words(v: int) -> list[int]:
-    return [(v >> (32 * k)) & _M32 for k in range(8)]
+def _run_ptx(fn: dict, **arrays) -> list[int]:
+    """Execute one parsed function on 32-bit limbs (`_compile_ptx`, compiled
+    once per function)."""
+    if "run" not in fn:
+        fn["run"] = _compile_ptx(fn)
+    return fn["run"](arrays)
+
+
+def _words(v: int, n: int = 8) -> list[int]:
+    return [(v >> (32 * k)) & _M32 for k in range(n)]
 
 
 def _field_cases(field: str, seed: int, n_random: int = 40):
@@ -233,8 +258,8 @@ def _field_cases(field: str, seed: int, n_random: int = 40):
     a, values b)."""
     p = fieldops.CTXS[field].p
     rng = random.Random(seed)
-    if field == "fq2":
-        pairs = fieldops.edge_pairs_fq2(rng)
+    if fieldops.is_fq2(field):
+        pairs = fieldops.edge_pairs_fq2(rng, field)
         pairs += [(fieldops.random_element(field, rng), fieldops.random_element(field, rng)) for _ in range(n_random)]
         return [x for x, _ in pairs], [y for _, y in pairs]
     pairs = fieldops.edge_pairs(field, rng)
@@ -254,25 +279,44 @@ def test_build_writes_the_field_ptx_header(tmp_path):
     assert _build._source_hash(gen) != _build._source_hash({"field_ptx.cuh": gen["field_ptx.cuh"] + "\n"})
 
 
-@pytest.mark.parametrize("field", ["fq", "fr"])
+@pytest.mark.parametrize("field", ["fq", "fr", "bls_fq"])
 def test_field_ptx_matches_fp(field):
     """Every instruction of field_ptx.cuh's product, square, sum and
     difference, run on Python integers, against field/fp.py limb for limb
-    on the edge operands and random pairs."""
+    on the edge operands and random pairs (bls_fq: the 12-limb routines)."""
     fns = _parse_ptx(_ptx.field_ptx_header())
     a, b = _field_cases(field, 7)
-    want = [convert.limbs_to_ints(t) for t in fieldops.field_ops_plain(*(convert.ints_to_limbs(v, "cpu") for v in (a, b)), field)]
+    want = [convert.limbs_to_ints(t) for t in fieldops.field_ops_plain(*(fieldops.to_limbs(v, field, "cpu") for v in (a, b)), field)]
     got = [[], [], [], []]
+    n = _ptx.LIMBS[field]
     for x, y in zip(a, b):
-        wx, wy = _words(x), _words(y)
+        wx, wy = _words(x, n), _words(y, n)
         res = (_run_ptx(fns[f"ptx_mul_{field}"], a=wx, b=wy), _run_ptx(fns[f"ptx_sqr_{field}"], a=wx),
                _run_ptx(fns[f"ptx_add_{field}"], a=wx, b=wy), _run_ptx(fns[f"ptx_sub_{field}"], a=wx, b=wy))
         for out, words in zip(got, res):
             out.append(sum(w << (32 * k) for k, w in enumerate(words)))
-    p, rinv = fieldops.CTXS[field].p, pow(1 << 256, -1, fieldops.CTXS[field].p)
+    p, rinv = fieldops.CTXS[field].p, fieldops.CTXS[field].rinv
     assert got == want
     assert want[0] == [x * y * rinv % p for x, y in zip(a, b)]
     assert want[1] == [x * x * rinv % p for x in a]
+
+
+def _fq2_ptx_matches_fq2(field: str) -> None:
+    fns = _parse_ptx(_ptx.field_ptx_header())
+    a, b = _field_cases(field, 11)
+    ta, tb = (fieldops.to_limbs(v, field, "cpu") for v in (a, b))
+    f, ctx = fieldops.FQ2_OPS[field], fieldops.CTXS[field]
+    prod, sq = f.mul(ta, tb), f.sqr(ta)
+    p, rinv, n, name = ctx.p, ctx.rinv, ctx.nlimbs // 2, _ptx.FQ2_NAMES[field.removesuffix("2")]
+    for i, ((a0, a1), (b0, b1)) in enumerate(zip(a, b)):
+        got_mul = _run_ptx(fns[f"ptx_mul_{name}"], a=_words(a0, n) + _words(a1, n), b=_words(b0, n) + _words(b1, n))
+        got_sqr = _run_ptx(fns[f"ptx_sqr_{name}"], a=_words(a0, n) + _words(a1, n))
+        for got, want in ((got_mul, prod[i]), (got_sqr, sq[i])):
+            assert torch.equal(fieldops.to_limbs([(_int(got[:n]), _int(got[n:]))], field, "cpu")[0], want), i
+        assert (_int(got_mul[:n]), _int(got_mul[n:])) == ((a0 * b0 - a1 * b1) * rinv % p, (a0 * b1 + a1 * b0) * rinv % p)
+        assert (_int(got_sqr[:n]), _int(got_sqr[n:])) == ((a0 * a0 - a1 * a1) * rinv % p, 2 * a0 * a1 * rinv % p)
+    assert {0, p - 1} <= set(convert.limbs_to_ints(prod.reshape(-1, ctx.nlimbs)))  # products land on 0 and p - 1
+    assert 0 in convert.limbs_to_ints(sq[:, 0])  # and squares' c0 on 0
 
 
 def test_fq2_ptx_matches_fq2():
@@ -281,20 +325,14 @@ def test_fq2_ptx_matches_fq2():
     field/fq2.py limb for limb and against the integers, on
     fieldops.edge_pairs_fq2 (components 0, 1, p - 1; a0 + a1 >= p; a0 b0 <
     a1 b1; results on 0 and p - 1) and random pairs."""
-    fns = _parse_ptx(_ptx.field_ptx_header())
-    a, b = _field_cases("fq2", 11)
-    ta, tb = (fieldops.to_limbs(v, "fq2", "cpu") for v in (a, b))
-    prod, sq = FQ2.mul(ta, tb), FQ2.sqr(ta)
-    p, rinv = Q, pow(1 << 256, -1, Q)
-    for i, ((a0, a1), (b0, b1)) in enumerate(zip(a, b)):
-        got_mul = _run_ptx(fns["ptx_mul_fq2"], a=_words(a0) + _words(a1), b=_words(b0) + _words(b1))
-        got_sqr = _run_ptx(fns["ptx_sqr_fq2"], a=_words(a0) + _words(a1))
-        for got, want in ((got_mul, prod[i]), (got_sqr, sq[i])):
-            assert torch.equal(fieldops.to_limbs([(_int(got[:8]), _int(got[8:]))], "fq2", "cpu")[0], want), i
-        assert (_int(got_mul[:8]), _int(got_mul[8:])) == ((a0 * b0 - a1 * b1) * rinv % p, (a0 * b1 + a1 * b0) * rinv % p)
-        assert (_int(got_sqr[:8]), _int(got_sqr[8:])) == ((a0 * a0 - a1 * a1) * rinv % p, 2 * a0 * a1 * rinv % p)
-    assert {0, p - 1} <= set(convert.limbs_to_ints(prod.reshape(-1, 16)))  # products land on 0 and p - 1
-    assert 0 in convert.limbs_to_ints(sq[:, 0])  # and squares' c0 on 0
+    _fq2_ptx_matches_fq2("fq2")
+
+
+def test_bls_fq2_ptx_matches_fq2():
+    """The same for BLS12-381's Fq2 routines (ptx_mul_bls_fq2,
+    ptx_sqr_bls_fq2: 12-limb products, their 24-word sums and differences
+    cut into statements of 8 words) against field/fq2.py's BLS_FQ2."""
+    _fq2_ptx_matches_fq2("bls_fq2")
 
 
 def _int(words: list[int]) -> int:
@@ -315,11 +353,12 @@ extern "C" void host_field_ops(const int64_t* a, const int64_t* b, int64_t* prod
 """
 
 
-@pytest.mark.parametrize("field", ["fq", "fr", "fq2"])
+@pytest.mark.parametrize("field", ["fq", "fr", "fq2", "bls_fq", "bls_fq2"])
 def test_field_host_path_matches_fp(field, tmp_path):
     """csrc/fieldops.cu compiled by g++ (the C++ CIOS of field.cuh; for Fq2
-    the fused product and square's C++ counterpart) against field/fp.py
-    (field/fq2.py) limb for limb on the same operands."""
+    the fused product and square's C++ counterpart; BLS12-381's on 12
+    limbs) against field/fp.py (field/fq2.py) limb for limb on the same
+    operands."""
     (tmp_path / "shim.cpp").write_text(_FIELD_SHIM)
     subprocess.run(["g++", "-O1", "-std=c++17", "-shared", "-fPIC", "-Wno-unknown-pragmas", f"-I{_build.CSRC}",
                     str(tmp_path / "shim.cpp"), "-o", str(tmp_path / "shim.so")],

@@ -7,14 +7,18 @@ package. These cases hold each copy against its original on the same inputs
 stream and the keypair it seeds, `CeremonyParams` geometry, Blake2b file
 hashes, the native codec's digits and bytes, the GLV / GLS splits and
 `same_ratio` on a true and a false pair. The host-only Groth16, circom and
-Solidity modules copied unchanged (`COPIES`) must equal their originals'
-code, every docstring left out, and the Solidity template its original's
-text but the two header lines that name its origin. Tolerance: exact
-equality of integers, bytes and code.
+Solidity modules and BLS12-381's curve copied unchanged (`COPIES`) must
+equal their originals' code, every docstring left out, and the Solidity
+template its original's text but the two header lines that name its
+origin; BLS12-381's field is its original's code up to the curve
+coefficients (`PREFIX_COPIES`: Fq6, Fq12 and the Frobenius coefficients
+wait for the pairing). Tolerance: exact equality of integers, bytes and
+code.
 
 `test_port_imports_neither_jax_nor_the_jax_package` reads every module of
-the port and `chip_smoke.py` (ast) and fails on any import of `jax` or of
-`phase2_bn254_tpu`.
+the port and `chip_smoke.py` (ast), the BLS12-381 engine's among them, and
+fails on any import of `jax` or of `phase2_bn254_tpu` (the jax-blocked
+subprocess of tests/test_torch_contribute.py imports that engine too).
 """
 
 import ast
@@ -26,6 +30,7 @@ import pytest
 import torch
 
 from phase2_bn254_tpu import native as jnative
+from phase2_bn254_tpu.bls12_381 import field as jbls_field
 from phase2_bn254_tpu.ceremony import keypair as jkeypair
 from phase2_bn254_tpu.ceremony import params as jparams
 from phase2_bn254_tpu.crypto import chacha as jchacha
@@ -37,6 +42,7 @@ from phase2_bn254_tpu.refimpl import glv as jglv
 from phase2_bn254_tpu.refimpl import pairing as jpairing
 from phase2_bn254_tpu.refimpl import sampling as jsampling
 from phase2_bn254_tpu_torch import native
+from phase2_bn254_tpu_torch.bls12_381 import field as bls_field
 from phase2_bn254_tpu_torch.ceremony import keypair, params
 from phase2_bn254_tpu_torch.crypto import chacha, hashing
 from phase2_bn254_tpu_torch.refimpl import curve, field, gls, glv, pairing, sampling
@@ -55,7 +61,8 @@ def _constants(mod):
     return {k: v for k, v in vars(mod).items() if k.isupper() and isinstance(v, (int, field.Fq2, jfield.Fq2))}
 
 
-@pytest.mark.parametrize("ours,theirs", [(field, jfield), (glv, jglv), (gls, jgls)], ids=["field", "glv", "gls"])
+@pytest.mark.parametrize("ours,theirs", [(field, jfield), (glv, jglv), (gls, jgls), (bls_field, jbls_field)],
+                         ids=["field", "glv", "gls", "bls_field"])
 def test_constants_match(ours, theirs):
     mine, ref = _constants(ours), _constants(theirs)
     assert mine.keys() == ref.keys() and mine
@@ -170,34 +177,63 @@ def test_same_ratio_matches():
 # modules of the port that are the JAX package's code unchanged (their
 # docstrings differ: each names its original), and the Solidity template
 COPIES = ["groth16/cs.py", "groth16/containers.py", "groth16/source.py", "groth16/verifier.py", "phase2/circom.py",
-          "phase2/solidity.py", "phase2/verifier_template.sol"]
+          "phase2/solidity.py", "phase2/verifier_template.sol", "bls12_381/curve.py"]
+# modules of the port that are a leading part of their original's code:
+# rel -> the names that only the original's remaining statements define
+PREFIX_COPIES = {"bls12_381/field.py": {"Fq6", "Fq12", "FQ6_ZERO", "FQ6_ONE", "FQ12_ZERO", "FQ12_ONE",
+                                        "FROBENIUS_COEFF_FQ6_C1", "FROBENIUS_COEFF_FQ6_C2",
+                                        "FROBENIUS_COEFF_FQ12_C1"}}
 # the Solidity template's header lines that say where its upstream
 # counterpart lies: the port's copy names it as a path of the upstream
 # repository, the original as a local path; every other line is the same
 TEMPLATE_ORIGIN = slice(3, 5)
 
 
-def _code(path: str) -> str:
-    """The module's ast without docstrings; the Solidity template's text
-    without its TEMPLATE_ORIGIN comment lines."""
+def _tree(path: str) -> ast.Module:
+    """The module's ast without docstrings."""
     with open(path) as f:
-        if path.endswith(".sol"):
-            lines = f.read().splitlines(keepends=True)
-            assert all(line.startswith("//") for line in lines[TEMPLATE_ORIGIN])
-            del lines[TEMPLATE_ORIGIN]
-            return "".join(lines)
         tree = ast.parse(f.read(), path)
     for node in ast.walk(tree):
         body = getattr(node, "body", None)
         if isinstance(body, list) and body and isinstance(body[0], ast.Expr) \
                 and isinstance(body[0].value, ast.Constant) and isinstance(body[0].value.value, str):
             node.body = body[1:] or [ast.Pass()]
-    return ast.dump(tree)
+    return tree
+
+
+def _code(path: str) -> str:
+    """The module's ast without docstrings; the Solidity template's text
+    without its TEMPLATE_ORIGIN comment lines."""
+    if path.endswith(".sol"):
+        with open(path) as f:
+            lines = f.read().splitlines(keepends=True)
+        assert all(line.startswith("//") for line in lines[TEMPLATE_ORIGIN])
+        del lines[TEMPLATE_ORIGIN]
+        return "".join(lines)
+    return ast.dump(_tree(path))
 
 
 @pytest.mark.parametrize("rel", COPIES)
 def test_copied_module_matches_original(rel):
     assert _code(os.path.join(REPO, "phase2_bn254_tpu_torch", rel)) == _code(os.path.join(REPO, "phase2_bn254_tpu", rel))
+
+
+@pytest.mark.parametrize("rel", sorted(PREFIX_COPIES))
+def test_prefix_copy_matches_original(rel):
+    """The copy's statements are its original's first ones, unchanged, and
+    the original's others define only the names PREFIX_COPIES lists."""
+    mine = _tree(os.path.join(REPO, "phase2_bn254_tpu_torch", rel)).body
+    theirs = _tree(os.path.join(REPO, "phase2_bn254_tpu", rel)).body
+    assert [ast.dump(n) for n in mine] == [ast.dump(n) for n in theirs[: len(mine)]]
+    rest = set()
+    for node in theirs[len(mine):]:
+        if isinstance(node, ast.ClassDef):
+            rest.add(node.name)
+        else:
+            assert isinstance(node, ast.Assign), ast.dump(node)
+            rest |= {t.id for t in node.targets}
+    assert rest == PREFIX_COPIES[rel]
+
 
 
 def _sources():
@@ -224,4 +260,6 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 continue
             found += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}" for n in names if n.split(".")[0] in banned]
     assert not found, found
-    assert len(list(_sources())) > 30  # the walk found the package
+    walked = {os.path.relpath(p, REPO) for p in _sources()}
+    assert len(walked) > 30  # the walk found the package
+    assert {f"phase2_bn254_tpu_torch/bls12_381/{m}.py" for m in ("field", "curve", "device", "codecs_device")} <= walked
