@@ -99,15 +99,21 @@ phases:
 16. the BLS12-381 engine (`bls12_381/`): its 12-limb field code (fieldops.cu)
    against field/fp.py / fq2.py on 2^16 Fq and 2^16 Fq2 pairs, the edge
    operands first; K8-BLS and K9-BLS (the windowed ladders over BLS12-381's
-   Fq and Fq2) against their plain versions at 2^16 points with the edge
-   scalars first, limb for limb on the first PLAIN_BLS_N lanes; the slice
-   at 2^16 compressed G1 and 2^16 compressed G2 points (decode_batch,
-   device.ladder, normalize, encode_batch, each part timed, the kernel's
-   launches counted from zero around it), its bytes on BLS_SAMPLE lanes
-   spread over the batch against the host chain (host decode, Point.mul,
-   host encode), and tampered encodings (no compression flag, an infinity
-   flag, x = q, a non-residue x) rejected; time per call, bound
-   (MULS_PER_BLS_*), ptxas registers and spills.
+   Fq and Fq2) and K7-BLS and K1-BLS (the GLV ladders over its Fq, on the
+   device splits of bls12_381/device.py) against their plain versions at
+   2^16 points with the edge scalars (the GLV split's among them) first,
+   limb for limb on the first PLAIN_BLS_N lanes; D1-BLS (decompression)
+   against its plain version on the x of 2^16 compressed points of each
+   group, NONRESIDUES of them without a point (limbs and valid flags); the
+   slice at 2^16 compressed G1 and 2^16 compressed G2 points (decode_batch
+   with D1-BLS, then each of the group's ladders: G1 device.ladder (K8-BLS),
+   glv_ladder (K7-BLS) and glv_signed_ladder (K1-BLS), G2 device.ladder
+   (K9-BLS); each normalized and encoded, each part timed, the kernels'
+   launches counted from zero around it), the G1 ladders' bytes equal, the
+   bytes on BLS_SAMPLE lanes spread over the batch against the host chain
+   (host decode, Point.mul, host encode), and tampered encodings (no
+   compression flag, an infinity flag, x = q, a non-residue x) rejected;
+   time per call, bound (MULS_PER_BLS_*), ptxas registers and spills.
 
 Each kernel's bound is the larger of two times: the bytes of its inputs and
 outputs over the card's memory rate, and its 32-bit integer multiplies over
@@ -121,7 +127,8 @@ its count with an Fq2 product as three Fq products (`muls_three_fq`), as
 before the fused Fq2 routines. For a ladder
 (k P for canonical scalars k) that is, lane by lane, the fewest that any of
 the port's ladders for the same function takes on this data
-(_function_muls: K1, K7, K8 on G1; K2, K10, K9 on G2), each counted
+(_function_muls: K1, K7, K8 on G1; K2, K10, K9 on G2; K1-BLS, K7-BLS,
+K8-BLS on BLS12-381's G1, K9-BLS on its G2), each counted
 from a scalar's first nonzero window with the multiples its digits use
 (_k1_muls, _k2_muls, _k7_muls, _k10_muls,
 _windowed_muls); this ladder's own count stands beside it
@@ -401,30 +408,36 @@ def _table_muls(ops: dict, top, mixed: bool = False):
     return (more > 0) * (ops["add_head"] + ops["dbl"]) + (more - 1).clamp(min=0) * ops["add"]
 
 
-def _k1_muls(d1, d2):
+def _fq_product(group: str) -> int:
+    """Multiplies of one Fq product of a G1 key ("g1": BN254, "bls_g1")."""
+    return MULS_PER_BLS_FQ_PRODUCT if group.startswith("bls_") else MULS_PER_FQ_PRODUCT
+
+
+def _k1_muls(d1, d2, group: str = "g1"):
     """Multiplies (N,) k P takes on these GLV digits (signed base 32, MSB
-    first) by K1's ladder, as far as this data needs it: the multiples up to
-    each point's largest digit magnitude by a doubling and mixed adds (with
-    their beta x where d2 has a nonzero digit), 5 doublings per window after
-    the first nonzero one, one add per nonzero digit after the first."""
-    ops = OP_MULS["g1"]
+    first) by K1's ladder (K1-BLS's with group "bls_g1"), as far as this
+    data needs it: the multiples up to each point's largest digit magnitude
+    by a doubling and mixed adds (with their beta x where d2 has a nonzero
+    digit), 5 doublings per window after the first nonzero one, one add per
+    nonzero digit after the first."""
+    ops = OP_MULS[group]
     nz1, nz2 = d1 != 0, d2 != 0
     top = d1.abs().amax(0).maximum(d2.abs().amax(0))
     adds = (nz1.sum(0) + nz2.sum(0) - 1).clamp(min=0)
-    return (_table_muls(ops, top, mixed=True) + top * nz2.any(0) * MULS_PER_FQ_PRODUCT
+    return (_table_muls(ops, top, mixed=True) + top * nz2.any(0) * _fq_product(group)
             + _ladder_doublings(nz1 | nz2, 5) * ops["dbl"] + adds * ops["add"])
 
 
-def _k1_kernel_muls(d1, d2) -> int:
-    """Multiplies K1 (csrc/batch_exp_g1.cu) does on these digits: the table
-    (16 beta x, 2P by a doubling, 3P..16P by mixed adds), 5 doublings per
-    window after each point's first nonzero one, and one add per nonzero
-    digit after the first (an add into infinity or of infinity costs
-    none)."""
-    ops = OP_MULS["g1"]
+def _k1_kernel_muls(d1, d2, group: str = "g1") -> int:
+    """Multiplies K1 (csrc/batch_exp_g1.cu; K1-BLS with group "bls_g1")
+    does on these digits: the table (16 beta x, 2P by a doubling, 3P..16P by
+    mixed adds), 5 doublings per window after each point's first nonzero
+    one, and one add per nonzero digit after the first (an add into infinity
+    or of infinity costs none)."""
+    ops = OP_MULS[group]
     n = d1.shape[1]
     nz1, nz2 = d1 != 0, d2 != 0
-    table = 16 * MULS_PER_FQ_PRODUCT + ops["dbl"] + 14 * ops["madd"]
+    table = 16 * _fq_product(group) + ops["dbl"] + 14 * ops["madd"]
     adds = int((nz1.sum(0) + nz2.sum(0) - 1).clamp(min=0).sum())
     return n * table + int(_ladder_doublings(nz1 | nz2, 5).sum()) * ops["dbl"] + adds * ops["add"]
 
@@ -477,13 +490,20 @@ def _function_muls(group: str, scalars) -> int:
     """Multiplies k P needs on `group` for these canonical scalars (N, 16):
     lane by lane the fewest that any of the port's ladders for that function
     takes on this data (G1: K1 on the signed GLV split, K7 on the unsigned
-    one, K8 on the scalar; G2: K2, K10, K9). Every ladder's bound counts
-    these, whichever ladder it is."""
+    one, K8 on the scalar; G2: K2, K10, K9; "bls_g1": K1-BLS, K7-BLS,
+    K8-BLS at BLS12-381's costs on its splits; "bls_g2": K9-BLS). Every
+    ladder's bound counts these, whichever ladder it is."""
     import torch
+    from phase2_bn254_tpu_torch.bls12_381 import device as bls
     from phase2_bn254_tpu_torch.ops import gls, glv
 
     if group == "g1":
         counts = [_k1_muls(*glv.decompose_signed(scalars)), _k7_muls(*glv.decompose(scalars))]
+    elif group == "bls_g1":
+        counts = [_k1_muls(*bls.decompose_glv_signed_t(scalars), group),
+                  _k7_muls(*bls.decompose_glv_t(scalars), group)]
+    elif group == "bls_g2":
+        counts = []
     else:
         counts = [_k2_muls(gls.decompose_signed(scalars)), _k10_muls(*gls.decompose(scalars))]
     return int(torch.stack(counts + [_windowed_muls(group, scalars)]).amin(0).sum())
@@ -995,19 +1015,27 @@ def _k5_chain(group: str, sums, c: int) -> dict:
 
 
 def _d1_muls(group: str, n: int) -> int:
-    """Multiplies of D1 (csrc/decompress.cu), square-and-multiply from the
+    """Multiplies of D1 (csrc/decompress.cu; D1-BLS with group "bls_g1" /
+    "bls_g2", BLS12-381's q and 12-limb costs), square-and-multiply from the
     top bit of each public exponent; G2 counts the usual branch (alpha !=
     -1) in Fq2 products and squares, and its conversions in Fq products."""
-    from phase2_bn254_tpu_torch.refimpl.field import Q
+    if group.startswith("bls_"):
+        from phase2_bn254_tpu_torch.bls12_381.field import Q
+
+        prod, sq = MULS_PER_BLS_FQ_PRODUCT, MULS_PER_BLS_FQ_SQUARE
+        p2, s2 = MULS_PER_BLS_FQ2_PRODUCT, MULS_PER_BLS_FQ2_SQUARE
+    else:
+        from phase2_bn254_tpu_torch.refimpl.field import Q
+
+        prod, sq = MULS_PER_FQ_PRODUCT, MULS_PER_FQ_SQUARE
+        p2, s2 = MULS_PER_FQ2_PRODUCT, MULS_PER_FQ2_SQUARE
 
     def pow_cost(e, sqr, mul):
         return (e.bit_length() - 1) * sqr + (bin(e).count("1") - 1) * mul
 
-    prod, sq = MULS_PER_FQ_PRODUCT, MULS_PER_FQ_SQUARE
-    if group == "g1":  # to Montgomery, x^2 and x^3, the root, two from-Montgomery, y^2 == rhs
+    if group.endswith("g1"):  # to Montgomery, x^2 and x^3, the root, two from-Montgomery, y^2 == rhs
         per = prod + (sq + prod) + pow_cost((Q + 1) // 4, sq, prod) + 2 * prod + sq
     else:  # to Montgomery, v, a1, alpha, a0, a1 v, (1 + alpha)^((q-1)/2), its product, four from-Montgomery, y^2
-        p2, s2 = MULS_PER_FQ2_PRODUCT, MULS_PER_FQ2_SQUARE
         per = (2 * prod + (s2 + p2) + pow_cost((Q - 3) // 4, s2, p2) + (s2 + p2) + p2 + p2
                + pow_cost((Q - 1) // 2, s2, p2) + p2 + 4 * prod + s2)
     return n * per
@@ -2408,10 +2436,12 @@ def _launch_counts() -> dict:
 
 
 def _zero_counts() -> None:
+    from phase2_bn254_tpu_torch.bls12_381 import codecs_device
     from phase2_bn254_tpu_torch.ops import batch_exp, decompress, ntt, segsum
     from phase2_bn254_tpu_torch.ops import msm as M
 
-    for counts in (batch_exp.LAUNCHES, segsum.LAUNCHES, M.LAUNCHES, ntt.LAUNCHES, decompress.LAUNCHES):
+    for counts in (batch_exp.LAUNCHES, segsum.LAUNCHES, M.LAUNCHES, ntt.LAUNCHES, decompress.LAUNCHES,
+                   codecs_device.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -2670,27 +2700,27 @@ PLAIN_LADDER_N = 1 << 14  # the prefix of phase 14's lanes the plain K7, K8, K10
 LADDER_VARIABLES = ("PHASE2_TPU_NO_GLV", "PHASE2_TPU_NO_GLS", "PHASE2_TPU_NO_SIGNED5")
 
 
-def _k7_muls(d1, d2, negs):
+def _k7_muls(d1, d2, negs, group: str = "g1"):
     """Multiplies (N,) k P takes on these unsigned GLV windows by K7's
-    ladder, as far as this data needs it: the multiples up to each point's
-    largest digit (with their beta x where d2 has a nonzero digit), 4
-    doublings per window after the first nonzero one, one add per nonzero
-    digit after the first; the signs cost none."""
-    ops = OP_MULS["g1"]
+    ladder (K7-BLS's with group "bls_g1"), as far as this data needs it:
+    the multiples up to each point's largest digit (with their beta x where
+    d2 has a nonzero digit), 4 doublings per window after the first nonzero
+    one, one add per nonzero digit after the first; the signs cost none."""
+    ops = OP_MULS[group]
     nz1, nz2 = d1 != 0, d2 != 0
     top = d1.amax(0).maximum(d2.amax(0))
     adds = (nz1.sum(0) + nz2.sum(0) - 1).clamp(min=0)
-    return (_table_muls(ops, top) + top * nz2.any(0) * MULS_PER_FQ_PRODUCT
+    return (_table_muls(ops, top) + top * nz2.any(0) * _fq_product(group)
             + _ladder_doublings(nz1 | nz2, 4) * ops["dbl"] + adds * ops["add"])
 
 
-def _k7_kernel_muls(d1, d2, negs) -> int:
-    """Multiplies K7 (csrc/batch_exp_glv.cu) does: the table (15 beta x, 2P
-    through the doubling branch, 3P..15P), 4 doublings per window, one add
-    per nonzero digit after the first."""
-    ops = OP_MULS["g1"]
+def _k7_kernel_muls(d1, d2, negs, group: str = "g1") -> int:
+    """Multiplies K7 (csrc/batch_exp_glv.cu; K7-BLS with group "bls_g1")
+    does: the table (15 beta x, 2P through the doubling branch, 3P..15P), 4
+    doublings per window, one add per nonzero digit after the first."""
+    ops = OP_MULS[group]
     nw, n = d1.shape
-    table = 15 * MULS_PER_FQ_PRODUCT + ops["add_head"] + ops["dbl"] + 13 * ops["add"]
+    table = 15 * _fq_product(group) + ops["add_head"] + ops["dbl"] + 13 * ops["add"]
     adds = int(((d1 != 0).sum(0) + (d2 != 0).sum(0) - 1).clamp(min=0).sum())
     return n * (table + nw * 4 * ops["dbl"]) + adds * ops["add"]
 
@@ -2738,14 +2768,17 @@ LADDER_CASES = {
 }
 
 
-def _ladder_case(name: str, x, y, k, plain_n: int, reps: int) -> dict:
-    """One of K7, K8, K10 (LADDER_CASES) on points x, y and canonical scalars
-    k: the kernel against its plain version on the first plain_n lanes (a
-    lane's split is its own), limb for limb; time per call; the work."""
+def _ladder_case(name: str, x, y, k, plain_n: int, reps: int, cases=None) -> dict:
+    """One of K7, K8, K10 (LADDER_CASES; or of `cases`, which have its form:
+    BLS_LADDERS) on points x, y and canonical scalars k: the kernel against
+    its plain version on the first plain_n lanes (a lane's split is its
+    own), limb for limb; time per call; the work."""
+    from phase2_bn254_tpu_torch.bls12_381 import device as bls
     from phase2_bn254_tpu_torch.ops import batch_exp, gls, glv
 
-    tag, group, split, muls, kernel_muls, _, _ = LADDER_CASES[name]
-    split = {"glv": glv.decompose, "gls": gls.decompose}.get(split, lambda k: (k,))
+    tag, group, split, muls, kernel_muls, _, _ = (cases or LADDER_CASES)[name]
+    split = {"glv": glv.decompose, "gls": gls.decompose, "bls_glv": bls.decompose_glv_t,
+             "bls_glv_signed": bls.decompose_glv_signed_t}.get(split, lambda k: (k,))
     kernel, plain = getattr(batch_exp, name), getattr(batch_exp, name + "_plain")
     n, pn = x.shape[0], min(plain_n, x.shape[0])
     inputs = split(k)
@@ -2905,22 +2938,41 @@ def phase_configurations(card: Card, workdir: str, records: list[dict], response
 # ---------------------------------------------------------------------------
 
 BLS_N = 1 << 16  # points of each group through phase 16's kernels and slice (KERNEL_N)
-PLAIN_BLS_N = 1 << 12  # the prefix of phase 16's lanes the plain K8-BLS / K9-BLS are held to
+PLAIN_BLS_N = 1 << 12  # the prefix of phase 16's lanes the plain ladders are held to
 BLS_SAMPLE = 64  # lanes of the slice held to the host chain, spread over the batch
-BLS_CASES = {  # group -> (tag, wrapper, source, the TPU kernel the JAX package runs at this width)
-    "g1": ("K8-BLS", "batch_exp_bls_g1_windowed", "phase2_bn254_tpu_torch/csrc/batch_exp_g1_windowed.cu",
-           "phase2_bn254_tpu/ops/pallas_exp.py:358"),
-    "g2": ("K9-BLS", "batch_exp_bls_g2_windowed", "phase2_bn254_tpu_torch/csrc/batch_exp_g2_windowed.cu",
-           "phase2_bn254_tpu/ops/pallas_exp.py:449"),
+# the ladders at BLS12-381 width, in LADDER_CASES' form: wrapper name ->
+# (tag, group ("bls_g1", "bls_g2"), its split (`_ladder_case`; None: the
+# scalars whole), its ladder's multiplies, its kernel's, source, the TPU
+# kernel the JAX package runs at this width)
+BLS_LADDERS = {
+    "batch_exp_bls_g1_windowed": ("K8-BLS", "bls_g1", None, lambda k: _windowed_muls("bls_g1", k),
+                                  lambda k: _windowed_kernel_muls("bls_g1", k),
+                                  "phase2_bn254_tpu_torch/csrc/batch_exp_g1_windowed.cu",
+                                  "phase2_bn254_tpu/ops/pallas_exp.py:358"),
+    "batch_exp_bls_glv": ("K7-BLS", "bls_g1", "bls_glv", lambda *d: _k7_muls(*d, "bls_g1"),
+                          lambda *d: _k7_kernel_muls(*d, "bls_g1"), "phase2_bn254_tpu_torch/csrc/batch_exp_glv.cu",
+                          "phase2_bn254_tpu/ops/pallas_exp.py:571"),
+    "batch_exp_bls_glv_signed": ("K1-BLS", "bls_g1", "bls_glv_signed", lambda *d: _k1_muls(*d, "bls_g1"),
+                                 lambda *d: _k1_kernel_muls(*d, "bls_g1"),
+                                 "phase2_bn254_tpu_torch/csrc/batch_exp_g1.cu",
+                                 "phase2_bn254_tpu/ops/pallas_exp.py:728"),
+    "batch_exp_bls_g2_windowed": ("K9-BLS", "bls_g2", None, lambda k: _windowed_muls("bls_g2", k),
+                                  lambda k: _windowed_kernel_muls("bls_g2", k),
+                                  "phase2_bn254_tpu_torch/csrc/batch_exp_g2_windowed.cu",
+                                  "phase2_bn254_tpu/ops/pallas_exp.py:449"),
 }
 
 
 def _bls_edge_scalars(n: int, rng: random.Random) -> list[int]:
-    """The windowed ladder's edges over BLS12-381's r, then uniform scalars."""
+    """The windowed ladder's edges over BLS12-381's r, the GLV split's
+    (LAMBDA, r - LAMBDA, the basis' long entries: the Barrett rounding's
+    turns), then uniform scalars."""
+    from phase2_bn254_tpu_torch.bls12_381 import glv
     from phase2_bn254_tpu_torch.bls12_381.field import R_MOD
 
     edge = [0, 1, 2, 15, 16, (R_MOD - 1) // 2, (R_MOD + 1) // 2, R_MOD - 2, R_MOD - 1, R_MOD - 16, 1 << 64,
-            1 << 253, 1 << 254, (1 << 254) + 1, 16 ** 63 + 15]
+            1 << 253, 1 << 254, (1 << 254) + 1, 16 ** 63 + 15, glv.LAMBDA, R_MOD - glv.LAMBDA, glv._B1, glv._A2,
+            (1 << 128) - 1]
     return edge + [rng.randrange(R_MOD) for _ in range(n - len(edge))]
 
 
@@ -2960,37 +3012,67 @@ def _bls_field() -> None:
             f"field/{'fq2' if fieldops.is_fq2(field) else 'fp'}.py limb for limb; {ms:.4f} ms a launch")
 
 
-def _bls_kernel_case(card: Card, group: str, rng: random.Random) -> dict:
-    """K8-BLS or K9-BLS on BLS_N points with the edge scalars first, against
-    its plain version on the first PLAIN_BLS_N lanes, limb for limb; its
-    time, its work and its bound."""
+def _bls_raw(group: str, rng: random.Random) -> bytes:
+    """Compressed zcash encodings of BLS_N distinct points: 64 host multiples
+    of G tiled, times random scalars on the card (K8-BLS / K9-BLS, before
+    any counted run), encoded."""
+    from phase2_bn254_tpu_torch.bls12_381 import codecs_device as C
     from phase2_bn254_tpu_torch.bls12_381 import device as D
-    from phase2_bn254_tpu_torch.ops import batch_exp
 
-    tag, name, _, _ = BLS_CASES[group]
-    kernel, plain = getattr(batch_exp, name), getattr(batch_exp, name + "_plain")
-    pts = _bls_points(group, BLS_N, rng)
-    k = D.scalars_to_canon(_bls_edge_scalars(BLS_N, rng), DEVICE)
-    pn = min(PLAIN_BLS_N, BLS_N)
-    got = kernel(pts.x, pts.y, k)
-    want, plain_ms = once_ms(lambda: plain(pts.x[:pn], pts.y[:pn], k[:pn]))
-    err = max_limb_err([t[:pn] for t in got], want)
-    if err:
-        raise AssertionError(f"{tag}: kernel and plain version differ on the first {pn} lanes (max abs limb error "
-                             f"{err})")
-    ms = cuda_ms(lambda: kernel(pts.x, pts.y, k), 3)
-    key = "bls_" + group
-    need = int(_windowed_muls(key, k).sum())
-    work = (nbytes(pts.x, pts.y, k, *got), need)
-    return {"ms": ms, "plain_ms": plain_ms, "plain_n": pn, "err": err, "work": work,
-            "kernel_muls": _windowed_kernel_muls(key, k)}
+    base = _bls_points(group, BLS_N, rng)
+    spread = D.scalars_to_canon([rng.randrange(1, 1 << 64) for _ in range(BLS_N)], DEVICE)
+    return C.encode_batch(D.mul_batch(base, spread, group), group, True)
+
+
+def _bls_non_residue(group: str, rng: random.Random):
+    """An x (int, or Fq2) of the group's field with no point on the curve."""
+    from phase2_bn254_tpu_torch.bls12_381 import curve as hc
+    from phase2_bn254_tpu_torch.bls12_381.field import Fq2, Q
+
+    while True:
+        x = rng.randrange(Q) if group == "g1" else Fq2(rng.randrange(Q), rng.randrange(Q))
+        if hc.get_point_from_x(x, False, group) is None:
+            return x
+
+
+def _bls_d1_case(card: Card, group: str, raw: bytes, rng: random.Random) -> dict:
+    """D1-BLS against its plain version (`_g1_decompress` / `_g2_decompress`)
+    on the same x: those of raw's BLS_N encodings, the first NONRESIDUES
+    replaced by x values without a point; limbs and valid flags equal, the
+    flags false exactly there; time per call, plain time, work and bound."""
+    import numpy as np
+    import torch
+    from phase2_bn254_tpu_torch import convert
+    from phase2_bn254_tpu_torch.bls12_381 import codecs_device as C
+
+    size = 48 if group == "g1" else 96
+    b = np.frombuffer(raw, dtype=np.uint8).reshape(BLS_N, size).copy()
+    greatest = torch.tensor((b[:, 0] & 0x20) != 0, device=DEVICE)
+    b[:, 0] &= 0x1F
+    cols = [C.be_bytes_to_digits(np.ascontiguousarray(b[:, j : j + 48])).astype(np.int64) for j in range(0, size, 48)]
+    x = torch.from_numpy(cols[0] if group == "g1" else np.stack([cols[1], cols[0]], axis=1)).to(DEVICE)
+    bad = [_bls_non_residue(group, rng) for _ in range(NONRESIDUES)]
+    if group == "g1":
+        x[:NONRESIDUES] = convert.ints_to_limbs(bad, DEVICE, C.NL)
+    else:
+        for c, part in enumerate(("c0", "c1")):
+            x[:NONRESIDUES, c] = convert.ints_to_limbs([getattr(v, part) for v in bad], DEVICE, C.NL)
+    x = x.contiguous()
+    got, valid = C.decompress(x, greatest, group)
+    (want, want_valid), plain_ms = once_ms(lambda: C.decompress_plain(x, greatest, group))
+    err = max_limb_err(got[:2], want[:2])
+    if err or not torch.equal(valid, want_valid):
+        raise AssertionError(f"D1-BLS {group}: kernel and plain version differ (max abs limb error {err})")
+    if not torch.equal(valid, torch.arange(BLS_N, device=DEVICE) >= NONRESIDUES):
+        raise AssertionError(f"D1-BLS {group}: the valid flags differ from the x values' residuosity")
+    return {"ms": cuda_ms(lambda: C.decompress(x, greatest, group), 3), "plain_ms": plain_ms, "err": err,
+            "work": (nbytes(x, greatest, *got[:2], valid), _d1_muls("bls_" + group, BLS_N))}
 
 
 def _bls_tampered(group: str, raw: bytes, lane: int, case: str) -> bytes:
     """raw (compressed encodings) with the encoding of `lane` changed as
     `case` says."""
-    from phase2_bn254_tpu_torch.bls12_381 import curve as hc
-    from phase2_bn254_tpu_torch.bls12_381.field import Fq2, Q
+    from phase2_bn254_tpu_torch.bls12_381.field import Q
 
     size = 48 if group == "g1" else 96
     t = bytearray(raw[lane * size : (lane + 1) * size])
@@ -3002,11 +3084,7 @@ def _bls_tampered(group: str, raw: bytes, lane: int, case: str) -> bytes:
         t[:48] = Q.to_bytes(48, "big")
         t[0] |= 0x80
     else:  # a non-residue x
-        rng = random.Random(f"tamper {group}")
-        while True:
-            x = rng.randrange(Q) if group == "g1" else Fq2(rng.randrange(Q), rng.randrange(Q))
-            if hc.get_point_from_x(x, False, group) is None:
-                break
+        x = _bls_non_residue(group, random.Random(f"tamper {group}"))
         t[:] = x.to_bytes(48, "big") if group == "g1" else x.c1.to_bytes(48, "big") + x.c0.to_bytes(48, "big")
         t[0] |= 0x80
     return raw[: lane * size] + bytes(t) + raw[(lane + 1) * size :]
@@ -3016,11 +3094,14 @@ BLS_TAMPERS = {"flag": "compressed bit not set", "infinity": "point at infinity"
                "non_residue": "off curve or non-residue"}
 
 
-def _bls_slice(group: str, rng: random.Random) -> dict:
-    """The slice as a user drives it at BLS_N compressed points: decode_batch,
-    the kernel (device.ladder), normalize, encode_batch, each part timed
-    (wall, synchronized); the kernel's launches counted from zero around
-    it; the bytes of BLS_SAMPLE lanes against the host chain; the tampered
+def _bls_slice(group: str, raw: bytes, rng: random.Random) -> dict:
+    """The slice as a user drives it at BLS_N compressed points:
+    decode_batch (D1-BLS), then each of the group's ladders as
+    bls12_381/device.py offers them (G1: K8-BLS `ladder`, K7-BLS
+    `glv_ladder`, K1-BLS `glv_signed_ladder`; G2: K9-BLS `ladder`), each
+    normalized and encoded, every part timed (wall, synchronized); the
+    kernels' launches counted from zero around it; every ladder's bytes
+    equal, and those of BLS_SAMPLE lanes the host chain's; the tampered
     encodings rejected."""
     import torch
     from phase2_bn254_tpu_torch.bls12_381 import codecs_device as C
@@ -3030,12 +3111,9 @@ def _bls_slice(group: str, rng: random.Random) -> dict:
     from phase2_bn254_tpu_torch.curve import group as G
     from phase2_bn254_tpu_torch.ops import batch_exp
 
-    tag, name, _, _ = BLS_CASES[group]
-    # distinct input points: 64 host multiples of G tiled, times random
-    # scalars on the card (the kernel, before the counted run), encoded
-    base = _bls_points(group, BLS_N, rng)
-    spread = D.scalars_to_canon([rng.randrange(1, 1 << 64) for _ in range(BLS_N)], DEVICE)
-    raw = C.encode_batch(D.mul_batch(base, spread, group), group, True)
+    entry = {"batch_exp_bls_glv": D.glv_ladder, "batch_exp_bls_glv_signed": D.glv_signed_ladder}
+    ladders = {tag: (name, entry.get(name, lambda b, s: D.ladder(b, s, group)))
+               for name, (tag, key, *_) in BLS_LADDERS.items() if key == "bls_" + group}
     vals = [rng.randrange(1, R_MOD) for _ in range(BLS_N)]
     k = D.scalars_to_canon(vals, DEVICE)
     torch.cuda.synchronize()
@@ -3050,13 +3128,20 @@ def _bls_slice(group: str, rng: random.Random) -> dict:
         return out
 
     batch = timed("decode", lambda: C.decode_batch(raw, group, BLS_N, True, device=DEVICE))
-    jac = timed("kernel", lambda: D.ladder(batch, k, group))
-    aff = timed("normalize", lambda: G.jac_normalize(D.field_ops(group), jac))
-    out = timed("encode", lambda: C.encode_batch(aff, group, True))
+    outs = {}
+    for tag, (_, fn) in ladders.items():
+        jac = timed(f"{tag} ladder", lambda: fn(batch, k))
+        aff = timed(f"{tag} normalize", lambda: G.jac_normalize(D.field_ops(group), jac))
+        outs[tag] = timed(f"{tag} encode", lambda: C.encode_batch(aff, group, True))
     wall = time.time() - t_all
-    launches = batch_exp.LAUNCHES[name]
-    if launches != 1 or sum(batch_exp.LAUNCHES.values()) != 1:
-        raise AssertionError(f"{tag}: the slice launched {dict(batch_exp.LAUNCHES)}, want one {name}")
+    launches = {name: batch_exp.LAUNCHES[name] for name, _ in ladders.values()}
+    decodes = C.LAUNCHES["decompress_bls"]
+    if set(launches.values()) != {1} or sum(batch_exp.LAUNCHES.values()) != len(ladders) or decodes != 1:
+        raise AssertionError(f"{group}: the slice launched {dict(batch_exp.LAUNCHES)} and {decodes} D1-BLS, want "
+                             f"one of each of {list(launches)} and one D1-BLS")
+    if len(set(outs.values())) != 1:
+        raise AssertionError(f"{group}: the ladders {list(outs)} wrote different bytes")
+    out = next(iter(outs.values()))
     size = 48 if group == "g1" else 96
     decode = hc.g1_from_compressed if group == "g1" else hc.g2_from_compressed
     encode = hc.g1_to_compressed if group == "g1" else hc.g2_to_compressed
@@ -3065,7 +3150,7 @@ def _bls_slice(group: str, rng: random.Random) -> dict:
     for i in lanes:
         want = encode(decode(raw[i * size : (i + 1) * size], check=False).mul(vals[i]))
         if out[i * size : (i + 1) * size] != want:
-            raise AssertionError(f"{tag}: slice lane {i} differs from the host chain")
+            raise AssertionError(f"{group}: slice lane {i} differs from the host chain")
     host_s = time.time() - t0
     m = min(256, BLS_N)  # the tampered batches: the first m encodings, one changed
     for case, message in BLS_TAMPERS.items():
@@ -3073,41 +3158,77 @@ def _bls_slice(group: str, rng: random.Random) -> dict:
             C.decode_batch(_bls_tampered(group, raw[: m * size], m // 2, case), group, m, True, device=DEVICE)
         except ValueError as e:
             if message not in str(e):
-                raise AssertionError(f"{tag}: tampered ({case}) rejected with {e!r}, want {message!r}") from e
+                raise AssertionError(f"{group}: tampered ({case}) rejected with {e!r}, want {message!r}") from e
         else:
-            raise AssertionError(f"{tag}: a tampered ({case}) encoding decoded")
-    return {"launches": launches, "wall": wall, "parts": parts, "host_s": host_s, "bytes": len(raw)}
+            raise AssertionError(f"{group}: a tampered ({case}) encoding decoded")
+    # each ladder's slice: the decode and its own ladder, normalize, encode
+    walls = {name: parts["decode"] + sum(v for p, v in parts.items() if p.startswith(tag + " "))
+             for tag, (name, _) in ladders.items()}
+    return {"launches": launches, "decodes": decodes, "wall": wall, "walls": walls, "parts": parts,
+            "host_s": host_s, "bytes": len(raw), "ladders": list(ladders)}
 
 
 def phase_bls(card: Card, records: list[dict]) -> None:
-    """Phase 16: the BLS12-381 engine: its field code, K8-BLS and K9-BLS
-    against their plain versions, and the slice (decode, kernel, normalize,
-    encode) at BLS_N compressed points of each group against the host
-    chain."""
+    """Phase 16: the BLS12-381 engine: its field code; K8-BLS, K7-BLS,
+    K1-BLS, K9-BLS and D1-BLS against their plain versions; and the slice
+    (decode, each ladder, normalize, encode) at BLS_N compressed points of
+    each group against the host chain."""
+    from phase2_bn254_tpu_torch.bls12_381 import device as D
+
     t0 = time.time()
     _bls_field()
     rng = random.Random(1616)
-    for group, (tag, name, source, replaces) in BLS_CASES.items():
-        c = _bls_kernel_case(card, group, rng)
-        sl = _bls_slice(group, rng)
-        rec = record(card, name, source, replaces, c["err"], c["ms"], c["plain_ms"], c["work"],
-                     shape=f"N={BLS_N} BLS12-381 {group.upper()} points, edge and random scalars",
-                     plain_n=c["plain_n"], muls=c["work"][1], kernel_muls=c["kernel_muls"],
-                     slice_wall_s=sl["wall"], slice_parts_s=sl["parts"])
-        rec["launches"] = sl["launches"]
-        rec["launches_by_path"] = {f"the BLS12-381 slice, {BLS_N} compressed {group.upper()} points": sl["launches"]}
-        records.append(rec)
-        n = BLS_N
-        log(f"phase 16 {tag} ({name}): N={n}, edge scalars first: kernel == plain limb for limb on the first "
-            f"{c['plain_n']} lanes; kernel {c['ms']:.3f} ms/call, plain {c['plain_ms']:.3f} ms ({c['plain_n']} lanes), "
-            f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}: {c['work'][1] / n:.0f} multiplies/point, the kernel "
-            f"does {c['kernel_muls'] / n:.0f})")
-        log(f"phase 16 {tag} slice: {n} compressed {group.upper()} points ({sl['bytes']} bytes) -> decode -> "
-            f"kernel -> normalize -> encode; launches {sl['launches']}; wall {sl['wall']:.3f} s: "
+    cases = {}
+    for name, (_, key, *_) in BLS_LADDERS.items():
+        pts = _bls_points(key[4:], BLS_N, rng)
+        k = D.scalars_to_canon(_bls_edge_scalars(BLS_N, rng), DEVICE)
+        cases[name] = _ladder_case(name, pts.x, pts.y, k, PLAIN_BLS_N, 3, BLS_LADDERS)
+    d1, slices = {}, {}
+    for group in ("g1", "g2"):
+        raw = _bls_raw(group, rng)
+        d1[group] = _bls_d1_case(card, group, raw, rng)
+        sl = slices[group] = _bls_slice(group, raw, rng)
+        log(f"phase 16 slice {group.upper()}: {BLS_N} compressed points ({sl['bytes']} bytes) -> decode (D1-BLS, "
+            f"{sl['decodes']} launch) -> " + " / ".join(sl["ladders"]) + " -> normalize -> encode; launches "
+            f"{sl['launches']}; the ladders' bytes equal; wall {sl['wall']:.3f} s: "
             + ", ".join(f"{k} {v:.3f}" for k, v in sl["parts"].items())
+            + "; each ladder's slice (decode + ladder + normalize + encode): "
+            + ", ".join(f"{t} {v:.3f} s" for t, v in sl["walls"].items())
             + f"; {BLS_SAMPLE} lanes == the host chain ({sl['host_s']:.1f} s on the host); tampered encodings "
             f"rejected: {', '.join(BLS_TAMPERS)}")
-    for line in _ptxas_of(("batch_exp_bls_g1_windowed_kernel", "batch_exp_bls_g2_windowed_kernel")):
+    for name, c in cases.items():
+        tag, key, _, _, _, source, replaces = BLS_LADDERS[name]
+        sl = slices[key[4:]]
+        rec = record(card, name, source, replaces, c["err"], c["ms"], c["plain_ms"], c["work"],
+                     shape=f"N={BLS_N} BLS12-381 {key[4:].upper()} points, edge and random scalars",
+                     plain_n=c["plain_n"], muls=c["work"][1], ladder_muls=c["ladder_muls"],
+                     kernel_muls=c["kernel_muls"], slice_wall_s=sl["walls"][name], slice_parts_s=sl["parts"])
+        rec["launches"] = sl["launches"][name]
+        rec["launches_by_path"] = {f"the BLS12-381 slice, {BLS_N} compressed {key[4:].upper()} points":
+                                   sl["launches"][name]}
+        records.append(rec)
+        log(f"phase 16 {tag} ({name}): N={BLS_N}, edge scalars first: "
+            + _ladder_log(c, rec["bound_ms"], rec["bound_by"]))
+    per = {}
+    for group in ("g1", "g2"):
+        bound_ms, bound_by = card.bound(*d1[group]["work"])
+        per[group] = {"ms": d1[group]["ms"], "plain_ms": d1[group]["plain_ms"], "max_abs_err": d1[group]["err"],
+                      "bound_ms": bound_ms, "bound_by": bound_by, "muls": d1[group]["work"][1]}
+        log(f"phase 16 D1-BLS {group}: N={BLS_N} (the slice's x, {NONRESIDUES} replaced by x without a point, "
+            f"their flags): kernel == plain limb for limb and flag; flags false exactly there; kernel "
+            f"{d1[group]['ms']:.3f} ms, plain {d1[group]['plain_ms']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}: "
+            f"{d1[group]['work'][1] / BLS_N:.0f} multiplies/point)")
+    rec = record(card, "decompress_bls", "phase2_bn254_tpu_torch/csrc/decompress.cu",
+                 "phase2_bn254_tpu/bls12_381/codecs_device.py:87, :132 (XLA glue, not a Pallas kernel)",
+                 max(p["max_abs_err"] for p in per.values()), per["g1"]["ms"], per["g1"]["plain_ms"],
+                 d1["g1"]["work"], g2=per["g2"], muls=per["g1"]["muls"],
+                 shape=f"N={BLS_N} compressed BLS12-381 points; g2 beside")
+    rec["launches_by_path"] = {f"the BLS12-381 slice, {BLS_N} compressed {g.upper()} points": slices[g]["decodes"]
+                               for g in ("g1", "g2")}
+    rec["launches"] = sum(rec["launches_by_path"].values())
+    records.append(rec)
+    for line in _ptxas_of(("batch_exp_bls_g1_windowed_kernel", "batch_exp_bls_g2_windowed_kernel",
+                           "batch_exp_bls_glv_kernel", "batch_exp_bls_glv_signed_kernel", "decompress_bls_")):
         log(f"  ptxas: {line}")
     log(f"phase 16: {time.time() - t0:.1f} s")
 

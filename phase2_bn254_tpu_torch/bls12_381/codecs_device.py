@@ -23,8 +23,12 @@ it is missing); the Montgomery conversions, the on-curve test and the
 square roots run on the batch's device, by exponentiation as the JAX
 package's `_g1_decompress` / `_g2_decompress` take them: y = (x^3 + b)^((q +
 1) / 4) in Fq, and the q = 3 mod 4 Fq2 square root (Algorithm 9 of eprint
-2012/685, the reference's fq2.rs sqrt). Decompression at BLS width is plain
-torch: in the JAX package it is XLA glue, not a Pallas kernel.
+2012/685, the reference's fq2.rs sqrt). In the JAX package decompression is
+XLA glue, not a Pallas kernel; in the port it is the kernel D1-BLS
+(`decompress`, csrc/decompress.cu's BLS12-381 instantiation) on a CUDA
+device, one launch a batch (`LAUNCHES`), and its plain version
+(`decompress_plain`: `_g1_decompress` / `_g2_decompress`, chains of torch
+ops) on the CPU.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from .. import native
 from ..convert import to_device
 from ..curve import group as G
 from ..field import fp
+from ..ops import _build
 from .device import CTX_BLS_FQ as CTX
 from .device import FQ2_OPS as FQ2
 from .device import FQ_OPS as FQ
@@ -43,6 +48,8 @@ from .field import B_G1, B_G2, Q
 
 FQ_BYTES = 48
 NL = 24  # 16-bit digits of an Fq element
+# kernel launches of D1-BLS (`decompress`); only a launch of the kernel counts
+LAUNCHES = {"decompress_bls": 0}
 _Q_BYTES = np.frombuffer(int(Q).to_bytes(FQ_BYTES, "big"), dtype=np.uint8)
 
 
@@ -127,6 +134,27 @@ def _g2_decompress(x_dig: torch.Tensor, greatest: torch.Tensor):
     return G.AffineBatch(x, _choose_root(FQ2, y, greatest), inf), valid
 
 
+def decompress_plain(x_dig: torch.Tensor, greatest: torch.Tensor, group: str):
+    """Plain PyTorch D1-BLS: `_g1_decompress` / `_g2_decompress`."""
+    return (_g1_decompress if group == "g1" else _g2_decompress)(x_dig, greatest)
+
+
+def decompress(x_dig: torch.Tensor, greatest: torch.Tensor, group: str):
+    """D1-BLS: canonical x digits ((N, 24) G1, (N, 2, 24) G2) and the
+    greatest flags (bool (N,)) -> (AffineBatch, valid). CPU tensors take
+    the plain version; CUDA tensors launch csrc/decompress.cu's BLS12-381
+    instantiation (the same limbs and flags)."""
+    if not _build.on_card("decompress_bls", x_dig):
+        return decompress_plain(x_dig, greatest, group)
+    n = greatest.shape[0]
+    _build.check("decompress_bls", "x", x_dig, (n, NL) if group == "g1" else (n, 2, NL), x_dig.device)
+    _build.check("decompress_bls", "greatest", greatest, (n,), x_dig.device, torch.bool)
+    ox, oy, valid = torch.empty_like(x_dig), torch.empty_like(x_dig), torch.empty_like(greatest)
+    _build.launch(f"p2_decompress_bls_{group}", x_dig.device, x_dig, greatest, ox, oy, valid, n)
+    LAUNCHES["decompress_bls"] += 1
+    return G.AffineBatch(ox, oy, torch.zeros_like(greatest)), valid
+
+
 def _from_canonical(f, b, x_dig: torch.Tensor, y_dig: torch.Tensor, check: bool):
     """Canonical x, y digits -> (AffineBatch, on_curve); on_curve all true
     without check."""
@@ -168,13 +196,11 @@ def decode_batch(raw: bytes, group: str, count: int, compressed: bool, check: bo
         return torch.stack([fq_cols(b[:, off + FQ_BYTES : off + 2 * FQ_BYTES]), fq_cols(b[:, off : off + FQ_BYTES])],
                            dim=1)
 
-    if group == "g1":
-        if compressed:
-            batch, valid = _g1_decompress(fq_cols(b), to_device(sort_bit, device))
-        else:
-            batch, valid = _from_canonical(FQ, B_G1, fq_cols(b[:, :FQ_BYTES]), fq_cols(b[:, FQ_BYTES:]), check)
-    elif compressed:
-        batch, valid = _g2_decompress(fq2_cols(0), to_device(sort_bit, device))
+    if compressed:
+        x_dig = fq_cols(b) if group == "g1" else fq2_cols(0)
+        batch, valid = decompress(x_dig.contiguous(), to_device(sort_bit, device), group)
+    elif group == "g1":
+        batch, valid = _from_canonical(FQ, B_G1, fq_cols(b[:, :FQ_BYTES]), fq_cols(b[:, FQ_BYTES:]), check)
     else:
         batch, valid = _from_canonical(FQ2, B_G2, fq2_cols(0), fq2_cols(2 * FQ_BYTES), check)
     if (compressed or check) and not bool(valid.all()):

@@ -9,18 +9,25 @@
 // doublings, then adds s1 T[d1] and s2 phi(T[d2]), where s_c = -1 for the
 // lanes with k_c < 0 whatever the digit (T[0] negated is still infinity).
 // The per-point code is a template over the field type, as the TPU kernel is
-// generic in its limb count; it is instantiated here for BN254 Fq only.
+// generic in its limb count; it is instantiated here for BN254 Fq and for
+// BLS12-381 Fq (K7-BLS: the JAX package's bls12_381/device.py:209
+// pallas_batch_mul_glv runs the same TPU kernel with its 24-limb field
+// constants and BLS beta, on the split of bls12_381/glv.py's basis).
 // In: x, y int64 (N, 16) Montgomery affine; d1, d2 int64 (W, N); negs int64
 // (2, N). Out: x, y, z int64 (N, 16), Jacobian, Montgomery, fully reduced.
 // The ceremony runs it for G1 under PHASE2_TPU_NO_SIGNED5 (ops/backend.py
-// Ladders), the phase-2 QAP terms included.
+// Ladders), the phase-2 QAP terms included. K7-BLS: x, y, out int64 (N, 24),
+// R = 2^384; the BLS12-381 device path (bls12_381/device.py glv_ladder) runs
+// it.
 //
 // What bounds it on the card: 32-bit integer multiply throughput, about
 // 2,200 Fq products a point (33 windows of 4 doublings and up to 2 adds,
 // against K1's 26 of 5 and 2: some 10% more), and the per-thread table of
 // 16 Jacobian points plus 16 beta x planes (2 KB) in local memory, read
 // twice per window. The design is K1's: one point per thread, no
-// cross-thread carries, the table in local memory.
+// cross-thread carries, the table in local memory. K7-BLS does the same work
+// on 12 x 32-bit limbs (588 multiplies an Fq product, 2.2x BN254's) with a
+// table of 16 points of 144 bytes and 16 beta x of 48 (3 KB).
 //
 // Outside nvcc (no __CUDACC__) only the per-point function is compiled, so a
 // host C++ compiler can run the arithmetic on the CPU.
@@ -64,6 +71,13 @@ __device__ void batch_exp_glv_point(const int64_t* x, const int64_t* y, const in
   store_jac(ox, oy, oz, (int64_t)i, acc);
 }
 
+// Point i of a BLS12-381 batch.
+__device__ void batch_exp_bls_glv_point(const int64_t* x, const int64_t* y, const int64_t* d1, const int64_t* d2,
+                                        const int64_t* negs, int64_t* ox, int64_t* oy, int64_t* oz, int i, int n,
+                                        int nw) {
+  batch_exp_glv_point<BFp>(x, y, d1, d2, negs, bfp_from_const(BLS_GLV_BETA), ox, oy, oz, i, n, nw);
+}
+
 #ifdef __CUDACC__
 namespace {
 
@@ -78,6 +92,15 @@ batch_exp_glv_kernel(const int64_t* __restrict__ x, const int64_t* __restrict__ 
   if (i < n) batch_exp_glv_point<Fp>(x, y, d1, d2, negs, fp_from_const(GLV_BETA), ox, oy, oz, i, n, nw);
 }
 
+__global__ void __launch_bounds__(kThreads)
+batch_exp_bls_glv_kernel(const int64_t* __restrict__ x, const int64_t* __restrict__ y,
+                         const int64_t* __restrict__ d1, const int64_t* __restrict__ d2,
+                         const int64_t* __restrict__ negs, int64_t* __restrict__ ox, int64_t* __restrict__ oy,
+                         int64_t* __restrict__ oz, int n, int nw) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) batch_exp_bls_glv_point(x, y, d1, d2, negs, ox, oy, oz, i, n, nw);
+}
+
 }  // namespace
 
 // Launches K7 on `stream`; returns cudaGetLastError() after the launch.
@@ -86,6 +109,18 @@ extern "C" int p2_batch_exp_glv(const void* x, const void* y, const void* d1, co
   if (n > 0) {
     int blocks = (n + kThreads - 1) / kThreads;
     batch_exp_glv_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int64_t*)x, (const int64_t*)y, (const int64_t*)d1, (const int64_t*)d2, (const int64_t*)negs,
+        (int64_t*)ox, (int64_t*)oy, (int64_t*)oz, n, nw);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Launches K7-BLS on `stream`; returns cudaGetLastError() after the launch.
+extern "C" int p2_batch_exp_bls_glv(const void* x, const void* y, const void* d1, const void* d2, const void* negs,
+                                    void* ox, void* oy, void* oz, int n, int nw, void* stream) {
+  if (n > 0) {
+    int blocks = (n + kThreads - 1) / kThreads;
+    batch_exp_bls_glv_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
         (const int64_t*)x, (const int64_t*)y, (const int64_t*)d1, (const int64_t*)d2, (const int64_t*)negs,
         (int64_t*)ox, (int64_t*)oy, (int64_t*)oz, n, nw);
   }

@@ -1,7 +1,8 @@
 // BN254 constants as 8 little-endian 32-bit limbs (FQ_P2 16), Montgomery form
 // (R = 2^256) except FQ_P, FR_P, FR_HALF, FQ_R2, FQ_P2 and the EXP_ exponents; the
-// BLS12-381 ones (BLS_) on 12 limbs for Fq (24 for q^2), 8 for Fr, R = 2^384. Written by
-// ops/_build.py constants_header() from the refimpl and bls12_381.field integers;
+// BLS12-381 ones (BLS_) on 12 limbs for Fq and its exponents (24 for q^2), 8 for Fr,
+// R = 2^384, with the same exceptions. Written by
+// ops/_build.py constants_header() from the refimpl and bls12_381.field / glv integers;
 // tests/test_torch_batch_exp.py checks it.
 #pragma once
 
@@ -65,3 +66,20 @@ static __constant__ uint32_t BLS_FQ_P2[24] = {0x1c718e39u, 0x26aa0000u, 0x76382e
 static __constant__ uint32_t BLS_FR_P[8] = {0x00000001u, 0xffffffffu, 0xfffe5bfeu, 0x53bda402u, 0x09a1d805u, 0x3339d808u, 0x299d7d48u, 0x73eda753u};
 // (r - 1) / 2 as an integer: the windowed ladders take k above it as (r - k)(-P)
 static __constant__ uint32_t BLS_FR_HALF[8] = {0x80000000u, 0x7fffffffu, 0x7fff2dffu, 0xa9ded201u, 0x04d0ec02u, 0x199cec04u, 0x94cebea4u, 0x39f6d3a9u};
+// beta, phi(x, y) = (beta x, y) on G1 (bls12_381/glv.py)
+static __constant__ uint32_t BLS_GLV_BETA[12] = {0x8671f071u, 0xcd03c9e4u, 0x1fcda5d2u, 0x5dab2246u, 0xd3851b95u, 0x587042afu, 0x01bacb9eu, 0x8eb60ebeu, 0x83d050d2u, 0x03f97d6eu, 0x54638741u, 0x18f02065u};
+// b = 4 of G1
+static __constant__ uint32_t BLS_B_G1[12] = {0x000cfff3u, 0xaa270000u, 0xfc34000au, 0x53cc0032u, 0x6b0a807fu, 0x478fe97au, 0xe6ba24d7u, 0xb1d37ebeu, 0xbf78ab2fu, 0x8ec9733bu, 0x3d83de7eu, 0x09d64551u};
+// b = 4 (1 + u) of G2
+static __constant__ uint32_t BLS_B_G2_C0[12] = {0x000cfff3u, 0xaa270000u, 0xfc34000au, 0x53cc0032u, 0x6b0a807fu, 0x478fe97au, 0xe6ba24d7u, 0xb1d37ebeu, 0xbf78ab2fu, 0x8ec9733bu, 0x3d83de7eu, 0x09d64551u};
+static __constant__ uint32_t BLS_B_G2_C1[12] = {0x000cfff3u, 0xaa270000u, 0xfc34000au, 0x53cc0032u, 0x6b0a807fu, 0x478fe97au, 0xe6ba24d7u, 0xb1d37ebeu, 0xbf78ab2fu, 0x8ec9733bu, 0x3d83de7eu, 0x09d64551u};
+// -1
+static __constant__ uint32_t BLS_FQ_NEG_ONE[12] = {0xfffcaaaeu, 0x43f5ffffu, 0xed47fffdu, 0x32b7fff2u, 0xa2e99d69u, 0x07e83a49u, 0x8332bb7au, 0xeca8f331u, 0xa0f4c069u, 0xef148d1eu, 0x3eff0206u, 0x040ab326u};
+// R^2 mod q as an integer (to Montgomery form: multiply by it)
+static __constant__ uint32_t BLS_FQ_R2[12] = {0x1c341746u, 0xf4df1f34u, 0x09d104f1u, 0x0a76e6a6u, 0x4c95b6d5u, 0x8de5476cu, 0x939d83c0u, 0x67eb88a9u, 0xb519952du, 0x9a793e85u, 0x92cae3aau, 0x11988fe5u};
+// exponent (q + 1) / 4, an integer: the G1 square root
+static __constant__ uint32_t BLS_EXP_SQRT_G1[12] = {0xffffeaabu, 0xee7fbfffu, 0xac54ffffu, 0x07aaffffu, 0x3dac3d89u, 0xd9cc34a8u, 0x3ce144afu, 0xd91dd2e1u, 0x90d2eb35u, 0x92c6e9edu, 0x8e5ff9a6u, 0x0680447au};
+// exponent (q - 3) / 4: a1 of the G2 square root
+static __constant__ uint32_t BLS_EXP_G2_A1[12] = {0xffffeaaau, 0xee7fbfffu, 0xac54ffffu, 0x07aaffffu, 0x3dac3d89u, 0xd9cc34a8u, 0x3ce144afu, 0xd91dd2e1u, 0x90d2eb35u, 0x92c6e9edu, 0x8e5ff9a6u, 0x0680447au};
+// exponent (q - 1) / 2: the G2 square root's (1 + alpha) power
+static __constant__ uint32_t BLS_EXP_G2_B[12] = {0xffffd555u, 0xdcff7fffu, 0x58a9ffffu, 0x0f55ffffu, 0x7b587b12u, 0xb3986950u, 0x79c2895fu, 0xb23ba5c2u, 0x21a5d66bu, 0x258dd3dbu, 0x1cbff34du, 0x0d0088f5u};

@@ -3,8 +3,10 @@
 // batch_exp_g2.cu, batch_exp_g2_windowed.cu, batch_exp_g1_windowed.cu,
 // batch_exp_glv.cu, batch_exp_gls.cu, msm.cu, decompress.cu,
 // segsum.cu, fieldops.cu; Fr for ntt.cu); and BLS12-381's Fq and Fq2 (BFp,
-// BFp2) for the BLS instantiations of the windowed ladders
-// (batch_exp_g1_windowed.cu, batch_exp_g2_windowed.cu) and fieldops.cu.
+// BFp2) for the BLS instantiations of the G1 ladders
+// (batch_exp_g1_windowed.cu, batch_exp_glv.cu, batch_exp_g1.cu), the G2
+// windowed ladder (batch_exp_g2_windowed.cu), decompression
+// (decompress.cu) and fieldops.cu.
 //
 // An Fq element (Fp) or an Fr element (Fr) is 8 little-endian 32-bit limbs
 // in Montgomery form with R = 2^256, the same values as the 16 x 16-bit
@@ -419,12 +421,14 @@ __device__ __forceinline__ BFp bfp_zero() {
   return r;
 }
 
-__device__ __forceinline__ BFp bfp_one() {
+__device__ __forceinline__ BFp bfp_from_const(const uint32_t* c) {
   BFp r;
 #pragma unroll
-  for (int i = 0; i < 12; ++i) r.v[i] = BLS_FQ_ONE[i];
+  for (int i = 0; i < 12; ++i) r.v[i] = c[i];
   return r;
 }
+
+__device__ __forceinline__ BFp bfp_one() { return bfp_from_const(BLS_FQ_ONE); }
 
 __device__ __forceinline__ bool is_zero(const BFp& a) {
   uint32_t acc = 0;
@@ -447,12 +451,16 @@ static __device__ __noinline__ BFp sqr(BFp a) { return sqr_inline(a); }
 
 __device__ __forceinline__ BFp2 bfp2_zero() { return {bfp_zero(), bfp_zero()}; }
 __device__ __forceinline__ BFp2 bfp2_one() { return {bfp_one(), bfp_zero()}; }
+__device__ __forceinline__ BFp2 bfp2_from_const(const uint32_t* c0, const uint32_t* c1) {
+  return {bfp_from_const(c0), bfp_from_const(c1)};
+}
 __device__ __forceinline__ bool is_zero(const BFp2& a) { return is_zero(a.c0) && is_zero(a.c1); }
 __device__ __forceinline__ bool eq(const BFp2& a, const BFp2& b) { return eq(a.c0, b.c0) && eq(a.c1, b.c1); }
 __device__ __forceinline__ BFp2 add(const BFp2& a, const BFp2& b) { return {add(a.c0, b.c0), add(a.c1, b.c1)}; }
 __device__ __forceinline__ BFp2 sub(const BFp2& a, const BFp2& b) { return {sub(a.c0, b.c0), sub(a.c1, b.c1)}; }
 __device__ __forceinline__ BFp2 neg(const BFp2& a) { return {neg(a.c0), neg(a.c1)}; }
 __device__ __forceinline__ BFp2 dbl(const BFp2& a) { return add(a, a); }
+__device__ __forceinline__ BFp2 conj(const BFp2& a) { return {a.c0, neg(a.c1)}; }
 
 static __device__ __noinline__ BFp2 mul(BFp2 a, BFp2 b) {
 #if defined(__CUDA_ARCH__)
@@ -576,15 +584,16 @@ __device__ __noinline__ Jac<F> jac_madd(Jac<F> p, F qx, F qy) {
 }
 
 // ---------------------------------------------------------------------------
-// exponentiation by a public 256-bit exponent (8 little-endian 32-bit limbs),
-// square-and-multiply from the most significant bit
+// exponentiation by a public exponent of W little-endian 32-bit limbs (8:
+// 256 bits, BN254's; 12: 384 bits, BLS12-381's), square-and-multiply from
+// the most significant bit
 // ---------------------------------------------------------------------------
 
-template <class F>
+template <class F, int W = 8>
 __device__ F pow_public(const F& a, const uint32_t* e, F one) {
   F r = one;
   bool started = false;
-  for (int i = 255; i >= 0; --i) {
+  for (int i = 32 * W - 1; i >= 0; --i) {
     if (started) r = sqr(r);
     if ((e[i >> 5] >> (i & 31)) & 1u) {
       r = started ? mul(r, a) : a;
@@ -597,6 +606,13 @@ __device__ F pow_public(const F& a, const uint32_t* e, F one) {
 // a > b as integers (canonical values)
 __device__ __forceinline__ bool gt(const Fp& a, const Fp& b) {
   for (int i = 7; i >= 0; --i) {
+    if (a.v[i] != b.v[i]) return a.v[i] > b.v[i];
+  }
+  return false;
+}
+
+__device__ __forceinline__ bool gt(const BFp& a, const BFp& b) {
+  for (int i = 11; i >= 0; --i) {
     if (a.v[i] != b.v[i]) return a.v[i] > b.v[i];
   }
   return false;

@@ -53,6 +53,9 @@ ENTRY_POINTS = {
     "p2_field_ops": (6, 2),
     "p2_batch_exp_bls_g1_windowed": (6, 1),
     "p2_batch_exp_bls_g2_windowed": (6, 1),
+    "p2_batch_exp_bls_glv": (8, 2),
+    "p2_batch_exp_bls_glv_signed": (7, 2),
+    **{f"p2_decompress_bls_{g}": (5, 1) for g in ("g1", "g2")},
 }
 
 _lock = threading.Lock()
@@ -63,6 +66,7 @@ def constants_header() -> str:
     """The text of csrc/constants.cuh, from the refimpl integers (BN254) and
     the port's bls12_381.field (BLS12-381)."""
     from ..bls12_381 import field as bls
+    from ..bls12_381 import glv as bls_glv
     from ..refimpl.field import B_G2, Q, R_MOD
     from ..refimpl.gls import G2C1, G2C2
     from ..refimpl.glv import BETA
@@ -71,6 +75,9 @@ def constants_header() -> str:
 
     def mont(v: int, p: int = Q) -> int:
         return v * r % p
+
+    def bls_mont(v: int) -> int:
+        return (v << 384) % bls.Q
 
     n1 = (G2C1 * G2C1.conjugate()).c0
     n2 = (G2C2 * G2C2.conjugate()).c0
@@ -107,13 +114,26 @@ def constants_header() -> str:
         ("BLS_FR_P", bls.R_MOD, "the scalar field's modulus r, 8 limbs"),
         ("BLS_FR_HALF", (bls.R_MOD - 1) // 2, "(r - 1) / 2 as an integer: the windowed ladders take k above it as "
                                                "(r - k)(-P)"),
+        ("BLS_GLV_BETA", bls_mont(bls_glv.BETA), "beta, phi(x, y) = (beta x, y) on G1 (bls12_381/glv.py)"),
+        ("BLS_B_G1", bls_mont(bls.B_G1), "b = 4 of G1"),
+        ("BLS_B_G2_C0", bls_mont(bls.B_G2.c0), "b = 4 (1 + u) of G2"),
+        ("BLS_B_G2_C1", bls_mont(bls.B_G2.c1), ""),
+        ("BLS_FQ_NEG_ONE", bls_mont(bls.Q - 1), "-1"),
+        ("BLS_FQ_R2", (1 << 768) % bls.Q, "R^2 mod q as an integer (to Montgomery form: multiply by it)"),
+        ("BLS_EXP_SQRT_G1", (bls.Q + 1) // 4, "exponent (q + 1) / 4, an integer: the G1 square root"),
+        ("BLS_EXP_G2_A1", (bls.Q - 3) // 4, "exponent (q - 3) / 4: a1 of the G2 square root"),
+        ("BLS_EXP_G2_B", (bls.Q - 1) // 2, "exponent (q - 1) / 2: the G2 square root's (1 + alpha) power"),
     ]
-    widths = {"BLS_FQ_P": 12, "BLS_FQ_ONE": 12, "BLS_FQ_P2": 24}
+    # BLS12-381's Fq values and exponents on 12 words (24 for q^2), whatever
+    # their bit length
+    widths = {name: 24 if name == "BLS_FQ_P2" else 12 for name, _, _ in arrays
+              if name.startswith("BLS_") and not name.startswith("BLS_FR_")}
     lines = [
         "// BN254 constants as 8 little-endian 32-bit limbs (FQ_P2 16), Montgomery form",
         "// (R = 2^256) except FQ_P, FR_P, FR_HALF, FQ_R2, FQ_P2 and the EXP_ exponents; the",
-        "// BLS12-381 ones (BLS_) on 12 limbs for Fq (24 for q^2), 8 for Fr, R = 2^384. Written by",
-        "// ops/_build.py constants_header() from the refimpl and bls12_381.field integers;",
+        "// BLS12-381 ones (BLS_) on 12 limbs for Fq and its exponents (24 for q^2), 8 for Fr,",
+        "// R = 2^384, with the same exceptions. Written by",
+        "// ops/_build.py constants_header() from the refimpl and bls12_381.field / glv integers;",
         "// tests/test_torch_batch_exp.py checks it.",
         "#pragma once",
         "",

@@ -24,6 +24,14 @@
   same template over the 12 x 32-bit field in csrc/batch_exp_g1_windowed.cu
   / batch_exp_g2_windowed.cu; points (N, 24) / (N, 2, 24), scalars (N, 16)
   canonical mod BLS r.
+* K7-BLS `batch_exp_bls_glv` and K1-BLS `batch_exp_bls_glv_signed`: K7 and
+  K1 at BLS12-381 width (pallas_exp.py:571 / :728 as the JAX package's
+  bls12_381/device.py:209 / :238 runs them), the same per-point templates
+  over the 12 x 32-bit field in csrc/batch_exp_glv.cu / batch_exp_g1.cu,
+  with BLS beta; points (N, 24), digits of `ops.glv` over the BLS plan
+  (`bls12_381.device.GLV_PLAN`). The plain versions of K1 / K7 and of their
+  BLS instances share one formulation each (`_glv_signed_plain`,
+  `_glv_plain`) over the field ops and beta.
 
 `batch_exp_g1` / `batch_exp_g2` pick one of these by name from canonical
 scalars, splitting them as the ladder needs (the choice is
@@ -45,6 +53,7 @@ import torch
 from ..curve import group as G
 from ..field import fp
 from ..bls12_381.field import R_MOD as BLS_R
+from ..bls12_381.glv import BETA as BLS_BETA
 from ..field.fq2 import BLS_FQ, BLS_FQ2, FQ, FQ2
 from ..refimpl.field import R_MOD
 from ..refimpl.gls import G2C1, G2C2
@@ -59,7 +68,8 @@ G2_WINDOWS = GLS_WINDOWS5  # 14
 # kernel launches by wrapper name; only a launch of the kernel counts
 LAUNCHES = {"batch_exp_glv_signed": 0, "batch_exp_gls_signed": 0, "batch_exp_g2_windowed": 0,
             "batch_exp_g1_windowed": 0, "batch_exp_glv": 0, "batch_exp_gls": 0,
-            "batch_exp_bls_g1_windowed": 0, "batch_exp_bls_g2_windowed": 0}
+            "batch_exp_bls_g1_windowed": 0, "batch_exp_bls_g2_windowed": 0, "batch_exp_bls_glv": 0,
+            "batch_exp_bls_glv_signed": 0}
 N_WINDOWS = 64  # 4-bit windows of a canonical scalar (K9; BLS r < 2^255 fits them too)
 
 
@@ -109,23 +119,27 @@ def _add_neg(f, acc: G.JacobianBatch, e: G.JacobianBatch, neg: torch.Tensor) -> 
 # K1: G1 signed GLV double ladder
 # ---------------------------------------------------------------------------
 
-def batch_exp_glv_signed_plain(x, y, d1, d2) -> G.JacobianBatch:
-    """Plain PyTorch K1. x, y: int64 (N, 16) Montgomery affine; d1, d2: int64
-    (W, N) signed base-32 digits, MSB first. The table by general adds (the
-    kernel's mixed adds give the same limbs: every value is fully reduced);
-    the windows before the first nonzero digit of the batch are skipped
-    (`_first_live_window`; the kernel starts each lane at its own, with the
-    same limbs)."""
-    beta = fp.FQ_CTX.const(BETA, x.device)
-    table = _table(FQ, x, y)
-    beta_x = FQ.mul(table.x, beta)
-    acc = G.jac_zero(FQ, (x.shape[0],), x.device)
+def _glv_signed_plain(f, beta, x, y, d1, d2) -> G.JacobianBatch:
+    """Plain K1 over the field ops f (FQ; BLS_FQ for K1-BLS) with beta's
+    Montgomery limbs: the table by general adds (the kernel's mixed adds
+    give the same limbs: every value is fully reduced); the windows before
+    the first nonzero digit of the batch are skipped (`_first_live_window`;
+    the kernel starts each lane at its own, with the same limbs)."""
+    table = _table(f, x, y)
+    beta_x = f.mul(table.x, beta)
+    acc = G.jac_zero(f, (x.shape[0],), x.device)
     for w in range(_first_live_window(d1, d2), d1.shape[0]):
         for _ in range(5):
-            acc = G.jac_double(FQ, acc)
-        acc = _add_neg(FQ, acc, _gather(table, d1[w].abs()), d1[w] < 0)
-        acc = _add_neg(FQ, acc, _gather(table._replace(x=beta_x), d2[w].abs()), d2[w] < 0)  # phi
+            acc = G.jac_double(f, acc)
+        acc = _add_neg(f, acc, _gather(table, d1[w].abs()), d1[w] < 0)
+        acc = _add_neg(f, acc, _gather(table._replace(x=beta_x), d2[w].abs()), d2[w] < 0)  # phi
     return acc
+
+
+def batch_exp_glv_signed_plain(x, y, d1, d2) -> G.JacobianBatch:
+    """Plain PyTorch K1. x, y: int64 (N, 16) Montgomery affine; d1, d2: int64
+    (W, N) signed base-32 digits, MSB first (`_glv_signed_plain`)."""
+    return _glv_signed_plain(FQ, fp.FQ_CTX.const(BETA, x.device), x, y, d1, d2)
 
 
 def batch_exp_glv_signed(x, y, d1, d2) -> G.JacobianBatch:
@@ -331,27 +345,79 @@ def batch_exp_bls_g2_windowed(x, y, scalars) -> G.JacobianBatch:
 
 
 # ---------------------------------------------------------------------------
+# K7-BLS, K1-BLS: the GLV ladders over BLS12-381's 12 x 32-bit field
+# ---------------------------------------------------------------------------
+
+def batch_exp_bls_glv_plain(x, y, d1, d2, negs) -> G.JacobianBatch:
+    """Plain PyTorch K7-BLS. x, y: int64 (N, 24) Montgomery affine (R =
+    2^384); d1, d2: int64 (W, N) 4-bit windows of |k1|, |k2| of
+    bls12_381/glv.py's split, MSB first; negs: int64 (2, N)."""
+    return _glv_plain(BLS_FQ, fp.BLS_FQ_CTX.const(BLS_BETA, x.device), x, y, d1, d2, negs)
+
+
+def batch_exp_bls_glv(x, y, d1, d2, negs) -> G.JacobianBatch:
+    """K7-BLS: k_i P_i for BLS12-381 G1 points. CPU tensors take the plain
+    version; CUDA tensors launch csrc/batch_exp_glv.cu's BLS instantiation."""
+    if not _build.on_card("batch_exp_bls_glv", x):
+        return batch_exp_bls_glv_plain(x, y, d1, d2, negs)
+    n, w = x.shape[0], d1.shape[0]
+    for name, t, shape in (("x", x, (n, 24)), ("y", y, (n, 24)), ("d1", d1, (w, n)), ("d2", d2, (w, n)),
+                           ("negs", negs, (2, n))):
+        _build.check("batch_exp_bls_glv", name, t, shape, x.device)
+    out = [torch.empty_like(x) for _ in range(3)]
+    _build.launch("p2_batch_exp_bls_glv", x.device, x, y, d1, d2, negs, *out, n, w)
+    LAUNCHES["batch_exp_bls_glv"] += 1
+    return G.JacobianBatch(*out)
+
+
+def batch_exp_bls_glv_signed_plain(x, y, d1, d2) -> G.JacobianBatch:
+    """Plain PyTorch K1-BLS. x, y: int64 (N, 24) Montgomery affine (R =
+    2^384); d1, d2: int64 (W, N) signed base-32 digits of bls12_381/glv.py's
+    split, MSB first."""
+    return _glv_signed_plain(BLS_FQ, fp.BLS_FQ_CTX.const(BLS_BETA, x.device), x, y, d1, d2)
+
+
+def batch_exp_bls_glv_signed(x, y, d1, d2) -> G.JacobianBatch:
+    """K1-BLS: k_i P_i for BLS12-381 G1 points. CPU tensors take the plain
+    version; CUDA tensors launch csrc/batch_exp_g1.cu's BLS instantiation."""
+    if not _build.on_card("batch_exp_bls_glv_signed", x):
+        return batch_exp_bls_glv_signed_plain(x, y, d1, d2)
+    n, w = x.shape[0], d1.shape[0]
+    for name, t, shape in (("x", x, (n, 24)), ("y", y, (n, 24)), ("d1", d1, (w, n)), ("d2", d2, (w, n))):
+        _build.check("batch_exp_bls_glv_signed", name, t, shape, x.device)
+    out = [torch.empty_like(x) for _ in range(3)]
+    _build.launch("p2_batch_exp_bls_glv_signed", x.device, x, y, d1, d2, *out, n, w)
+    LAUNCHES["batch_exp_bls_glv_signed"] += 1
+    return G.JacobianBatch(*out)
+
+
+# ---------------------------------------------------------------------------
 # K7: G1 unsigned GLV double ladder
 # ---------------------------------------------------------------------------
+
+def _glv_plain(f, beta, x, y, d1, d2, negs) -> G.JacobianBatch:
+    """Plain K7 over the field ops f (FQ; BLS_FQ for K7-BLS) with beta's
+    Montgomery limbs: T[j] = j P for j = 0..15; per window 4 doublings, then
+    +-T[d1] and +-phi(T[d2]), the sign that of the lane's k_i whatever the
+    digit (T[0] negated is still infinity). The windows before the first
+    nonzero digit of the batch are skipped (`_first_live_window`)."""
+    table = _table(f, x, y, 16)
+    phi = table._replace(x=f.mul(table.x, beta))
+    neg1, neg2 = negs[0] != 0, negs[1] != 0
+    acc = G.jac_zero(f, (x.shape[0],), x.device)
+    for w in range(_first_live_window(d1, d2), d1.shape[0]):
+        for _ in range(4):
+            acc = G.jac_double(f, acc)
+        acc = _add_neg(f, acc, _gather(table, d1[w]), neg1)
+        acc = _add_neg(f, acc, _gather(phi, d2[w]), neg2)
+    return acc
+
 
 def batch_exp_glv_plain(x, y, d1, d2, negs) -> G.JacobianBatch:
     """Plain PyTorch K7. x, y: int64 (N, 16) Montgomery affine; d1, d2: int64
     (W, N) 4-bit windows of |k1|, |k2|, MSB first; negs: int64 (2, N), 1
-    where k_i < 0. T[j] = j P for j = 0..15; per window 4 doublings, then
-    +-T[d1] and +-phi(T[d2]), the sign that of the lane's k_i whatever the
-    digit (T[0] negated is still infinity). The windows before the first
-    nonzero digit of the batch are skipped (`_first_live_window`)."""
-    beta = fp.FQ_CTX.const(BETA, x.device)
-    table = _table(FQ, x, y, 16)
-    phi = table._replace(x=FQ.mul(table.x, beta))
-    neg1, neg2 = negs[0] != 0, negs[1] != 0
-    acc = G.jac_zero(FQ, (x.shape[0],), x.device)
-    for w in range(_first_live_window(d1, d2), d1.shape[0]):
-        for _ in range(4):
-            acc = G.jac_double(FQ, acc)
-        acc = _add_neg(FQ, acc, _gather(table, d1[w]), neg1)
-        acc = _add_neg(FQ, acc, _gather(phi, d2[w]), neg2)
-    return acc
+    where k_i < 0 (`_glv_plain`)."""
+    return _glv_plain(FQ, fp.FQ_CTX.const(BETA, x.device), x, y, d1, d2, negs)
 
 
 def batch_exp_glv(x, y, d1, d2, negs) -> G.JacobianBatch:

@@ -1,5 +1,8 @@
-"""GLV scalar split for BN254 G1 on torch tensors (counterpart of
-`phase2_bn254_tpu/ops/glv_device.py:311-460`).
+"""GLV scalar split for G1 on torch tensors (counterpart of
+`phase2_bn254_tpu/ops/glv_device.py:311-460`), for BN254 (`BN_PLAN`, the
+default) and for BLS12-381 (`bls12_381.device.GLV_PLAN`, the plan of
+`bls12_381/glv.py`'s basis, which the JAX package's
+`bls12_381/device.py:180-248` hands to the same functions).
 
 k = k1 + k2 * LAMBDA (mod r) by Barrett-rounded lattice reduction:
 
@@ -8,7 +11,10 @@ k = k1 + k2 * LAMBDA (mod r) by Barrett-rounded lattice reduction:
 
 in 16-bit digit arithmetic, mod 2^192 (two's complement; |ki| < 2^131).
 The Barrett reciprocals make the same rounding as the JAX package, so the
-digits agree exactly. Two outputs, each most significant first:
+digits agree exactly. Scalars are canonical on 16 digits for either curve
+(both r < 2^255); the JAX package carries BLS12-381's on 17, whose top one
+is zero, which changes no product below. Two outputs, each most significant
+first:
 
 * `decompose_signed` (K1): signed base-32 digits in [-16, 16], the sign of
   each k_i folded in (JAX `decompose_signed_device_t`);

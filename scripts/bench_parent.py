@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time K6, K8, K9 and the prover's h step of this checkout and of another
-one on the same card, and compare three of their outputs byte for byte.
+"""Time K6, K8, K9, K1, D1 and the prover's h step of this checkout and of
+another one on the same card, and compare three of their outputs byte for
+byte.
 
     python3 scripts/bench_parent.py --parent DIR [--bytes] [--out DIR]
 
@@ -23,8 +24,10 @@ device work alone (this checkout's `chip_smoke.device_ms`, for both trees):
 * K9 at 2^16 uniform scalars, on 262,141 terms of coefficient 1 (`new`'s G2
   terms in chip_smoke phase 13) and on 2^18 terms with the B coefficients
   of scripts/fixtures/circuit.json; K8 at 2^16 uniform scalars;
-* and reads the ptxas lines (registers, spills) of K6, K8 and K9 from the
-  checkout's build log.
+* K1 at 2^16 points with chip_smoke's edge scalars first (phase 2's case),
+  and D1 on 2^16 G1 and 2^16 G2 x coordinates (phase 6's inputs);
+* and reads the ptxas lines (registers, spills) of K6, K8, K9, K1 and D1
+  from the checkout's build log.
 
 With --bytes, one more process per checkout writes chip_smoke's phase 5
 response (size 21, batch 2^16), phase 13's radix file and `new`'s .params
@@ -94,18 +97,20 @@ def job_times(tree: str) -> dict:
     S = _smoke(tree)
     from phase2_bn254_tpu_torch import convert
     from phase2_bn254_tpu_torch.groth16 import prover
-    from phase2_bn254_tpu_torch.ops import _build, batch_exp, ntt
+    from phase2_bn254_tpu_torch.ops import _build, batch_exp, decompress, glv, ntt
     from phase2_bn254_tpu_torch.refimpl.field import R_MOD
 
     _build.load()
     dev = torch.device("cuda")
     out = {}
     with open(os.path.join(_build.BUILD_DIR, f"ptxas_{_build._source_hash()}.log")) as f:
-        kernel = None  # registers and spills of K6, K8 and K9 as this checkout builds them
+        kernel = None  # registers and spills of K6, K8, K9, K1 and D1 as this checkout builds them
         for line in f:
             if "Compiling entry function" in line:
-                kernel = next((k for k in ("lane_dft_kernel", "exp_g1_windowed_kernel", "exp_g2_windowed_kernel")
-                               if k in line), None)  # (not exp_bls_g1_windowed_kernel, K8-BLS)
+                kernel = next((k for k in ("lane_dft_kernel", "exp_g1_windowed_kernel", "exp_g2_windowed_kernel",
+                                           "batch_exp_glv_signed_kernel", "decompress_g1_kernel",
+                                           "decompress_g2_kernel")
+                               if k in line), None)  # (not their BLS12-381 instances: exp_bls_g1_..., and so on)
             elif kernel and ("registers" in line or "spill" in line):
                 out.setdefault(f"ptxas {kernel}", []).append(line.split(":", 1)[-1].strip())
     device_ms = _device_ms()
@@ -155,6 +160,14 @@ def job_times(tree: str) -> dict:
     out["K9 fixture mix 2^18"] = ladder("g2", 1 << 18, mix_rng.choices(list(mix), weights=list(mix.values()),
                                                                        k=1 << 18))
     out["K8 2^16 uniform"] = ladder("g1", 1 << 16, [rng.randrange(R_MOD) for _ in range(1 << 16)])
+
+    pts, _ = S._tiled_points("g1", 1 << 16, dev, rng)
+    digits = glv.decompose_signed(convert.ints_to_limbs(S._edge_scalars(1 << 16, rng), dev))
+    out["K1 2^16 edge and uniform"] = S.cuda_ms(lambda: batch_exp.batch_exp_glv_signed(pts.x, pts.y, *digits), 5)
+    for group in ("g1", "g2"):
+        xs, flags = S._d1_inputs(group, 1 << 16, rng)
+        x, greatest = S._x_digits(group, xs, dev), torch.tensor(flags, device=dev)
+        out[f"D1 {group} 2^16"] = S.cuda_ms(lambda: decompress.decompress(x, greatest, group), 5)
     return out
 
 

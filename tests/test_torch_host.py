@@ -177,7 +177,7 @@ def test_same_ratio_matches():
 # modules of the port that are the JAX package's code unchanged (their
 # docstrings differ: each names its original), and the Solidity template
 COPIES = ["groth16/cs.py", "groth16/containers.py", "groth16/source.py", "groth16/verifier.py", "phase2/circom.py",
-          "phase2/solidity.py", "phase2/verifier_template.sol", "bls12_381/curve.py"]
+          "phase2/solidity.py", "phase2/verifier_template.sol", "bls12_381/curve.py", "bls12_381/glv.py"]
 # modules of the port that are a leading part of their original's code:
 # rel -> the names that only the original's remaining statements define
 PREFIX_COPIES = {"bls12_381/field.py": {"Fq6", "Fq12", "FQ6_ZERO", "FQ6_ONE", "FQ12_ZERO", "FQ12_ONE",
