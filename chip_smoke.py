@@ -29,16 +29,18 @@ phases:
    response's blake2b;
 6. K3, K4, K5 (the Pippenger MSM) and D1 (decompression) against their plain
    versions on the card at the verify chunk shape (2^16 points, c = 9), G1
-   and G2, uniform and all-equal scalars; time per call and bound; K3 at
-   the sub-run lengths of SUBRUN_SWEEP; K3's and K4's launch geometry and
-   ptxas registers and spills;
+   and G2, uniform and all-equal scalars, with msm_sets' hot-bucket fold
+   table (the default path's gate folds the all-equal sets); time per call
+   and bound; K3 at the sub-run lengths of SUBRUN_SWEEP; K3's and K4's
+   launch geometry and ptxas registers and spills;
 7. verify the golden size-4 pair (new challenge == the exact host
    backend's), a size-10 response (passes), and that response with one
    valid but wrong point (rejected);
 8. verify_transform_constrained at size 21, batch 2^16, on phase 5's
    response: pass, hash chain, spot checks of the new challenge against
-   refimpl decompression, K3-K5 / D1 launch counts, wall time by phase, and
-   a torch.profiler breakdown of one chunk's power_pairs;
+   refimpl decompression, K3-K5 / D1 launch counts (the K5 launches taking
+   the fold, and the signed kernels, none), wall time by phase, and a
+   torch.profiler breakdown of one chunk's power_pairs;
 9. K6 (a pass of the k-pass Fr NTT) against its plain version, limb for
    limb, forward and inverse, at exp 1, 2, 3, 10, 18 and 20 on ntt's own
    pass plan and at 18 and 20 on forced three-pass plans; the prover's
@@ -54,10 +56,11 @@ phases:
    rejects a changed public input; the wall time and K6 / K3-K5 launch
    counts of `prove` as a user runs it, then a second run with every part
    timed, the witness' share of 0 and 1 scalars, a torch.profiler
-   breakdown of the h pipeline and its device launches, and the blake2b of
-   a proof with seeded r and s; K3, K4, K5 against their plain versions on
-   the sets that run's MSMs took (K3 on those sets, the witness' ones and
-   all; K4, K5 on the prover's own buckets);
+   breakdown of the h pipeline and its device launches, the K5 launches
+   that take the default path's hot-bucket fold, and the blake2b of a proof
+   with seeded r and s; K3, K4, K5 against their plain versions on the sets
+   that run's MSMs took (K3 on those sets, the witness' ones and all; K4,
+   K5 on the prover's own buckets and fold table);
 11. scripts/fixtures' circuit and witness with fixed r and s: the proof on
    the card equals the plain versions' proof on the CPU, byte for byte;
    the witness' share of 0 and 1 scalars;
@@ -113,7 +116,29 @@ phases:
    bytes on BLS_SAMPLE lanes spread over the batch against the host chain
    (host decode, Point.mul, host encode), and tampered encodings (no
    compression flag, an infinity flag, x = q, a non-residue x) rejected;
-   time per call, bound (MULS_PER_BLS_*), ptxas registers and spills.
+   time per call, bound (MULS_PER_BLS_*), ptxas registers and spills;
+17. the MSMs under PHASE2_TPU_MSM_SIGNED=1 (signed digits, B = 2^(c-1)
+   buckets, c from pick_window_signed): K3 (signed), K4 (signed) and K5
+   with the hot-bucket fold against their plain versions at 2^16 points, 2
+   sets, c = 13, G1 and G2, on uniform, all-equal and ones-mix scalars (the
+   gate folds the last two): K3 and K5 limb for limb (K5's plain version
+   one call a group over the three mixes' sets), K4 as affine points;
+   time per call, bound, plain ms, ptxas registers and spills; the signed
+   MSM (prep, K3, K4, K5) timed at c = 10..16 (SIGNED_SWEEP) on 2^16 points
+   and on the prover's 2^18 G1 sets, beside the unsigned default; then
+   through the CLI functions: verify_transform_constrained at size 21 on
+   phase 5's response (passes, its new challenge == phase 8's byte for
+   byte, wall time by part), phase 7's size-10 response with a wrong point
+   (rejected), `prove` on phase 10's circuit (verifies; with seeded r and s
+   the proof's blake2b == phase 10's; then K3, K4 and K5 against their
+   plain versions on the sets that run's MSMs took, at their own windows,
+   c = 16 on G1 and 14 on G2, as in phase 10) and verify_contribution on
+   phase 13's files (1->2 passes, the copy with a changed l is rejected
+   with phase 13's message); each with its signed K3 / K4 launches (the
+   unsigned ones none) and its K5 launches that take the fold.
+
+K5 counts the sets and the launches that take the hot-bucket fold itself,
+on the device (msm.fold_counts), read after the timed run.
 
 Each kernel's bound is the larger of two times: the bytes of its inputs and
 outputs over the card's memory rate, and its 32-bit integer multiplies over
@@ -135,7 +160,8 @@ _windowed_muls); this ladder's own count stands beside it
 (ladder_muls). Then one add per finite term after the first of its
 segment (_s1_muls), the products of an NTT other than by 1 (_ntt_muls), a mixed
 add per point of a bucket after its first (_k3_muls), the adds of a
-serial running sum over the buckets (_k4_muls); the kernel's own count
+serial running sum over the weighted buckets, the fold's excluded one left
+out (_k4_muls), K5's chain with the fold (_k5_muls); the kernel's own count
 stands beside each (kernel_muls). K5, whose time is a chain's latency,
 also prints its chain in dependent products (_k5_chain).
 
@@ -162,6 +188,7 @@ DEVICE = "cuda"  # every phase runs on the card
 SEED = bytes(range(64))
 SMOKE_SIZE, SMOKE_BATCH = 21, 1 << 16
 KERNEL_N = 1 << 16  # the contribute and verify chunk shape
+MSM_WRAPPERS = ("bucket_accumulate", "bucket_reduce", "combine_windows")  # K3, K4, K5 (ops/msm.py)
 # K3's sub-run lengths L timed beside the module's (phase 6)
 SUBRUN_SWEEP = (16, 32, 64)
 # S1's tiles (threads a block, terms a thread) timed beside the module's
@@ -920,34 +947,44 @@ def _k3_kernel_muls(group: str, prep, nsets: int) -> int:
     return nsets * (madds * ops["madd"] + adds * ops["add"])
 
 
-def _k4_muls(group: str, buckets) -> int:
-    """Multiplies of the function K4 computes, as a serial running sum over
-    lanes B-1..1 does it: an add per finite bucket after the first, and an
-    add into the total at each lane where the running sum is finite, after
-    the first."""
+def _k4_lanes(group: str, buckets, exclude=None):
+    """Finiteness of each bucket (S, nwin, B), the lane that K4 leaves out
+    (the fold's, -1 none) counted as infinity."""
+    import torch
     from phase2_bn254_tpu_torch.field.fq2 import FQ, FQ2
 
-    f = FQ if group == "g1" else FQ2
-    finite = ~f.is_zero(buckets.z)[..., 1:]  # (S, nwin, B - 1), lanes 1..B-1
+    fin = ~(FQ if group == "g1" else FQ2).is_zero(buckets.z)
+    if exclude is not None:
+        fin &= torch.arange(fin.shape[-1], device=fin.device) != exclude[..., None]
+    return fin
+
+
+def _k4_muls(group: str, buckets, signed: bool = False, exclude=None) -> int:
+    """Multiplies of the function K4 computes, as a serial running sum over
+    the weighted lanes does it (B - 1 .. 1; signed, B - 1 .. 0: a lane's
+    weight is one more, which the running sum's add at lane 0 pays): an add
+    per finite bucket after the first, and an add into the total at each
+    lane where the running sum is finite, after the first."""
+    finite = _k4_lanes(group, buckets, exclude)
+    if not signed:
+        finite = finite[..., 1:]
     running = finite.flip(-1).cumsum(-1).flip(-1) > 0
     adds = (finite.sum(-1) - 1).clamp(min=0) + (running.sum(-1) - 1).clamp(min=0)
     return int(adds.sum()) * OP_MULS[group]["add"]
 
 
-def _k4_kernel_muls(group: str, buckets) -> int:
+def _k4_kernel_muls(group: str, buckets, signed: bool = False, exclude=None) -> int:
     """Multiplies K4 does (csrc/msm.cu's schedule, followed on finiteness
     flags): an add of two finite points costs a full add (a sum that
-    cancels is taken as finite), an add with infinity nothing, and every
-    thread's log2(B / T) doublings their full cost."""
+    cancels is taken as finite), an add with infinity nothing, and the
+    log2(B / T) doublings of every thread but the first their full cost."""
     import torch
-    from phase2_bn254_tpu_torch.field.fq2 import FQ, FQ2
     from phase2_bn254_tpu_torch.ops import msm as M
 
-    f = FQ if group == "g1" else FQ2
     rows, b = buckets.z.shape[0] * buckets.z.shape[1], buckets.z.shape[2]
     nt = M.reduce_threads(b)
     m = b // nt
-    fin = (~f.is_zero(buckets.z)).reshape(rows, nt, m)
+    fin = _k4_lanes(group, buckets, exclude).reshape(rows, nt, m)
     adds = 0
     run = torch.zeros((rows, nt), dtype=torch.bool, device=fin.device)
     wsum = torch.zeros_like(run)
@@ -965,7 +1002,8 @@ def _k4_kernel_muls(group: str, buckets) -> int:
         adds += int((run & up).sum())
         run = run | up
         k *= 2
-    run[:, 0] = False
+    if not signed:
+        run[:, 0] = False
     adds += int((wsum & run).sum())
     terms = wsum | run
     stride = nt // 2
@@ -974,44 +1012,59 @@ def _k4_kernel_muls(group: str, buckets) -> int:
         terms[:, :stride] |= terms[:, stride : 2 * stride]
         stride //= 2
     ops = OP_MULS[group]
-    return adds * ops["add"] + rows * nt * (m.bit_length() - 1) * ops["dbl"]
+    return adds * ops["add"] + rows * (nt - 1) * (m.bit_length() - 1) * ops["dbl"]
 
 
-def _k5_windows(group: str, sums):
-    """Per set (S,): the index of its highest finite window sum (-1 if none)
-    and the number of finite window sums below it."""
-    import torch
+def _k5_walk(group: str, sums, c: int, buckets=None, hot=None):
+    """K5's chain on finiteness flags, per set (lists of S): its doublings
+    (one a step of c per window from the first finite add on) and its adds
+    after the first (of T_w where finite, of the fold's H_w where finite
+    and its bit of e_w set); a sum that cancels is taken as finite."""
     from phase2_bn254_tpu_torch.field.fq2 import FQ, FQ2
+    from phase2_bn254_tpu_torch.ops import msm as M
 
-    finite = ~(FQ if group == "g1" else FQ2).is_zero(sums.z)  # (S, nwin)
-    nwin = finite.shape[1]
-    top = torch.where(finite.any(1), nwin - 1 - finite.flip(1).int().argmax(1), -1)
-    return top, (finite.sum(1) - 1).clamp(min=0)
+    f = FQ if group == "g1" else FQ2
+    fin_t = (~f.is_zero(sums.z)).tolist()
+    fin_h = None if hot is None else (~f.is_zero(M._hot_sums(buckets, hot).z)).tolist()
+    weights = None if hot is None else hot.weight.tolist()
+    dbls, adds = [], []
+    for s, row in enumerate(fin_t):
+        started, d, a = False, 0, 0
+        for w in range(len(row) - 1, -1, -1):
+            for i in range(c - 1, -1, -1):
+                d += started
+                if fin_h is not None and fin_h[s][w] and (weights[s][w] >> i) & 1:
+                    a += started
+                    started = True
+            if row[w]:
+                a += started
+                started = True
+        dbls.append(d)
+        adds.append(a)
+    return dbls, adds
 
 
-def _k5_muls(group: str, sums, c: int) -> int:
-    """Multiplies of the function K5 computes (and does): per set, c
-    doublings per window below its highest finite window sum, and one add
-    per finite window sum below it."""
-    top, adds = _k5_windows(group, sums)
+def _k5_muls(group: str, sums, c: int, buckets=None, hot=None) -> int:
+    """Multiplies of the function K5 computes (and does): the doublings and
+    adds of its chain, with the fold where hot is given (_k5_walk)."""
+    dbls, adds = _k5_walk(group, sums, c, buckets, hot)
     ops = OP_MULS[group]
-    return int((c * top.clamp(min=0)).sum()) * ops["dbl"] + int(adds.sum()) * ops["add"]
+    return sum(dbls) * ops["dbl"] + sum(adds) * ops["add"]
 
 
-def _k5_chain(group: str, sums, c: int) -> dict:
+def _k5_chain(group: str, sums, c: int, buckets=None, hot=None) -> dict:
     """K5's critical path in dependent Fq products, the longest set's: the
-    one-thread chain from infinity over every window (c nwin doublings, an
-    add per finite window sum after the first; the design before the warp
-    form), the one-thread chain from the highest finite window, and the
-    warp form's levels (3 a doubling, 5 an add, one product's latency each:
-    K5's floor at this design)."""
-    top, adds = _k5_windows(group, sums)
+    one-thread chain from infinity over every window (c nwin doublings and
+    the chain's adds; the design before the warp form), the one-thread
+    chain from its first finite term, and the warp form's levels (3 a
+    doubling, 5 an add, one product's latency each: K5's floor at this
+    design)."""
+    dbls, adds = _k5_walk(group, sums, c, buckets, hot)
     nwin = sums.z.shape[1]
-    dbl = (c * top.clamp(min=0)).long()
     prods = CHAIN_PRODUCTS[group]
-    return {"from_infinity": int((c * nwin * prods["dbl"] + adds * prods["add"]).max()),
-            "one_thread": int((dbl * prods["dbl"] + adds * prods["add"]).max()),
-            "warp_levels": int((dbl * CHAIN_LEVELS["dbl"] + adds * CHAIN_LEVELS["add"]).max())}
+    return {"from_infinity": max(c * nwin * prods["dbl"] + a * prods["add"] for a in adds),
+            "one_thread": max(d * prods["dbl"] + a * prods["add"] for d, a in zip(dbls, adds)),
+            "warp_levels": max(d * CHAIN_LEVELS["dbl"] + a * CHAIN_LEVELS["add"] for d, a in zip(dbls, adds))}
 
 
 def _d1_muls(group: str, n: int) -> int:
@@ -1059,10 +1112,14 @@ def _jac_points(group: str, jac) -> list:
     return convert.affine_to_points(G.jac_normalize(FQ if group == "g1" else FQ2, jac), group)
 
 
-def _msm_case(group: str, n: int, scalars: list[int], rng: random.Random) -> dict:
+def _msm_case(group: str, n: int, scalars: list[int], rng: random.Random, signed: bool = False,
+              plain_k5: bool = True) -> dict:
     """One power_pairs-shaped MSM (n scalars, n + 1 tiled points, shifts 0
-    and 1) through K3, K4, K5 on the card, each against its plain version,
-    and the results against refimpl."""
+    and 1) through K3, K4, K5 on the card as msm_sets runs them (the window
+    of pick_window, or pick_window_signed where signed; the fold table of
+    hot_buckets), each against its plain version, and the results against
+    refimpl. Without plain_k5 the K5 comparison is left to the caller
+    (_k5_plain_batched): out["k5_inputs"] holds K5's inputs and result."""
     import torch
     from phase2_bn254_tpu_torch import convert
     from phase2_bn254_tpu_torch.curve import group as G
@@ -1073,15 +1130,17 @@ def _msm_case(group: str, n: int, scalars: list[int], rng: random.Random) -> dic
     dev = torch.device(DEVICE)
     pts, logs = _tiled_points(group, n + 1, dev, rng)
     k = convert.ints_to_limbs(scalars, dev)
-    c = M.pick_window(n)
-    prep = M.prep_windows(k, c)
+    c = M.pick_window_signed(n) if signed else M.pick_window(n)
+    prep = M.prep_set(pts, k, (0, 1), c, signed)
+    hot = M.Hot(*(t.expand(2, -1).contiguous() for t in M.hot_buckets(prep, n)))
     shifts = torch.tensor([0, 1], device=dev)
-    args = (pts.x, pts.y, pts.inf, shifts, *prep[:5])
-    out = {"c": c}
+    args = (pts.x, pts.y, pts.inf, shifts, *prep[:5], prep.splits)
+    out = {"c": c, "fold_sets": int((hot.lane >= 0).any(1).sum())}
 
     buckets = M.bucket_accumulate(*args)
     out["k3_ms"] = cuda_ms(lambda: M.bucket_accumulate(*args), 3)
-    out["k3_work"] = (nbytes(*args, *buckets), _k3_muls(group, prep, 2))
+    out["k3_work"] = (nbytes(*args[:-1], *([] if prep.splits is None else [prep.splits]), *buckets),
+                      _k3_muls(group, prep, 2))
     out["k3_kernel_muls"] = _k3_kernel_muls(group, prep, 2)
     if group == "g2":
         out["k3_three_fq"] = _three_fq(_k3_muls, group, prep, 2)
@@ -1090,29 +1149,34 @@ def _msm_case(group: str, n: int, scalars: list[int], rng: random.Random) -> dic
     if out["k3_err"]:
         raise AssertionError(f"K3 {group}: kernel and plain version differ (max abs limb error {out['k3_err']})")
 
-    sums = M.bucket_reduce(buckets)
-    out["k4_ms"] = cuda_ms(lambda: M.bucket_reduce(buckets), 3)
-    want, out["k4_plain_ms"] = once_ms(lambda: M.bucket_reduce_plain(buckets))
+    sums = M.bucket_reduce(buckets, signed, hot.lane)
+    out["k4_ms"] = cuda_ms(lambda: M.bucket_reduce(buckets, signed, hot.lane), 3)
+    want, out["k4_plain_ms"] = once_ms(lambda: M.bucket_reduce_plain(buckets, signed, hot.lane))
     flat = [G.JacobianBatch(*(t.reshape(-1, *t.shape[2:]) for t in s)) for s in (sums, want)]
     got_aff, want_aff = (G.jac_normalize(f, s) for s in flat)
     out["k4_err"] = max_limb_err(got_aff, want_aff)
     if out["k4_err"]:
         raise AssertionError(f"K4 {group}: kernel and plain version differ on the affine window sums")
-    out["k4_work"] = (nbytes(*buckets, *sums), _k4_muls(group, buckets))
-    out["k4_kernel_muls"] = _k4_kernel_muls(group, buckets)
+    out["k4_work"] = (nbytes(*buckets, hot.lane, *sums), _k4_muls(group, buckets, signed, hot.lane))
+    out["k4_kernel_muls"] = _k4_kernel_muls(group, buckets, signed, hot.lane)
     if group == "g2":
-        out["k4_three_fq"] = _three_fq(_k4_muls, group, buckets)
+        out["k4_three_fq"] = _three_fq(_k4_muls, group, buckets, signed, hot.lane)
 
-    res = M.combine_windows(sums, c)
-    out["k5_ms"] = cuda_ms(lambda: M.combine_windows(sums, c), 3)
-    want, out["k5_plain_ms"] = once_ms(lambda: M.combine_windows_plain(sums, c))
-    out["k5_err"] = max_limb_err(res, want)
-    if out["k5_err"]:
-        raise AssertionError(f"K5 {group}: kernel and plain version differ (max abs limb error {out['k5_err']})")
-    out["k5_work"] = (nbytes(*sums, *res), _k5_muls(group, sums, c))
-    out["k5_chain"] = _k5_chain(group, sums, c)
+    res = M.combine_windows(sums, c, buckets, hot)
+    out["k5_ms"] = cuda_ms(lambda: M.combine_windows(sums, c, buckets, hot), 3)
+    if plain_k5:
+        want, out["k5_plain_ms"] = once_ms(lambda: M.combine_windows_plain(sums, c, buckets, hot))
+        out["k5_err"] = max_limb_err(res, want)
+        if out["k5_err"]:
+            raise AssertionError(f"K5 {group}: kernel and plain version differ (max abs limb error "
+                                 f"{out['k5_err']})")
+    else:
+        out["k5_inputs"] = (sums, buckets, hot, res)
+    folded = 2 * 3 * nbytes(buckets.x[:, :, 0]) if out["fold_sets"] else 0  # the H_w it reads
+    out["k5_work"] = (nbytes(*sums, *hot, *res) + folded, _k5_muls(group, sums, c, buckets, hot))
+    out["k5_chain"] = _k5_chain(group, sums, c, buckets, hot)
     if group == "g2":
-        out["k5_three_fq"] = _three_fq(_k5_muls, group, sums, c)
+        out["k5_three_fq"] = _three_fq(_k5_muls, group, sums, c, buckets, hot)
 
     got = _jac_points(group, res)
     for s in (0, 1):
@@ -1229,19 +1293,19 @@ def _ptxas_of(keys) -> list[str]:
     return out
 
 
-def _msm_geometry(n: int, c: int, nsets: int, reduce_sets: int | None = None) -> str:
+def _msm_geometry(n: int, c: int, nsets: int, reduce_sets: int | None = None, signed: bool = False) -> str:
     """K3's launches for one call on n scalars and nsets shifts, and K4's for
     reduce_sets (by default nsets) sets: blocks x threads."""
     from phase2_bn254_tpu_torch.ops import msm as M
 
-    nwin, b = M.num_windows(c), 1 << c
+    nwin, b = M.num_windows(c), 1 << (c - signed)
     reduce_sets = nsets if reduce_sets is None else reduce_sets
-    parts, buckets = nsets * nwin * M.subruns(n, c), nsets * nwin * b
+    parts, buckets = nsets * nwin * M.subruns(n, c, signed), nsets * nwin * b
 
     def grid(threads):
         return f"{-(-threads // 128)} x 128"
 
-    return (f"K3 pass A {grid(parts)} (one thread per set, window and sub-run: {M.subruns(n, c)} sub-runs a "
+    return (f"K3 pass A {grid(parts)} (one thread per set, window and sub-run: {M.subruns(n, c, signed)} sub-runs a "
             f"window, at most {M.SUBRUN} points each), {M.tree_levels(n)} tree launches of {grid(parts)}, collect "
             f"{grid(buckets)}; K4 {reduce_sets * nwin} x {M.reduce_threads(b)} (one block per set and window)")
 
@@ -1260,11 +1324,11 @@ def phase_msm_kernels(card: Card, records: list[dict], n: int = KERNEL_N) -> Non
         res[group] = uniform, hot, sweep, d1
         c = uniform["c"]
         log(f"phase 6 MSM {group}: N={n} (+1 points, 2 sets), c={c}: K3, K5 == plain limb for limb, K4 == plain "
-            f"after normalizing, on uniform and all-equal scalars; results == refimpl")
+            f"after normalizing, on uniform and all-equal scalars, with msm_sets' fold table; results == refimpl")
         for label, case in (("uniform", uniform), ("all-equal", hot)):
-            log(f"  {label} scalars: K3 {case['k3_ms']:.3f} ms (plain {case['k3_plain_ms']:.3f}), K4 "
-                f"{case['k4_ms']:.3f} ms (plain {case['k4_plain_ms']:.3f}), K5 {case['k5_ms']:.3f} ms (plain "
-                f"{case['k5_plain_ms']:.3f})")
+            log(f"  {label} scalars (the gate folds {case['fold_sets']} of 2 sets): K3 {case['k3_ms']:.3f} ms (plain "
+                f"{case['k3_plain_ms']:.3f}), K4 {case['k4_ms']:.3f} ms (plain {case['k4_plain_ms']:.3f}), K5 "
+                f"{case['k5_ms']:.3f} ms (plain {case['k5_plain_ms']:.3f})")
             for key, what in (("k3", "K3"), ("k4", "K4"), ("k5", "K5")):
                 b, by = card.bound(*case[f"{key}_work"])
                 own = case.get(f"{key}_kernel_muls")
@@ -1302,7 +1366,8 @@ def phase_msm_kernels(card: Card, records: list[dict], n: int = KERNEL_N) -> Non
                           "max_abs_err": max(uniform[f"{key}_err"], hot[f"{key}_err"]), "bound_ms": bound_ms,
                           "bound_by": bound_by, "muls": uniform[f"{key}_work"][1],
                           "all_equal": {"ms": hot[f"{key}_ms"], "plain_ms": hot[f"{key}_plain_ms"],
-                                        "bound_ms": card.bound(*hot[f"{key}_work"])[0]}}
+                                        "bound_ms": card.bound(*hot[f"{key}_work"])[0],
+                                        "fold_sets": hot["fold_sets"]}}
             if f"{key}_three_fq" in uniform:
                 per[group].update(_three_fq_fields(card, uniform[f"{key}_work"][0], uniform[f"{key}_three_fq"]))
             if f"{key}_kernel_muls" in uniform:
@@ -1412,9 +1477,9 @@ def _check_new_challenge(response: str, new_challenge: str, params, rng: random.
     return checked
 
 
-def phase_verify(workdir: str, records: list[dict], size: int = SMOKE_SIZE, batch: int = SMOKE_BATCH) -> None:
+def phase_verify(workdir: str, records: list[dict], size: int = SMOKE_SIZE, batch: int = SMOKE_BATCH) -> bytes:
+    """Phase 8; returns the new challenge's hash."""
     import torch
-    from phase2_bn254_tpu_torch.ceremony import accumulator
     from phase2_bn254_tpu_torch.ceremony.params import HASH_SIZE, CeremonyParams
     from phase2_bn254_tpu_torch.cli import phase1
     from phase2_bn254_tpu_torch.crypto.hashing import calculate_hash
@@ -1427,19 +1492,14 @@ def phase_verify(workdir: str, records: list[dict], size: int = SMOKE_SIZE, batc
     response = os.path.join(workdir, f"response_{size}")  # phase 5's
     new_challenge = os.path.join(workdir, f"new_challenge_{size}")
 
-    timers = _Timers()
-    for name in ("decode", "power_pairs", "encode"):
-        timers.wall_of(name, B.TorchBackend, name)
-    timers.wall_of("coefficients", B, "random_scalars")
-    timers.wall_of("prep", M, "prep_windows")
-    timers.wall_of("ratios", accumulator._RatioAccumulator, "add")
-    timers.wall_of("pairings", accumulator.SameRatioBatch, "flush")
-    timers.wall_of("hashing", phase1, "calculate_hash")
-    for name in M.LAUNCHES:
+    timers = _verify_timers("prep_windows")
+    for name in MSM_WRAPPERS:
         timers.device_of("msm", M, name)
+    for name in M.LAUNCHES:
         M.LAUNCHES[name] = 0
     timers.device_of("d1", D, "decompress")
     D.LAUNCHES["decompress"] = 0
+    M.reset_fold_counts()
     pp_sizes = []  # scalars of each power_pairs call
     counted = B.TorchBackend.power_pairs
 
@@ -1456,19 +1516,20 @@ def phase_verify(workdir: str, records: list[dict], size: int = SMOKE_SIZE, batc
     finally:
         B.TorchBackend.power_pairs = counted
         timers.restore()
-    launches = {**M.LAUNCHES, **D.LAUNCHES}
+    launches, folds = {**M.LAUNCHES, **D.LAUNCHES}, M.fold_counts()
 
     low = len(list(params.chunks("low")))
     high = len(list(params.chunks("high")))
     want_pp = 4 * low + high + 1  # every chunk of every kind, and the seam
     if len(pp_sizes) != want_pp:
         raise AssertionError(f"{len(pp_sizes)} power_pairs calls, want {want_pp}")
-    want = {**dict.fromkeys(M.LAUNCHES, want_pp), "decompress": 2 * (4 * low + high),
-            "bucket_accumulate": sum(M.accumulate_launches(n) for n in pp_sizes)}
+    want = {**dict.fromkeys(M.LAUNCHES, 0), **dict.fromkeys(MSM_WRAPPERS, want_pp),
+            "decompress": 2 * (4 * low + high), "bucket_accumulate": sum(M.accumulate_launches(n) for n in pp_sizes)}
     if launches != want:
         raise AssertionError(f"kernel launches {launches}, want {want} (K3: one call of accumulate_launches(N) "
                              f"launches, K4, K5: one launch per power_pairs, which runs its two MSMs as two sets; "
-                             f"D1: one per compressed chunk decode, verify and decompress)")
+                             f"the signed kernels none; D1: one per compressed chunk decode, verify and "
+                             f"decompress)")
     for r in records:
         if r["name"] in launches:
             r["launches"] = launches[r["name"]]
@@ -1484,22 +1545,47 @@ def phase_verify(workdir: str, records: list[dict], size: int = SMOKE_SIZE, batc
     checked = _check_new_challenge(response, new_challenge, params, random.Random(8))
     t_check = time.time() - t0
 
-    w = timers.wall
-    top = ("decode", "power_pairs", "ratios", "pairings", "encode", "hashing")
-    other = total - sum(w[k] for k in top)
     log(f"phase 8 verify: size {size} batch {batch}: passes; {want_pp} power_pairs ({2 * want_pp} MSMs) -> K3, K4, K5 "
         f"launches {launches['bucket_accumulate']} ({want_pp} calls; {M.accumulate_launches(batch)} launches a call "
-        f"at N={batch}), {launches['bucket_reduce']}, {launches['combine_windows']}; "
-        f"D1 launches {launches['decompress']} (== compressed chunk decodes)")
-    log(f"  wall s: total {total:.3f} | decode (codec, D1, valid-mask sync) {w['decode']:.3f} | power_pairs "
-        f"{w['power_pairs']:.3f} (of it coefficients {w['coefficients']:.3f}, prep enqueue {w['prep']:.3f}; the rest "
-        f"launches and the wait for the two results) | host ratio accumulation {w['ratios']:.3f} | host pairings "
-        f"{w['pairings']:.3f} | decompress-encode {w['encode']:.3f} | hashing {w['hashing']:.3f} | other (heads, "
-        f"file I/O) {other:.3f}")
+        f"at N={batch}), {launches['bucket_reduce']}, {launches['combine_windows']} (of them taking the hot-bucket "
+        f"fold {folds['launches']}, in {folds['sets']} sets, as K5 counted them: the coefficients are uniform), the "
+        f"signed kernels none; D1 launches {launches['decompress']} (== compressed chunk decodes)")
+    log(f"  wall s: {_verify_wall(timers, total)}")
     log(f"  device s (CUDA events): K3 + K4 + K5 {timers.device_s('msm'):.3f}, D1 {timers.device_s('d1'):.3f}")
     log(f"  new challenge hash chain ok; {checked} spot checks == refimpl decompression of the response "
         f"({t_check:.1f} s)")
     _profile_power_pairs(response, params)
+    return new_hash
+
+
+def _verify_timers(prep: str) -> _Timers:
+    """Timers of a verification's parts (phases 8 and 17): prep, the MSM
+    prep that power_pairs enqueues (msm.prep_windows or
+    prep_windows_signed)."""
+    from phase2_bn254_tpu_torch.ceremony import accumulator
+    from phase2_bn254_tpu_torch.cli import phase1
+    from phase2_bn254_tpu_torch.ops import backend as B
+    from phase2_bn254_tpu_torch.ops import msm as M
+
+    timers = _Timers()
+    for name in ("decode", "power_pairs", "encode"):
+        timers.wall_of(name, B.TorchBackend, name)
+    timers.wall_of("coefficients", B, "random_scalars")
+    timers.wall_of("prep", M, prep)
+    timers.wall_of("ratios", accumulator._RatioAccumulator, "add")
+    timers.wall_of("pairings", accumulator.SameRatioBatch, "flush")
+    timers.wall_of("hashing", phase1, "calculate_hash")
+    return timers
+
+
+def _verify_wall(timers: _Timers, total: float) -> str:
+    w = timers.wall
+    other = total - sum(w[k] for k in ("decode", "power_pairs", "ratios", "pairings", "encode", "hashing"))
+    return (f"total {total:.3f} | decode (codec, D1, valid-mask sync) {w['decode']:.3f} | power_pairs "
+            f"{w['power_pairs']:.3f} (of it coefficients {w['coefficients']:.3f}, prep enqueue {w['prep']:.3f}; the "
+            f"rest launches and the wait for the two results) | host ratio accumulation {w['ratios']:.3f} | host "
+            f"pairings {w['pairings']:.3f} | decompress-encode {w['encode']:.3f} | hashing {w['hashing']:.3f} | other "
+            f"(heads, file I/O) {other:.3f}")
 
 
 def _profile_power_pairs(response: str, params) -> None:
@@ -1789,7 +1875,7 @@ def _shares_text(shares: dict) -> str:
                      for name, (zero, one, n) in shares.items())
 
 
-def _k3_sets(group: str, sets, c: int) -> dict:
+def _k3_sets(group: str, sets, c: int, signed: bool = False) -> dict:
     """K3 over each (points, scalars, shifts) set as msm.accumulate_sets
     calls it, and its plain version: time (CUDA events), work, and the
     largest limb difference."""
@@ -1798,59 +1884,73 @@ def _k3_sets(group: str, sets, c: int) -> dict:
 
     args, need, own = [], 0, 0
     for points, scalars, shifts in sets:
-        prep = M.prep_windows(scalars, c)
+        prep = M.prep_set(points, scalars, shifts, c, signed)
         shift_t = torch.tensor(shifts, dtype=torch.int64, device=points.x.device)
-        args.append((points.x, points.y, points.inf, shift_t, *prep[:5]))
+        args.append((points.x, points.y, points.inf, shift_t, *prep[:5], prep.splits))
         need += _k3_muls(group, prep, len(shifts))
         own += _k3_kernel_muls(group, prep, len(shifts))
     parts, ms = once_ms(lambda: [M.bucket_accumulate(*a) for a in args])
     want, plain_ms = once_ms(lambda: [M.bucket_accumulate_plain(*a) for a in args])
     return {"ms": ms, "plain_ms": plain_ms, "err": max(max_limb_err(got, w) for got, w in zip(parts, want)),
-            "work": (sum(nbytes(*a) for a in args) + sum(nbytes(*p) for p in parts), need),
+            "work": (sum(nbytes(*(t for t in a if t is not None)) for a in args) + sum(nbytes(*p) for p in parts),
+                     need),
             "kernel_muls": own}
 
 
-def _prover_msm_kernels(card: Card, captured: list, records: list[dict]) -> None:
+def _prover_msm_kernels(card: Card, captured: list, signed: bool = False) -> dict:
     """K3, K4 and K5 at the prover's own shapes, on the sets its msm_sets
-    calls took in the run just made (three G1 sets sharing one K4 and one K5
-    launch, one G2 set), each against its plain version: K3 on those sets
-    (the witness' ones and all), K4 and K5 on the very buckets the prover
-    builds (msm.accumulate_sets, as msm_sets runs it)."""
+    calls took in a run of `prove` (three G1 sets sharing one K4 and one K5
+    launch, one G2 set), in the default or the signed mode (its window is
+    then pick_window_signed's), each against its plain version: K3 on those
+    sets (the witness' ones and all), K4 and K5 on the very buckets and fold
+    table the prover builds (msm.accumulate_sets, as msm_sets runs it).
+    Returns {kernel: {group: times, bound, error, shape}}."""
+    import torch
     from phase2_bn254_tpu_torch.curve import group as G
     from phase2_bn254_tpu_torch.field.fq2 import FQ, FQ2
     from phase2_bn254_tpu_torch.ops import msm as M
 
+    label = "phase 17 signed" if signed else "phase 10"
     per_kernel = {"bucket_accumulate": {}, "bucket_reduce": {}, "combine_windows": {}}
     for (sets,) in captured:
         group = "g1" if sets[0][0].x.dim() == 2 else "g2"
         f = FQ if group == "g1" else FQ2
-        c = M.pick_window(max(k.shape[0] for _, k, _ in sets))
+        n = max(k.shape[0] for _, k, _ in sets)
+        c = M.pick_window_signed(n) if signed else M.pick_window(n)
         sizes = [k.shape[0] for _, k, _ in sets]
-        buckets, k3_ms = once_ms(lambda: M.accumulate_sets(sets, c))
-        k3 = _k3_sets(group, sets, c)
+        (buckets, hot), k3_ms = once_ms(lambda: M.accumulate_sets(sets, c, signed))
+        fold_sets = int((hot.lane >= 0).any(1).sum())
+        k3 = _k3_sets(group, sets, c, signed)
         if k3["err"]:
             raise AssertionError(f"K3 {group} at the prover's shape: kernel and plain version differ "
                                  f"(max abs limb error {k3['err']})")
-        sums, k4_ms = once_ms(lambda: M.bucket_reduce(buckets))
-        want, k4_plain_ms = once_ms(lambda: M.bucket_reduce_plain(buckets))
+        sums, k4_ms = once_ms(lambda: M.bucket_reduce(buckets, signed, hot.lane))
+        # the plain version a set at a time: at c = 16 its double-and-add holds every bucket of a set at once
+        want, k4_plain_ms = once_ms(lambda: [M.bucket_reduce_plain(G.JacobianBatch(*(t[i : i + 1] for t in buckets)),
+                                                                   signed, hot.lane[i : i + 1])
+                                             for i in range(buckets.x.shape[0])])
+        want = G.JacobianBatch(*(torch.cat(t) for t in zip(*want)))
         flat = [G.JacobianBatch(*(t.reshape(-1, *t.shape[2:]) for t in x)) for x in (sums, want)]
         k4_err = max_limb_err(*(G.jac_normalize(f, x) for x in flat))
         if k4_err:
             raise AssertionError(f"K4 {group} at the prover's shape: kernel and plain version differ on the affine "
                                  f"window sums")
-        res, k5_ms = once_ms(lambda: M.combine_windows(sums, c))
-        want, k5_plain_ms = once_ms(lambda: M.combine_windows_plain(sums, c))
+        res, k5_ms = once_ms(lambda: M.combine_windows(sums, c, buckets, hot))
+        want, k5_plain_ms = once_ms(lambda: M.combine_windows_plain(sums, c, buckets, hot))
         k5_err = max_limb_err(res, want)
         if k5_err:
             raise AssertionError(f"K5 {group} at the prover's shape: kernel and plain version differ (max abs limb "
                                  f"error {k5_err})")
+        folded = 2 * 3 * nbytes(buckets.x[:, :, 0]) if fold_sets else 0  # the H_w K5 reads
         work = {"bucket_accumulate": k3["work"],
-                "bucket_reduce": (nbytes(*buckets, *sums), _k4_muls(group, buckets)),
-                "combine_windows": (nbytes(*sums, *res), _k5_muls(group, sums, c))}
-        own = {"bucket_accumulate": k3["kernel_muls"], "bucket_reduce": _k4_kernel_muls(group, buckets)}
+                "bucket_reduce": (nbytes(*buckets, hot.lane, *sums), _k4_muls(group, buckets, signed, hot.lane)),
+                "combine_windows": (nbytes(*sums, *hot, *res) + folded, _k5_muls(group, sums, c, buckets, hot))}
+        own = {"bucket_accumulate": k3["kernel_muls"],
+               "bucket_reduce": _k4_kernel_muls(group, buckets, signed, hot.lane)}
         times = {"bucket_accumulate": (k3["ms"], k3["plain_ms"], k3["err"]),
                  "bucket_reduce": (k4_ms, k4_plain_ms, k4_err), "combine_windows": (k5_ms, k5_plain_ms, k5_err)}
-        shape = f"{len(sets)} set(s) of {sizes} scalars, c={c}"
+        shape = (f"{len(sets)} set(s) of {sizes} scalars, c={c}{' signed' if signed else ''}, the hot-bucket fold "
+                 f"in {fold_sets} of them")
         for name, (ms, plain_ms, err) in times.items():
             bound_ms, bound_by = card.bound(*work[name])
             per_kernel[name][group] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "bound_ms": bound_ms,
@@ -1859,24 +1959,26 @@ def _prover_msm_kernels(card: Card, captured: list, records: list[dict]) -> None
                 per_kernel[name][group]["kernel_muls"] = own[name]
         per_kernel["bucket_accumulate"][group]["with_prep_ms"] = k3_ms
         launches = sum(M.accumulate_launches(n) for n in sizes)
-        log(f"phase 10 MSM kernels at the prover's {group} shape ({shape}): K3 == plain limb for limb (kernel "
+        log(f"{label} MSM kernels at the prover's {group} shape ({shape}): K3 == plain limb for limb (kernel "
             f"{k3['ms']:.3f} ms in {launches} launches, plain {k3['plain_ms']:.3f} ms, bound "
             f"{card.bound(*k3['work'])[0]:.3f} ms: {k3['work'][1]} multiplies, the kernel does "
             f"{k3['kernel_muls']}); K3 with its digit sort, as msm_sets runs it, {k3_ms:.3f} ms; on those "
             f"buckets K4 == plain after normalizing (kernel {k4_ms:.3f} ms, plain {k4_plain_ms:.3f} ms, bound "
             f"{card.bound(*work['bucket_reduce'])[0]:.3f} ms: {work['bucket_reduce'][1]} multiplies, the kernel "
             f"does {own['bucket_reduce']}), K5 == plain limb for limb (kernel {k5_ms:.3f} ms, plain "
-            f"{k5_plain_ms:.3f} ms)")
-        log(f"  launches of K3 on the largest set and of K4: {_msm_geometry(max(sizes), c, 1, len(sets))}")
-    for r in records:
-        if r["name"] in per_kernel:
-            r["prove_shape"] = per_kernel[r["name"]]
+            f"{k5_plain_ms:.3f} ms, bound {card.bound(*work['combine_windows'])[0]:.5f} ms; chain "
+            f"{_k5_chain(group, sums, c, buckets, hot)['warp_levels']} levels), with msm_sets' fold table (the fold "
+            f"in {fold_sets} of {len(sets)} sets)")
+        log(f"  launches of K3 on the largest set and of K4: {_msm_geometry(n, c, 1, len(sets), signed)}")
+        del buckets, hot, sums, res, want, flat
+    return per_kernel
 
 
-def phase_prove(card: Card, workdir: str, records: list[dict], exp: int = PROVE_EXP) -> None:
+def phase_prove(card: Card, workdir: str, records: list[dict], exp: int = PROVE_EXP) -> str:
     """`prove` three times: as a user runs it, for the wall time and the
     kernel launches; with every part timed, which also keeps the prover's
-    MSM inputs for `_prover_msm_kernels`; and as a user runs it again."""
+    MSM inputs for `_prover_msm_kernels`; and as a user runs it again. Then
+    once with seeded r and s, whose proof's blake2b it returns."""
     import torch
     from phase2_bn254_tpu_torch.cli import phase2 as cli2
     from phase2_bn254_tpu_torch.groth16 import prover
@@ -1902,7 +2004,8 @@ def phase_prove(card: Card, workdir: str, records: list[dict], exp: int = PROVE_
     argv = [circuit_json, witness_json, params, proof_json, public_json, "--device", DEVICE]
 
     def as_a_user_runs_it():
-        """(wall s, kernel launches) of one `prove`."""
+        """(wall s, kernel launches, K5 launches and sets that fold) of one
+        `prove`."""
         for counts in (ntt.LAUNCHES, M.LAUNCHES):
             for name in counts:
                 counts[name] = 0
@@ -1914,6 +2017,7 @@ def phase_prove(card: Card, workdir: str, records: list[dict], exp: int = PROVE_
             return k3(*a)
 
         M.bucket_accumulate = counted
+        M.reset_fold_counts()
         try:
             t0 = time.time()
             cli2.main_prove(argv)
@@ -1921,21 +2025,24 @@ def phase_prove(card: Card, workdir: str, records: list[dict], exp: int = PROVE_
             total = time.time() - t0
         finally:
             M.bucket_accumulate = k3
-        launches = {**ntt.LAUNCHES, **M.LAUNCHES}
-        want = {"lane_dft": 14, "bucket_accumulate": sum(M.accumulate_launches(n) for n in k3_sizes),
-                "bucket_reduce": 2, "combine_windows": 2}
+        launches, folds = {**ntt.LAUNCHES, **M.LAUNCHES}, M.fold_counts()
+        want = {**dict.fromkeys(M.LAUNCHES, 0), "lane_dft": 14,
+                "bucket_accumulate": sum(M.accumulate_launches(n) for n in k3_sizes), "bucket_reduce": 2,
+                "combine_windows": 2}
         if launches != want or len(k3_sizes) != 4:
             raise AssertionError(f"kernel launches {launches}, want {want} in 4 K3 calls, got {len(k3_sizes)} (7 "
                                  f"NTTs of 2 passes; 3 G1 MSMs sharing one K4 and K5 launch, 1 G2 MSM; a K3 call "
-                                 f"makes accumulate_launches(N) launches)")
-        return total, launches
+                                 f"makes accumulate_launches(N) launches; the signed kernels none)")
+        return total, launches, folds
 
-    total, launches = as_a_user_runs_it()
+    total, launches, folds = as_a_user_runs_it()
     for r in records:
         if r["name"] == "lane_dft":
             r["launches"] = launches["lane_dft"]
         elif r["name"] in M.LAUNCHES:
             r["prove_launches"] = launches[r["name"]]
+        if r["name"] == "combine_windows":
+            r["prove_fold_launches"] = folds["launches"]
 
     # every part timed; h up to the end of its device work
     timers = _Timers()
@@ -1949,7 +2056,7 @@ def phase_prove(card: Card, workdir: str, records: list[dict], exp: int = PROVE_
     timers.wall_of("pairings", cli2, "prepare_verifying_key")
     timers.wall_of("pairings", cli2, "verify_proof")
     timers.device_of("ntt", ntt, "lane_dft")
-    for name in M.LAUNCHES:
+    for name in MSM_WRAPPERS:
         timers.device_of("msm", M, name)
     kept = {}
     timers.keep("assignment", prover, "prepare_prover", kept)
@@ -1961,7 +2068,7 @@ def phase_prove(card: Card, workdir: str, records: list[dict], exp: int = PROVE_
         timed_total = time.time() - t0
     finally:
         timers.restore()
-    total_again, _ = as_a_user_runs_it()
+    total_again, _, _ = as_a_user_runs_it()
 
     with open(params, "rb") as f:
         vk_json = circom.verification_key_json(ParametersSource(f))
@@ -1983,7 +2090,9 @@ def phase_prove(card: Card, workdir: str, records: list[dict], exp: int = PROVE_
     log(f"  proof wall time {total:.3f} s, again {total_again:.3f} s after the timed run (`prove` as a user runs "
         f"it); K6 launches {launches['lane_dft']}, "
         f"K3 / K4 / K5 launches {launches['bucket_accumulate']} / {launches['bucket_reduce']} / "
-        f"{launches['combine_windows']}")
+        f"{launches['combine_windows']} (K5 launches taking the hot-bucket fold {folds['launches']}, in "
+        f"{folds['sets']} of the 4 sets, as K5 counted them: the gate of the default path), the signed kernels "
+        f"none")
     log(f"  second run, every part timed ({timed_total:.3f} s; h waits for its device work, which `prove` does "
         f"not): JSON parse {w['json']:.3f} | synthesis {w['synthesis']:.3f} | h (NTTs and glue, to the device's "
         f"end) {w['h']:.3f} | MSM launch {w['msm_launch']:.3f} (of it params decode {w['decode']:.3f}) | MSM wait "
@@ -1999,9 +2108,13 @@ def phase_prove(card: Card, workdir: str, records: list[dict], exp: int = PROVE_
     log(f"  profile _h_coefficients at 2^{exp}: {out}")
     log(f"  h step: {sum(h_counts.values())} device launches (K6 {h_counts['K6']}, glue kernels "
         f"{h_counts['glue kernels']}, copies and sets {h_counts['copies']}); {w['h']:.3f} s in the timed run")
-    log(f"  proof with r, s from a seeded ChaChaRng (`prove` as a user runs it otherwise): blake2b "
-        f"{_seeded_proof_hash(argv)}")
-    _prover_msm_kernels(card, kept["msm_sets"], records)
+    seeded = _seeded_proof_hash(argv)
+    log(f"  proof with r, s from a seeded ChaChaRng (`prove` as a user runs it otherwise): blake2b {seeded}")
+    per_kernel = _prover_msm_kernels(card, kept["msm_sets"])
+    for r in records:
+        if r["name"] in per_kernel:
+            r["prove_shape"] = per_kernel[r["name"]]
+    return seeded
 
 
 def _seeded_proof_hash(argv: list[str]) -> str:
@@ -2444,6 +2557,7 @@ def _zero_counts() -> None:
                    codecs_device.LAUNCHES):
         for name in counts:
             counts[name] = 0
+    M.reset_fold_counts()
 
 
 def _replace_bytes(src: str, dst: str, offset: int, data: bytes) -> None:
@@ -2453,11 +2567,11 @@ def _replace_bytes(src: str, dst: str, offset: int, data: bytes) -> None:
         f.write(data)
 
 
-def phase_ceremony(card: Card, workdir: str, records: list[dict], exp: int = CEREMONY_EXP) -> None:
+def phase_ceremony(card: Card, workdir: str, records: list[dict], exp: int = CEREMONY_EXP) -> dict:
     """Phase 13: the phase-2 ceremony through the port's CLI functions at
     2^exp constraints (phase 10's circuit), the tampered copies, `prove` on
     the result, and K9 / S1 against their plain versions on the sets `new`
-    took."""
+    took. Returns each tampered copy's rejection message."""
     import torch
     from phase2_bn254_tpu_torch.cli import phase2 as cli2
     from phase2_bn254_tpu_torch.groth16.source import ParametersSource
@@ -2609,6 +2723,7 @@ def phase_ceremony(card: Card, workdir: str, records: list[dict], exp: int = CER
                          "batch_exp_g2_windowed", "segment_sums"):
             r["ceremony_launches"] = {k: launches[k][r["name"]] for k in ("new", "contribute",
                                                                           "verify_contribution 1->2")}
+    return {what: msg for what, (msg, _) in rejected.items()}
 
 
 def _ceremony_parts(workdir: str, circuit_json: str, radix: str, params: list[str], tool_log: str) -> dict:
@@ -3234,23 +3349,303 @@ def phase_bls(card: Card, records: list[dict]) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 17: the signed-digit MSM (PHASE2_TPU_MSM_SIGNED) and the fold
+# ---------------------------------------------------------------------------
+
+SIGNED_VARIABLE = "PHASE2_TPU_MSM_SIGNED"
+SIGNED_SWEEP = tuple(range(10, 17))  # the windows phase 17 times the signed MSM at (the rule stays JAX's)
+SIGNED_WRAPPERS = ("bucket_accumulate_signed", "bucket_reduce_signed")  # their LAUNCHES keys
+
+
+@contextlib.contextmanager
+def _signed_env():
+    """PHASE2_TPU_MSM_SIGNED=1 for the duration (TorchBackend reads it when
+    it is made)."""
+    saved = os.environ.get(SIGNED_VARIABLE)
+    os.environ[SIGNED_VARIABLE] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop(SIGNED_VARIABLE)
+        if saved is not None:
+            os.environ[SIGNED_VARIABLE] = saved
+
+
+def _k5_plain_batched(group: str, cases: list[dict]) -> None:
+    """K5's plain version once over the sets of several _msm_case results
+    (one window size; the plain chain's time hardly grows with the sets),
+    each case's kernel result against its sets' limb for limb: k5_err, and
+    k5_plain_ms the one call's."""
+    import torch
+    from phase2_bn254_tpu_torch.curve import group as G
+    from phase2_bn254_tpu_torch.ops import msm as M
+
+    parts = list(zip(*(case.pop("k5_inputs") for case in cases)))
+    sums, buckets = (G.JacobianBatch(*(torch.cat(t) for t in zip(*batches))) for batches in parts[:2])
+    hot = M.Hot(*(torch.cat(t) for t in zip(*parts[2])))
+    want, ms = once_ms(lambda: M.combine_windows_plain(sums, cases[0]["c"], buckets, hot))
+    row = 0
+    for case, res in zip(cases, parts[3]):
+        rows = res.x.shape[0]
+        case["k5_err"] = max_limb_err(res, G.JacobianBatch(*(t[row : row + rows] for t in want)))
+        case["k5_plain_ms"] = ms
+        row += rows
+        if case["k5_err"]:
+            raise AssertionError(f"K5 {group}: kernel and plain version differ (max abs limb error "
+                                 f"{case['k5_err']})")
+
+
+def _ones_mix(n: int, rng: random.Random) -> list[int]:
+    """A witness-like mix: a quarter ones, a quarter zeros (phase 10's
+    circuit's booleanity bits), the rest uniform, shuffled."""
+    from phase2_bn254_tpu_torch.refimpl.field import R_MOD
+
+    ks = [1] * (n // 4) + [0] * (n // 4) + [rng.randrange(R_MOD) for _ in range(n - 2 * (n // 4))]
+    rng.shuffle(ks)
+    return ks
+
+
+def _window_sweep(sets) -> dict:
+    """ms per call (CUDA events) of msm_sets on sets and of its parts (the
+    prep: prep_set and hot_buckets of every set; K3 of every set; K4; K5)
+    in the signed mode at each window of SIGNED_SWEEP, and unsigned at
+    pick_window's."""
+    import torch
+    from phase2_bn254_tpu_torch.ops import msm as M
+
+    out = {}
+    n = max(k.shape[0] for _, k, _ in sets)
+    for c, signed in [(c, True) for c in SIGNED_SWEEP] + [(M.pick_window(n), False)]:
+        preps = [M.prep_set(p, k, s, c, signed) for p, k, s in sets]
+        k3_args = [(p.x, p.y, p.inf, torch.tensor(s, device=p.x.device), *pr[:5], pr.splits)
+                   for (p, _, s), pr in zip(sets, preps)]
+        buckets, hot = M.accumulate_sets(sets, c, signed)
+        sums = M.bucket_reduce(buckets, signed, hot.lane)
+        out[f"{'signed' if signed else 'unsigned'} c={c}"] = {
+            "msm_sets": cuda_ms(lambda: M.msm_sets(sets, c, signed=signed), 3),
+            "prep": cuda_ms(lambda: [M.hot_buckets(M.prep_set(p, k, s, c, signed), k.shape[0]) for p, k, s in sets],
+                            3),
+            "K3": cuda_ms(lambda: [M.bucket_accumulate(*a) for a in k3_args], 3),
+            "K4": cuda_ms(lambda: M.bucket_reduce(buckets, signed, hot.lane), 3),
+            "K5": cuda_ms(lambda: M.combine_windows(sums, c, buckets, hot), 3)}
+        del preps, k3_args, buckets, hot, sums
+    return out
+
+
+def _signed_run(name: str, fn, runs: dict, keep: dict | None = None) -> None:
+    """fn() under PHASE2_TPU_MSM_SIGNED with the MSM launches and K5's
+    count of its fold (msm.fold_counts) from zero, and the K3-K5 device
+    time; into runs[name]: wall s, launches, folds, device s. keep:
+    msm_sets' arguments of the run."""
+    import torch
+    from phase2_bn254_tpu_torch.ops import msm as M
+
+    for k in M.LAUNCHES:
+        M.LAUNCHES[k] = 0
+    M.reset_fold_counts()
+    timers = _Timers()
+    for w in MSM_WRAPPERS:
+        timers.device_of("msm", M, w)
+    if keep is not None:
+        timers.args_of("msm_sets", M, "msm_sets", keep)
+    try:
+        with _signed_env():
+            t0 = time.time()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+    finally:
+        timers.restore()
+    launches, folds = dict(M.LAUNCHES), M.fold_counts()
+    if launches["bucket_accumulate"] or launches["bucket_reduce"] or not launches["bucket_accumulate_signed"] \
+            or launches["bucket_reduce_signed"] != launches["combine_windows"]:
+        raise AssertionError(f"{name} under {SIGNED_VARIABLE}=1: launches {launches}, want the signed K3 and K4 "
+                             f"only, one K4 a K5")
+    runs[name] = {"wall_s": wall, "launches": launches, "folds": folds, "device_s": timers.device_s("msm")}
+
+
+def _expect_rejection(fn, want: str) -> str:
+    try:
+        fn()
+    except ValueError as e:
+        if want not in str(e):
+            raise
+        return str(e)
+    raise AssertionError(f"accepted where {want!r} was expected")
+
+
+def phase_signed(card: Card, workdir: str, records: list[dict], new_challenge_hash: bytes, proof_hash: str,
+                 rejections: dict, size: int = SMOKE_SIZE, batch: int = SMOKE_BATCH, exp: int = PROVE_EXP) -> None:
+    """Phase 17: the MSMs under PHASE2_TPU_MSM_SIGNED=1. K3, K4, K5 in the
+    signed mode against their plain versions at 2^16 (c from
+    pick_window_signed), G1 and G2, uniform, all-equal and ones-mix scalars
+    (the fold on the last two); the signed MSM at each window of
+    SIGNED_SWEEP; then through the CLI functions: the size-21 verification
+    (== phase 8's new challenge), phase 7's tampered response (rejected),
+    `prove` at 2^exp (the seeded proof == phase 10's; then K3, K4 and K5 on
+    its own sets, c = 16 and 14, against their plain versions) and
+    `verify_contribution` on phase 13's files (phase 13's decisions)."""
+    import filecmp
+
+    from phase2_bn254_tpu_torch.cli import phase1
+    from phase2_bn254_tpu_torch.cli import phase2 as cli2
+    from phase2_bn254_tpu_torch.crypto.hashing import calculate_hash
+    from phase2_bn254_tpu_torch.curve import group as G
+    from phase2_bn254_tpu_torch.refimpl.field import R_MOD
+
+    t_phase = time.time()
+    rng, n = random.Random(1717), KERNEL_N
+    mixes = {"uniform": lambda: _edge_scalars(n, rng), "all-equal": lambda: [rng.randrange(R_MOD)] * n,
+             "ones mix": lambda: _ones_mix(n, rng)}
+    cases = {}
+    for group in ("g1", "g2"):
+        for label, make in mixes.items():
+            case = cases[group, label] = _msm_case(group, n, make(), rng, signed=True, plain_k5=False)
+            if bool(case["fold_sets"]) != (label != "uniform"):
+                raise AssertionError(f"signed {group} {label}: the gate folds {case['fold_sets']} of 2 sets")
+        _k5_plain_batched(group, [cases[group, label] for label in mixes])
+    c = cases["g1", "uniform"]["c"]
+    log(f"phase 17 signed MSM kernels: N={n} (+1 points, 2 sets), c={c} (pick_window_signed), B = {1 << (c - 1)} "
+        f"buckets: K3 (signed) == plain limb for limb, K4 (signed) == plain after normalizing, K5 == plain limb "
+        f"for limb, with the fold table of the default path; results == refimpl; G1 and G2")
+    for (group, label), case in cases.items():
+        bounds = {key: card.bound(*case[f"{key}_work"]) for key in ("k3", "k4", "k5")}
+        log(f"  {group} {label} scalars (the gate folds {case['fold_sets']} of 2 sets; K5's plain version one call "
+            f"over the three mixes' 6 sets): "
+            + "; ".join(f"{what} {case[f'{key}_ms']:.3f} ms (plain {case[f'{key}_plain_ms']:.3f}, bound "
+                        f"{bounds[key][0]:.5f} {bounds[key][1]}: {case[f'{key}_work'][1]} multiplies"
+                        + (f", the kernel does {case[f'{key}_kernel_muls']}" if f"{key}_kernel_muls" in case else "")
+                        + ")" for key, what in (("k3", "K3"), ("k4", "K4"), ("k5", "K5")))
+            + f"; K5 chain {case['k5_chain']['warp_levels']} levels")
+    log(f"  launches of one call: {_msm_geometry(n, c, 2, signed=True)}")
+    for line in _ptxas_of(("bucket_accumulate", "bucket_reduce", "combine_windows")):
+        log(f"  ptxas: {line}")
+    u = cases["g1", "uniform"]
+    sweep = {"power_pairs 2^16 G1": _window_sweep([(G.AffineBatch(*u["args"][:3]), u["scalars"], (0, 1))])}
+    del u, cases["g1", "uniform"]["args"]
+
+    runs = {}
+    challenge, response = _challenge(workdir, size, batch), os.path.join(workdir, f"response_{size}")
+    new_challenge = os.path.join(workdir, f"new_challenge_{size}_signed")
+    timers = _verify_timers("prep_windows_signed")
+    try:
+        _signed_run("verify", lambda: runs.setdefault("verify_hash", phase1.verify_transform_constrained(
+            challenge, response, new_challenge, size, batch, DEVICE)), runs)
+    finally:
+        timers.restore()
+    if runs["verify_hash"] != new_challenge_hash or runs["verify_hash"] != calculate_hash(new_challenge):
+        raise AssertionError("the signed verification's new challenge hash differs from phase 8's")
+    if not filecmp.cmp(new_challenge, os.path.join(workdir, f"new_challenge_{size}"), shallow=False):
+        raise AssertionError("the signed verification's new challenge differs from phase 8's, byte for byte")
+    os.remove(new_challenge)
+    small = 10  # phase 7's size-10 response with one wrong point
+    _signed_run("tampered", lambda: runs.setdefault("tampered_msg", _expect_rejection(
+        lambda: phase1.verify_transform_constrained(_challenge(workdir, small, 256),
+                                                    os.path.join(workdir, f"response_{small}_tampered"),
+                                                    os.path.join(workdir, f"new_{small}_signed"), small, 256,
+                                                    DEVICE), "INVALID CONTRIBUTION")), runs)
+
+    argv = [os.path.join(workdir, f"circuit_{exp}.json"), os.path.join(workdir, f"witness_{exp}.json"),
+            os.path.join(workdir, f"circuit_{exp}.params"), os.path.join(workdir, "proof_signed.json"),
+            os.path.join(workdir, "public_signed.json"), "--device", DEVICE]
+    kept = {}
+    _signed_run("prove", lambda: runs.setdefault("proof_hash", _seeded_proof_hash(argv)), runs, kept)
+    if runs["proof_hash"] != proof_hash:
+        raise AssertionError(f"the signed seeded proof's blake2b {runs['proof_hash']} differs from phase 10's "
+                             f"{proof_hash}")
+    if not runs["prove"]["folds"]["launches"]:
+        raise AssertionError("prove under the signed mode took no fold (its G1 sets hold the witness' ones)")
+    g1_sets = next(a[0] for a in kept["msm_sets"] if a[0][0][0].x.dim() == 2)
+    sweep[f"prove's G1 sets {[k.shape[0] for _, k, _ in g1_sets]}"] = _window_sweep(g1_sets)
+    prove_shape = _prover_msm_kernels(card, kept["msm_sets"], signed=True)
+    del kept, g1_sets
+
+    circuit_json, radix = os.path.join(workdir, f"circuit_{exp}.json"), os.path.join(workdir, "radix")
+    params = [os.path.join(workdir, f"circom{i}.params") for i in range(4)]
+    tool_log = os.path.join(workdir, "ceremony_tools.log")
+    with open(tool_log, "a") as out, contextlib.redirect_stdout(out):
+        _signed_run("verify_contribution 1->2", lambda: cli2.main_verify_contribution(
+            [circuit_json, params[1], params[2], radix, "--device", DEVICE]), runs)
+        _signed_run("verify_contribution, changed l", lambda: runs.setdefault("l_msg", _expect_rejection(
+            lambda: cli2.verify(circuit_json, params[2], os.path.join(workdir, "circom3_l.params"), radix, DEVICE),
+            rejections["l"])), runs)
+
+    paths = ("verify", "tampered", "prove", "verify_contribution 1->2", "verify_contribution, changed l")
+    log(f"phase 17 under {SIGNED_VARIABLE}=1: verify_transform_constrained size {size} batch {batch} passes, its "
+        f"new challenge == phase 8's byte for byte; phase 7's size-{small} response with a wrong point is rejected "
+        f"({runs['tampered_msg']!r}); prove at 2^{exp} with seeded r and s verifies, its proof's blake2b "
+        f"{runs['proof_hash']} == phase 10's; verify_contribution 1->2 passes and the copy with a changed l is "
+        f"rejected ({runs['l_msg']!r}), as in phase 13")
+    for name in paths:
+        r = runs[name]
+        log(f"  {name}: wall {r['wall_s']:.3f} s, K3-K5 device {r['device_s']:.3f} s; launches "
+            + ", ".join(f"{k} {v}" for k, v in r["launches"].items() if v)
+            + f"; K5 taking the fold {r['folds']['launches']} (in {r['folds']['sets']} sets)")
+    log(f"  verify by part, wall s: {_verify_wall(timers, runs['verify']['wall_s'])}")
+    for shape, configs in sweep.items():
+        log(f"  window sweep, {shape}: ms per call of msm_sets (prep | K3 | K4 | K5 apart): "
+            + "; ".join(f"{k} {v['msm_sets']:.3f} ({v['prep']:.3f} | {v['K3']:.3f} | {v['K4']:.3f} | {v['K5']:.3f})"
+                        for k, v in configs.items()))
+
+    by_path = {name: {k: runs[name]["launches"][k] for k in SIGNED_WRAPPERS} for name in paths}
+    fold_by_path = {name: runs[name]["folds"]["launches"] for name in paths}
+    source = "phase2_bn254_tpu_torch/csrc/msm.cu"
+    of_prove = {"k3": "bucket_accumulate", "k4": "bucket_reduce", "k5": "combine_windows"}
+    for name, key, replaces, fold_label in (
+            ("bucket_accumulate_signed", "k3", "phase2_bn254_tpu/ops/pallas_msm.py:198 (_wave_kernel's signed "
+             "branch :178-186)", "uniform"),
+            ("bucket_reduce_signed", "k4", "phase2_bn254_tpu/ops/pallas_msm.py:328 (the signed weight mask "
+             ":713-719)", "uniform"),
+            ("combine_windows_fold", "k5", "phase2_bn254_tpu/ops/pallas_msm.py:591 (_combine_kernel's exclude "
+             "mode :523-531, :564-575)", "ones mix")):
+        per = {}
+        for group in ("g1", "g2"):
+            for label in mixes:
+                case = cases[group, label]
+                bound_ms, bound_by = card.bound(*case[f"{key}_work"])
+                per[f"{group} {label}"] = {"ms": case[f"{key}_ms"], "plain_ms": case[f"{key}_plain_ms"],
+                                           "max_abs_err": case[f"{key}_err"], "bound_ms": bound_ms,
+                                           "bound_by": bound_by, "muls": case[f"{key}_work"][1],
+                                           "kernel_muls": case.get(f"{key}_kernel_muls"),
+                                           "fold_sets": case["fold_sets"]}
+                if key == "k5":
+                    per[f"{group} {label}"]["chain"] = case["k5_chain"]
+        main = cases["g1", fold_label]
+        rec = record(card, name, source, replaces, max(p["max_abs_err"] for p in per.values()), main[f"{key}_ms"],
+                     main[f"{key}_plain_ms"], main[f"{key}_work"], cases=per,
+                     shape=f"N={n}, c={c} signed, 2 sets, G1 {fold_label} scalars; every case beside")
+        rec["prove_shape"] = prove_shape[of_prove[key]]
+        if key == "k5":
+            rec["launches_by_path"] = fold_by_path
+            rec["window_sweep_ms"] = sweep
+        else:
+            rec["launches_by_path"] = {p: v[name] for p, v in by_path.items()}
+        rec["launches"] = sum(rec["launches_by_path"].values())
+        if not rec["launches"]:
+            raise AssertionError(f"{name}: no launch on phase 17's paths")
+        records.append(rec)
+    log(f"phase 17: {time.time() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 
 def run_phases(card: Card, workdir: str, records: list[dict]) -> None:
-    """Phases 3-16 (phases 1 and 2 run before the working directory exists)."""
+    """Phases 3-17 (phases 1 and 2 run before the working directory exists)."""
     phase_golden(workdir)
     phase_parity(workdir)
     response_hash = phase_contribute(workdir, records)
     phase_msm_kernels(card, records)
     phase_verify_small(workdir)
-    phase_verify(workdir, records)
+    new_challenge_hash = phase_verify(workdir, records)
     phase_ntt(card, records)
-    phase_prove(card, workdir, records)
+    proof_hash = phase_prove(card, workdir, records)
     phase_fixture_proof(workdir)
     phase_segsum_kernels(card, records)
-    phase_ceremony(card, workdir, records)
+    rejections = phase_ceremony(card, workdir, records)
     phase_ladder_kernels(card, records)
     phase_configurations(card, workdir, records, response_hash)
     phase_bls(card, records)
+    phase_signed(card, workdir, records, new_challenge_hash, proof_hash, rejections)
     phase_fixture_ceremony(workdir)
 
 

@@ -44,9 +44,9 @@ ENTRY_POINTS = {
     "p2_batch_exp_g1_windowed": (6, 1),
     "p2_batch_exp_glv": (8, 2),
     "p2_batch_exp_gls": (7, 2),
-    **{f"p2_bucket_accumulate_{g}": (15, 7) for g in ("g1", "g2")},
-    **{f"p2_bucket_reduce_{g}": (6, 4) for g in ("g1", "g2")},
-    **{f"p2_combine_windows_{g}": (6, 3) for g in ("g1", "g2")},
+    **{f"p2_bucket_accumulate_{g}": (16, 7) for g in ("g1", "g2")},
+    **{f"p2_bucket_reduce_{g}": (7, 5) for g in ("g1", "g2")},
+    **{f"p2_combine_windows_{g}": (12, 4) for g in ("g1", "g2")},
     **{f"p2_decompress_{g}": (5, 1) for g in ("g1", "g2")},
     "p2_lane_dft": (9, 14),
     **{f"p2_segment_sums_{g}": (11, 3) for g in ("g1", "g2")},

@@ -18,6 +18,11 @@ chunk (kernel D1) and calls `power_pairs`, two MSMs (K3, K4, K5 in
 chunks uncompressed. The phase-2 checks of `phase2/mpc.py` call
 `merge_pairs`, the same MSMs over pairs of query vectors.
 
+Every MSM (power_pairs, merge_pairs, the prover's msm_many_async) takes the
+digits that the backend's `MsmMode` names: unsigned by default, signed under
+PHASE2_TPU_MSM_SIGNED, as the JAX package's `pallas_msm._signed_mode` reads
+it.
+
 Batches are ragged: no padding to a power of two (the JAX backend pads with
 generator points; the output bytes are the same).
 """
@@ -87,6 +92,23 @@ class Ladders:
                    terms_g1="glv" if no_signed5 else "glv_signed")
 
 
+@dataclass(frozen=True)
+class MsmMode:
+    """The digits of every MSM the backend runs: signed (the JAX package's
+    PHASE2_TPU_MSM_SIGNED, `ops.msm.msm_sets(..., signed=True)`) or
+    unsigned (the default)."""
+
+    signed: bool = False
+
+    @classmethod
+    def from_env(cls, environ: Mapping[str, str]) -> "MsmMode":
+        """Signed where PHASE2_TPU_MSM_SIGNED is "1", "true" or "on" after
+        strip().lower(), as `pallas_msm._signed_mode` reads it (not the
+        PHASE2_TPU_NO_* rule of set and not empty). The port reads it nowhere
+        else."""
+        return cls(environ.get("PHASE2_TPU_MSM_SIGNED", "").strip().lower() in ("1", "true", "on"))
+
+
 def check_device(device) -> torch.device:
     """The torch device named by `device`; a CUDA device raises when CUDA is
     not available (nothing falls back to the CPU)."""
@@ -98,16 +120,18 @@ def check_device(device) -> torch.device:
 
 class TorchBackend:
     """Contribute- and verify-slice backend on one torch device ("cuda",
-    "cuda:1" or "cpu") with its ladder kernels: `ladders`, by default those
-    that the environment selects (`Ladders.from_env`), as the JAX package
-    reads its switches on every path. A CUDA device that is not there
-    raises; nothing falls back."""
+    "cuda:1" or "cpu") with its ladder kernels and MSM digits: `ladders` and
+    `msm_mode`, by default those that the environment selects
+    (`Ladders.from_env`, `MsmMode.from_env`), as the JAX package reads its
+    switches on every path. A CUDA device that is not there raises; nothing
+    falls back."""
 
     name = "torch"
 
-    def __init__(self, device, ladders: Ladders | None = None):
+    def __init__(self, device, ladders: Ladders | None = None, msm_mode: MsmMode | None = None):
         self.device = check_device(device)
         self.ladders = Ladders.from_env(os.environ) if ladders is None else ladders
+        self.msm_mode = MsmMode.from_env(os.environ) if msm_mode is None else msm_mode
 
     # -- the contribute protocol -------------------------------------------
     def decode(self, raw: bytes, group: str, count: int, compressed: bool, check: bool,
@@ -182,7 +206,7 @@ class TorchBackend:
             if not isinstance(scalars, torch.Tensor):
                 scalars = convert.ints_to_limbs([s % R_MOD for s in scalars], self.device)
             sets.append((self._affine(ps), scalars, (0,)))
-        return self._to_host(M.msm_sets(sets), items[0][0].group)
+        return self._to_host(M.msm_sets(sets, signed=self.msm_mode.signed), items[0][0].group)
 
     def msm_many_wait(self, handle) -> list[rc.Point]:
         return self._msm_points(handle)
@@ -192,7 +216,8 @@ class TorchBackend:
         uniform in [0, r): the two MSMs share the scalars, so they run as one
         (`msm.msm_sets`, one set of shifts 0 and 1)."""
         coeffs = convert.to_device(random_scalars(ps.n - 1), self.device)
-        s, sx = self._msm_points(self._to_host(M.msm_sets([(self._affine(ps), coeffs, (0, 1))]), ps.group))
+        s, sx = self._msm_points(self._to_host(M.msm_sets([(self._affine(ps), coeffs, (0, 1))],
+                                                         signed=self.msm_mode.signed), ps.group))
         return s, sx
 
     def merge_pairs(self, pairs, group: str) -> list[tuple[rc.Point, rc.Point]]:
@@ -210,7 +235,8 @@ class TorchBackend:
             if n:
                 both = G.AffineBatch(*(torch.cat([a, b]) for a, b in zip(v1, v2)))
                 sets.append((both, convert.to_device(random_scalars(n), self.device), (0, n)))
-        sums = iter(self._msm_points(self._to_host(M.msm_sets(sets), group)) if sets else ())
+        sums = iter(self._msm_points(self._to_host(M.msm_sets(sets, signed=self.msm_mode.signed), group))
+                    if sets else ())
         zero = rc.point_zero(group)
         return [(next(sums), next(sums)) if v1.inf.shape[0] else (zero, zero) for v1, _ in pairs]
 

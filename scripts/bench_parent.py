@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time K6, K8, K9, K1, D1 and the prover's h step of this checkout and of
-another one on the same card, and compare three of their outputs byte for
-byte.
+"""Time K6, K8, K9, K1, D1, K3-K5 and the prover's h step of this checkout
+and of another one on the same card, and compare three of their outputs
+byte for byte.
 
     python3 scripts/bench_parent.py --parent DIR [--bytes] [--out DIR]
+    python3 scripts/bench_parent.py --parent DIR --msm [--out DIR]
 
 DIR is another checkout of the repository (e.g. the parent commit unpacked
 with `git archive` into a directory .gitignore lists). Each checkout runs in
@@ -26,8 +27,21 @@ device work alone (this checkout's `chip_smoke.device_ms`, for both trees):
   of scripts/fixtures/circuit.json; K8 at 2^16 uniform scalars;
 * K1 at 2^16 points with chip_smoke's edge scalars first (phase 2's case),
   and D1 on 2^16 G1 and 2^16 G2 x coordinates (phase 6's inputs);
-* and reads the ptxas lines (registers, spills) of K6, K8, K9, K1 and D1
-  from the checkout's build log.
+* K3, K4 and K5 on one power_pairs-shaped MSM of 2^16 uniform scalars (two
+  sets, the unsigned default's window), G1 and G2, as the checkout's
+  msm_sets runs them (with its fold table where it has one);
+* and reads the ptxas lines (registers, spills) of K6, K8, K9, K1, D1 and
+  K3-K5 from the checkout's build log.
+
+With --msm, the timing process times instead the default MSM path end to
+end, as the port's callers run it (four processes, in the same order):
+`msm.msm_sets` (prep, K3, K4 and K5 with the checkout's fold table) on
+one power_pairs-shaped MSM of 2^16 uniform scalars per group, and on sets
+of the prover's sizes at 2^18 constraints (G1: 655,353, 262,143 and
+262,141 scalars in one call; G2: 262,141) of a witness-like mix, a
+quarter zeros, a quarter ones and the rest uniform; and `prove` on
+chip_smoke phase 10's circuit as a user runs it (three runs after a warm
+one, wall clock to the end of the device work).
 
 With --bytes, one more process per checkout writes chip_smoke's phase 5
 response (size 21, batch 2^16), phase 13's radix file and `new`'s .params
@@ -109,7 +123,9 @@ def job_times(tree: str) -> dict:
             if "Compiling entry function" in line:
                 kernel = next((k for k in ("lane_dft_kernel", "exp_g1_windowed_kernel", "exp_g2_windowed_kernel",
                                            "batch_exp_glv_signed_kernel", "decompress_g1_kernel",
-                                           "decompress_g2_kernel")
+                                           "decompress_g2_kernel", "bucket_accumulate_kernel",
+                                           "bucket_accumulate_tree_kernel", "bucket_accumulate_collect_kernel",
+                                           "bucket_reduce_kernel", "combine_windows_kernel")
                                if k in line), None)  # (not their BLS12-381 instances: exp_bls_g1_..., and so on)
             elif kernel and ("registers" in line or "spill" in line):
                 out.setdefault(f"ptxas {kernel}", []).append(line.split(":", 1)[-1].strip())
@@ -168,6 +184,92 @@ def job_times(tree: str) -> dict:
         xs, flags = S._d1_inputs(group, 1 << 16, rng)
         x, greatest = S._x_digits(group, xs, dev), torch.tensor(flags, device=dev)
         out[f"D1 {group} 2^16"] = S.cuda_ms(lambda: decompress.decompress(x, greatest, group), 5)
+    for group, kernels in _msm_kernels(S, dev, rng).items():
+        for name, fn in kernels.items():
+            out[f"{name} {group} 2^16 uniform, 2 sets"] = S.cuda_ms(fn, 5)
+    return out
+
+
+def _msm_kernels(S, dev, rng) -> dict:
+    """K3, K4, K5 calls on one power_pairs-shaped MSM per group (2^16
+    uniform scalars, 2^16 + 1 points, shifts 0 and 1, pick_window's c),
+    made as the checkout's msm_sets makes them: with its fold table where
+    it has one (hot_buckets), the arguments of the parent's otherwise."""
+    import torch
+    from phase2_bn254_tpu_torch import convert
+    from phase2_bn254_tpu_torch.ops import msm as M
+    from phase2_bn254_tpu_torch.refimpl.field import R_MOD
+
+    n, out = 1 << 16, {}
+    c = M.pick_window(n)
+    shifts = torch.tensor([0, 1], device=dev)
+    for group in ("g1", "g2"):
+        pts, _ = S._tiled_points(group, n + 1, dev, rng)
+        k = convert.ints_to_limbs([rng.randrange(R_MOD) for _ in range(n)], dev)
+        if hasattr(M, "hot_buckets"):
+            prep = M.prep_set(pts, k, (0, 1), c)
+            hot = M.Hot(*(t.expand(2, -1).contiguous() for t in M.hot_buckets(prep, n)))
+            extra4, extra5 = (False, hot.lane), (hot,)
+        else:
+            prep, extra4, extra5 = M.prep_windows(k, c), (), ()
+        args = (pts.x, pts.y, pts.inf, shifts, *prep[:5])
+        buckets = M.bucket_accumulate(*args)
+        sums = M.bucket_reduce(buckets, *extra4)
+        with_buckets = (buckets, *extra5) if extra5 else ()
+        out[group] = {"K3": lambda a=args: M.bucket_accumulate(*a),
+                      "K4": lambda b=buckets, e=extra4: M.bucket_reduce(b, *e),
+                      "K5": lambda s=sums, w=with_buckets: M.combine_windows(s, c, *w)}
+    return out
+
+
+def _mix(n: int, rng) -> list[int]:
+    """n scalars: a quarter zeros, a quarter ones, the rest uniform, shuffled."""
+    from phase2_bn254_tpu_torch.refimpl.field import R_MOD
+
+    ks = [0] * (n // 4) + [1] * (n // 4) + [rng.randrange(R_MOD) for _ in range(n - 2 * (n // 4))]
+    rng.shuffle(ks)
+    return ks
+
+
+def job_msm(tree: str) -> dict:
+    """The default MSM path and `prove`, end to end (see --msm)."""
+    import contextlib
+
+    import torch
+
+    S = _smoke(tree)
+    from phase2_bn254_tpu_torch import convert
+    from phase2_bn254_tpu_torch.cli import phase2 as cli2
+    from phase2_bn254_tpu_torch.ops import _build
+    from phase2_bn254_tpu_torch.ops import msm as M
+    from phase2_bn254_tpu_torch.refimpl.field import R_MOD
+
+    _build.load()
+    dev, rng, out = torch.device("cuda"), random.Random(14), {}
+    for group in ("g1", "g2"):
+        pts, _ = S._tiled_points(group, (1 << 16) + 1, dev, rng)
+        k = convert.ints_to_limbs([rng.randrange(R_MOD) for _ in range(1 << 16)], dev)
+        out[f"msm_sets {group} 2^16 uniform, shifts 0 and 1"] = S.cuda_ms(lambda: M.msm_sets([(pts, k, (0, 1))]), 20)
+    for group, sizes in (("g1", (655_353, 262_143, 262_141)), ("g2", (262_141,))):
+        sets = []
+        for n in sizes:
+            pts, _ = S._tiled_points(group, n, dev, rng)
+            sets.append((pts, convert.ints_to_limbs(_mix(n, rng), dev), (0,)))
+        out[f"msm_sets {group} prover sizes {list(sizes)}, witness-like mix"] = S.cuda_ms(lambda: M.msm_sets(sets), 20)
+        del sets
+    with tempfile.TemporaryDirectory() as work, open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
+        circuit_json, witness_json = S.write_circuit(work, 18, seed=18)
+        params = os.path.join(work, "circuit_18.params")
+        S.write_params(circuit_json, params, seed=18, device="cuda")
+        argv = [circuit_json, witness_json, params, os.path.join(work, "proof.json"),
+                os.path.join(work, "public.json"), "--device", "cuda"]
+        walls = []
+        for _ in range(4):
+            t0 = time.time()
+            cli2.main_prove(argv)
+            torch.cuda.synchronize()
+            walls.append(time.time() - t0)
+    out["prove 2^18 s (three runs after a warm one)"] = walls[1:]
     return out
 
 
@@ -234,13 +336,14 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", help="another checkout to compare with")
     ap.add_argument("--bytes", action="store_true", help="also compare the phase 5, 10 and 13 outputs")
+    ap.add_argument("--msm", action="store_true", help="time the default MSM path and prove end to end instead")
     ap.add_argument("--out", default=os.path.join(REPO, "build", "bench_parent"))
-    ap.add_argument("--job", choices=("times", "bytes"), help=argparse.SUPPRESS)
+    ap.add_argument("--job", choices=("times", "msm", "bytes"), help=argparse.SUPPRESS)
     ap.add_argument("--tree", help=argparse.SUPPRESS)
     ap.add_argument("--json", help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.job:
-        res = (job_times if a.job == "times" else job_bytes)(os.path.abspath(a.tree))
+        res = {"times": job_times, "msm": job_msm, "bytes": job_bytes}[a.job](os.path.abspath(a.tree))
         with open(a.json, "w") as f:
             json.dump(res, f)
         return 0
@@ -259,14 +362,15 @@ def main() -> int:
     trees = {"parent": os.path.abspath(a.parent), "this": REPO}
     runs = {"parent": [], "this": []}
     for name in ("parent", "this", "this", "parent"):
-        runs[name].append(_run(trees[name], "times", log))
+        runs[name].append(_run(trees[name], "msm" if a.msm else "times", log))
     summary = {"card": smi, "times": {}}
     for case in runs["this"][0]:
         summary["times"][case] = {name: [r.get(case) for r in rs] for name, rs in runs.items()}
         if case.startswith("ptxas"):
             continue
-        p, t = (sum(v) / len(v) for v in summary["times"][case].values())
-        log(f"{case}: parent {p:.4f}, this {t:.4f} (runs {summary['times'][case]})")
+        p, t = (sum(v) / len(v) for v in ([x for r in rs for x in (r if isinstance(r, list) else [r])]
+                                          for rs in summary["times"][case].values()))
+        log(f"{case}: parent {p:.4f}, this {t:.4f}, {100 * (t / p - 1):+.2f}% (runs {summary['times'][case]})")
     ok = True
     if a.bytes:
         got = {name: _run(tree, "bytes", log) for name, tree in trees.items()}

@@ -351,7 +351,7 @@ GROUPS = {
         "inline": [("field.cuh", f"static __device__ __noinline__ Fp {op}(",
                     f"static __device__ __forceinline__ Fp {op}(")
                    for op in ("mul", "sqr")],
-        "k5_serial": [("msm.cu", "s, nwin, c, WarpProducts())", "s, nwin, c, SerialProducts())")],
+        "k5_serial": [("msm.cu", "s, nwin, c, WarpProducts(), bx", "s, nwin, c, SerialProducts(), bx")],
         "loads8": LOADS8,
     }, "limbs"),
 }

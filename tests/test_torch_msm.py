@@ -248,30 +248,32 @@ _HOST_SHIM = r"""
 #define __constant__
 #include "msm.cu"
 // K3's three passes and K4's steps, thread by thread, in the kernels' order
+// (splits, skips: null in the unsigned mode, without an excluded lane)
 template <class F>
 void acc(const int64_t* x, const int64_t* y, const bool* inf, const int64_t* shifts, const int64_t* orders,
-         const int64_t* starts, const int64_t* counts, const int64_t* first, const int64_t* runs, int64_t* px,
-         int64_t* py, int64_t* pz, int64_t* ox, int64_t* oy, int64_t* oz, int nsets, int n, int nwin, int m, int b,
-         int sub, int levels) {
+         const int64_t* starts, const int64_t* counts, const int64_t* first, const int64_t* runs,
+         const int64_t* splits, int64_t* px, int64_t* py, int64_t* pz, int64_t* ox, int64_t* oy, int64_t* oz, int nsets,
+         int n, int nwin, int m, int b, int sub, int levels) {
   int64_t parts = (int64_t)nsets * nwin * m;
   for (int64_t t = 0; t < parts; ++t)
-    accumulate_subrun<F>(x, y, inf, shifts, orders, starts, counts, first, runs, px, py, pz, t, n, nwin, m, b, sub);
+    accumulate_subrun<F>(x, y, inf, shifts, orders, starts, counts, first, runs, px, py, pz, t, n, nwin, m, b, sub,
+                         splits);
   for (int level = 0; level < levels; ++level)
     for (int64_t t = 0; t < parts; ++t) accumulate_tree_step<F>(px, py, pz, counts, first, runs, t, nwin, m, b, sub, level);
   for (int64_t t = 0; t < (int64_t)nsets * nwin * b; ++t)
     accumulate_collect<F>(px, py, pz, counts, first, ox, oy, oz, t, nwin, m, b);
 }
 template <class F>
-void reduce(const int64_t* bx, const int64_t* by, const int64_t* bz, int64_t* ox, int64_t* oy, int64_t* oz, int nsets,
-            int nwin, int b, int nt) {
+void reduce(const int64_t* bx, const int64_t* by, const int64_t* bz, const int64_t* skips, int64_t* ox, int64_t* oy,
+            int64_t* oz, int nsets, int nwin, int b, int nt, bool sgn) {
   std::vector<Jac<F>> run(nt), wsum(nt), held(nt);
   for (int64_t row = 0; row < (int64_t)nsets * nwin; ++row) {
-    for (int j = 0; j < nt; ++j) reduce_range<F>(bx, by, bz, row, b, nt, j, run[j], wsum[j]);
+    for (int j = 0; j < nt; ++j) reduce_range<F>(bx, by, bz, row, b, nt, j, run[j], wsum[j], skips ? skips[row] : -1);
     for (int k = 1; k < nt; k <<= 1) {
       held = run;  // what every thread holds before the step
       for (int j = 0; j < nt; ++j) run[j] = reduce_suffix_step<F>(run[j], held.data(), j, k, nt);
     }
-    for (int j = 0; j < nt; ++j) held[j] = reduce_weigh<F>(run[j], wsum[j], j, b / nt);
+    for (int j = 0; j < nt; ++j) held[j] = reduce_weigh<F>(run[j], wsum[j], j, b / nt, sgn);
     for (int stride = nt / 2; stride >= 1; stride >>= 1)
       for (int j = 0; j < nt; ++j) reduce_tree_step<F>(held.data(), j, stride);
     store_jac(ox, oy, oz, row, held[0]);
@@ -280,27 +282,37 @@ void reduce(const int64_t* bx, const int64_t* by, const int64_t* bz, int64_t* ox
 #define SHIM(G, F)                                                                                                \
   extern "C" void host_accumulate_##G(const int64_t* x, const int64_t* y, const bool* inf, const int64_t* shifts, \
                                       const int64_t* orders, const int64_t* starts, const int64_t* counts,        \
-                                      const int64_t* first, const int64_t* runs, int64_t* px, int64_t* py,        \
-                                      int64_t* pz, int64_t* ox, int64_t* oy, int64_t* oz, int nsets, int n,       \
-                                      int nwin, int m, int b, int sub, int levels) {                              \
-    acc<F>(x, y, inf, shifts, orders, starts, counts, first, runs, px, py, pz, ox, oy, oz, nsets, n, nwin, m, b,  \
-           sub, levels);                                                                                          \
+                                      const int64_t* first, const int64_t* runs, const int64_t* splits,           \
+                                      int64_t* px, int64_t* py, int64_t* pz, int64_t* ox, int64_t* oy,            \
+                                      int64_t* oz, int nsets, int n, int nwin, int m, int b, int sub,             \
+                                      int levels) {                                                               \
+    acc<F>(x, y, inf, shifts, orders, starts, counts, first, runs, splits, px, py, pz, ox, oy, oz, nsets, n,      \
+           nwin, m, b, sub, levels);                                                                              \
   }                                                                                                               \
-  extern "C" void host_reduce_##G(const int64_t* bx, const int64_t* by, const int64_t* bz, int64_t* ox,           \
-                                  int64_t* oy, int64_t* oz, int nsets, int nwin, int b, int nt) {                 \
-    reduce<F>(bx, by, bz, ox, oy, oz, nsets, nwin, b, nt);                                                        \
+  extern "C" void host_reduce_##G(const int64_t* bx, const int64_t* by, const int64_t* bz, const int64_t* skips,  \
+                                  int64_t* ox, int64_t* oy, int64_t* oz, int nsets, int nwin, int b, int nt,      \
+                                  int sgn) {                                                                      \
+    reduce<F>(bx, by, bz, skips, ox, oy, oz, nsets, nwin, b, nt, sgn != 0);                                       \
   }
 SHIM(g1, Fp)
 SHIM(g2, Fp2)
-// K5's level functions in order, every product on this thread
+// K5's level functions in order, every product on this thread (bx .. weights
+// null without the fold)
 #define COMBINE(G, F)                                                                                             \
-  extern "C" void host_combine_##G(const int64_t* sx, const int64_t* sy, const int64_t* sz, int64_t* ox,          \
-                                   int64_t* oy, int64_t* oz, int nsets, int nwin, int c) {                        \
+  extern "C" void host_combine_##G(const int64_t* sx, const int64_t* sy, const int64_t* sz, const int64_t* bx,    \
+                                   const int64_t* by, const int64_t* bz, const int64_t* lanes,                    \
+                                   const int64_t* weights, int64_t* ox, int64_t* oy, int64_t* oz, int nsets,      \
+                                   int nwin, int c, int b) {                                                      \
     for (int64_t s = 0; s < nsets; ++s)                                                                           \
-      store_jac(ox, oy, oz, s, combine_windows_set<F>(sx, sy, sz, s, nwin, c, SerialProducts()));                 \
+      store_jac(ox, oy, oz, s,                                                                                    \
+                combine_windows_set<F>(sx, sy, sz, s, nwin, c, SerialProducts(), bx, by, bz, lanes, weights, b)); \
   }
 COMBINE(g1, Fp)
 COMBINE(g2, Fp2)
+// what K5 adds to its fold counters for each set of a launch
+extern "C" void host_set_folds(const int64_t* weights, int nsets, int nwin, int* out) {
+  for (int s = 0; s < nsets; ++s) out[s] = set_folds(weights, s, nwin);
+}
 """
 
 
@@ -314,25 +326,40 @@ def host_lib(tmp_path_factory):
 
 
 def _ptrs(*ts):
-    return [ctypes.c_void_p(t.data_ptr()) for t in ts]
+    """Data pointers; None passes a null pointer."""
+    return [ctypes.c_void_p(None if t is None else t.data_ptr()) for t in ts]
 
 
 def _host_accumulate(host_lib, group, pts, shifts, prep):
-    """K3's per-thread code on the host: (S, nwin, B) bucket sums."""
+    """K3's per-thread code on the host (signed where prep has splits): (S,
+    nwin, B) bucket sums."""
     (nwin, n), b, m = prep.orders.shape, prep.starts.shape[1], prep.runs.shape[1]
     el = tuple(pts.x.shape[1:])
     parts = [torch.empty((len(shifts), nwin, m, *el), dtype=torch.int64) for _ in range(3)]
     out = [torch.empty((len(shifts), nwin, b, *el), dtype=torch.int64) for _ in range(3)]
-    getattr(host_lib, f"host_accumulate_{group}")(*_ptrs(pts.x, pts.y, pts.inf, shifts, *prep[:5], *parts, *out),
+    getattr(host_lib, f"host_accumulate_{group}")(*_ptrs(pts.x, pts.y, pts.inf, shifts, *prep[:5], prep.splits,
+                                                         *parts, *out),
                                                   len(shifts), n, nwin, m, b, M.SUBRUN, M.tree_levels(n))
     return G.JacobianBatch(*out)
 
 
-def _host_reduce(host_lib, group, buckets):
+def _host_reduce(host_lib, group, buckets, signed=False, exclude=None):
     """K4's per-thread code on the host: (S, nwin) window sums."""
     nsets, nwin, b = buckets.x.shape[:3]
     out = [torch.empty((nsets, nwin, *buckets.x.shape[3:]), dtype=torch.int64) for _ in range(3)]
-    getattr(host_lib, f"host_reduce_{group}")(*_ptrs(*buckets, *out), nsets, nwin, b, M.reduce_threads(b))
+    getattr(host_lib, f"host_reduce_{group}")(*_ptrs(*buckets, exclude, *out), nsets, nwin, b, M.reduce_threads(b),
+                                              int(signed))
+    return G.JacobianBatch(*out)
+
+
+def _host_combine(host_lib, group, sums, c, buckets=None, hot=None):
+    """K5's level functions on the host, every product on one thread: (S,)
+    points."""
+    nsets, nwin = sums.x.shape[:2]
+    out = [torch.empty((nsets, *sums.x.shape[2:]), dtype=torch.int64) for _ in range(3)]
+    fold = (None,) * 5 if hot is None else (*buckets, *hot)
+    getattr(host_lib, f"host_combine_{group}")(*_ptrs(*sums, *fold, *out), nsets, nwin, c,
+                                               0 if buckets is None else buckets.x.shape[2])
     return G.JacobianBatch(*out)
 
 
@@ -352,8 +379,7 @@ def test_cuda_sources_arithmetic_on_host_matches_plain(stages, host_lib):
     assert all(torch.equal(a, w) for a, w in zip(out, stages["buckets"]))
     sums = _host_reduce(host_lib, "g1", stages["buckets"])
     assert _host(sums, (2, nwin)).tolist() == _host(stages["sums"], (2, nwin)).tolist()
-    res = [torch.empty_like(t) for t in stages["out"]]
-    host_lib.host_combine_g1(*_ptrs(*stages["sums"], *res), 2, nwin, c)
+    res = _host_combine(host_lib, "g1", stages["sums"], c)
     assert all(torch.equal(a, w) for a, w in zip(res, stages["out"]))
 
 
@@ -419,8 +445,7 @@ def test_combine_levels_on_host_match_plain(group, kinds, host_lib):
     rows = [_k5_row(kind, c, nwin, rng) for kind in kinds]
     sums = _window_sums(group, rows, rng)
     want = M.combine_windows_plain(sums, c)
-    got = [torch.empty_like(t) for t in want]
-    getattr(host_lib, f"host_combine_{group}")(*_ptrs(*sums, *got), len(rows), nwin, c)
+    got = _host_combine(host_lib, group, sums, c)
     assert all(torch.equal(a, w) for a, w in zip(got, want))
     logs = [sum((m or 0) << (c * w) for w, m in enumerate(row)) % R_MOD for row in rows]
     assert _msm_points(want, group) == [GEN[group].mul(m) if m else rc.point_zero(group) for m in logs]
@@ -533,11 +558,14 @@ def test_wrappers_take_no_other_device():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("signed", [False, True], ids=["unsigned", "signed"])
 @pytest.mark.parametrize("scalars", ["uniform", "hot"])
 @pytest.mark.parametrize("group", ["g1", "g2"])
-def test_kernels_match_plain_on_gpu(group, scalars):
-    """The kernels against their plain versions on the same inputs; "hot":
-    all-equal scalars, one bucket of 300 points a window."""
+def test_kernels_match_plain_on_gpu(group, scalars, signed):
+    """The kernels against their plain versions on the same inputs, in the
+    unsigned and the signed mode; "hot": all-equal scalars, one bucket of
+    300 points a window, which the gate folds (K4 leaves it out, K5 adds it
+    with its weight)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(11)
@@ -545,18 +573,28 @@ def test_kernels_match_plain_on_gpu(group, scalars):
     ks = _uniform(rng, n - 20) + [9] * 20 if scalars == "uniform" else [_uniform(rng, 1)[0]] * n
     logs = _multiples(rng, n + 1, (1, 2, 3, -6, 5))
     pts = _points(group, logs)
-    prep = M.prep_windows(convert.ints_to_limbs(ks, "cpu"), c)
+    prep = (M.prep_windows_signed if signed else M.prep_windows)(convert.ints_to_limbs(ks, "cpu"), c)
+    hot = M.Hot(*(t.expand(2, -1).contiguous() for t in M.hot_buckets(prep, n)))
+    assert bool((hot.lane >= 0).any()) == (scalars == "hot")
     shifts = torch.tensor([0, 1])
-    plain_b = M.bucket_accumulate(pts.x, pts.y, pts.inf, shifts, *prep[:5])
-    plain_s = M.bucket_reduce(plain_b)
-    plain_o = M.combine_windows(plain_s, c)
+    plain_b = M.bucket_accumulate(pts.x, pts.y, pts.inf, shifts, *prep[:5], prep.splits)
+    plain_s = M.bucket_reduce(plain_b, signed, hot.lane)
+    plain_o = M.combine_windows(plain_s, c, plain_b, hot)
     cuda = [t.cuda() for t in (pts.x, pts.y, pts.inf, shifts, *prep[:5])]
+    splits = None if prep.splits is None else prep.splits.cuda()
+    hot_cuda = M.Hot(*(t.cuda() for t in hot))
     before = dict(M.LAUNCHES)
-    got_b = M.bucket_accumulate(*cuda)
-    got_s = M.bucket_reduce(got_b)
-    got_o = M.combine_windows(G.JacobianBatch(*(t.cpu().cuda() for t in plain_s)), c)
-    assert M.LAUNCHES["bucket_accumulate"] == before["bucket_accumulate"] + M.accumulate_launches(n)
-    assert all(M.LAUNCHES[k] == before[k] + 1 for k in ("bucket_reduce", "combine_windows"))
+    M.reset_fold_counts()
+    got_b = M.bucket_accumulate(*cuda, splits)
+    got_s = M.bucket_reduce(got_b, signed, hot_cuda.lane)
+    got_o = M.combine_windows(G.JacobianBatch(*(t.cpu().cuda() for t in plain_s)), c,
+                              G.JacobianBatch(*(t.cpu().cuda() for t in plain_b)), hot_cuda)
+    tag = "_signed" if signed else ""
+    assert M.LAUNCHES[f"bucket_accumulate{tag}"] == before[f"bucket_accumulate{tag}"] + M.accumulate_launches(n)
+    assert M.LAUNCHES[f"bucket_reduce{tag}"] == before[f"bucket_reduce{tag}"] + 1
+    assert M.LAUNCHES["combine_windows"] == before["combine_windows"] + 1
+    assert M.fold_counts() == ({"sets": 2, "launches": 1} if scalars == "hot" else {"sets": 0, "launches": 0})
     assert all(torch.equal(a.cpu(), w) for a, w in zip(got_b, plain_b))
     assert _msm_points(G.JacobianBatch(*(t.cpu() for t in got_s)), group) == _msm_points(plain_s, group)
     assert all(torch.equal(a.cpu(), w) for a, w in zip(got_o, plain_o))
+    assert _msm_points(plain_o, group) == [_want(group, logs[s : s + n], ks) for s in (0, 1)]
