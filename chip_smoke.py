@@ -2818,26 +2818,38 @@ LADDER_VARIABLES = ("PHASE2_TPU_NO_GLV", "PHASE2_TPU_NO_GLS", "PHASE2_TPU_NO_SIG
 def _k7_muls(d1, d2, negs, group: str = "g1"):
     """Multiplies (N,) k P takes on these unsigned GLV windows by K7's
     ladder (K7-BLS's with group "bls_g1"), as far as this data needs it:
-    the multiples up to each point's largest digit (with their beta x where
-    d2 has a nonzero digit), 4 doublings per window after the first nonzero
-    one, one add per nonzero digit after the first; the signs cost none."""
+    the multiples up to each point's largest digit by a doubling and mixed
+    adds (with their beta x where d2 has a nonzero digit), 4 doublings per
+    window after the first nonzero one, one add per nonzero digit after the
+    first; the signs cost none."""
     ops = OP_MULS[group]
     nz1, nz2 = d1 != 0, d2 != 0
     top = d1.amax(0).maximum(d2.amax(0))
     adds = (nz1.sum(0) + nz2.sum(0) - 1).clamp(min=0)
-    return (_table_muls(ops, top) + top * nz2.any(0) * _fq_product(group)
+    return (_table_muls(ops, top, mixed=True) + top * nz2.any(0) * _fq_product(group)
             + _ladder_doublings(nz1 | nz2, 4) * ops["dbl"] + adds * ops["add"])
+
+
+def _whole_table_muls(ops: dict, top):
+    """Multiplies (N,) of K7's and K10's tables: T[2..15] whole by a
+    doubling and 13 mixed adds where a digit above 1 occurs, none else."""
+    return (top >= 2) * (ops["dbl"] + 13 * ops["madd"])
 
 
 def _k7_kernel_muls(d1, d2, negs, group: str = "g1") -> int:
     """Multiplies K7 (csrc/batch_exp_glv.cu; K7-BLS with group "bls_g1")
-    does: the table (15 beta x, 2P through the doubling branch, 3P..15P), 4
-    doublings per window, one add per nonzero digit after the first."""
+    does on these digits: the table (`_whole_table_muls`), beta x of each
+    distinct nonzero digit of d2, 4 doublings per window after each point's
+    first nonzero one, one add per nonzero digit after the first (an add
+    into infinity, and one of T[0] into infinity, costs none; an add of T[0]
+    into a finite point is not made)."""
     ops = OP_MULS[group]
-    nw, n = d1.shape
-    table = 15 * _fq_product(group) + ops["add_head"] + ops["dbl"] + 13 * ops["add"]
-    adds = int(((d1 != 0).sum(0) + (d2 != 0).sum(0) - 1).clamp(min=0).sum())
-    return n * (table + nw * 4 * ops["dbl"]) + adds * ops["add"]
+    nz1, nz2 = d1 != 0, d2 != 0
+    top = d1.amax(0).maximum(d2.amax(0))
+    beta = sum((d2 == j).any(0).long() for j in range(1, 16)) * _fq_product(group)
+    adds = (nz1.sum(0) + nz2.sum(0) - 1).clamp(min=0)
+    return int((_whole_table_muls(ops, top) + beta + _ladder_doublings(nz1 | nz2, 4) * ops["dbl"]
+                + adds * ops["add"]).sum())
 
 
 def _k8_kernel_muls(scalars) -> int:
@@ -2847,26 +2859,38 @@ def _k8_kernel_muls(scalars) -> int:
 def _k10_muls(digits, negs):
     """Multiplies (N,) k Q takes on these unsigned GLS windows (4, W, N) by
     K10's ladder, as far as this data needs it: the multiples up to each
-    point's largest digit, psi, psi^2, psi^3 (`_psi_muls`) of each nonzero
-    digit of parts 1, 2, 3, 4 doublings per window after the first nonzero
-    one, one add per nonzero digit after the first."""
+    point's largest digit by a doubling and mixed adds, psi, psi^2, psi^3
+    (`_psi_muls`) of each nonzero digit of parts 1, 2, 3, 4 doublings per
+    window after the first nonzero one, one add per nonzero digit after the
+    first."""
     ops = OP_MULS["g2"]
     nz = digits != 0
     adds = (nz.sum((0, 1)) - 1).clamp(min=0)
-    return (_table_muls(ops, digits.amax((0, 1))) + _psi_muls(nz) + _ladder_doublings(nz.any(0), 4) * ops["dbl"]
-            + adds * ops["add"])
+    return (_table_muls(ops, digits.amax((0, 1)), mixed=True) + _psi_muls(nz)
+            + _ladder_doublings(nz.any(0), 4) * ops["dbl"] + adds * ops["add"])
 
 
 def _k10_kernel_muls(digits, negs) -> int:
-    """Multiplies K10 (csrc/batch_exp_gls.cu) does: the table (2Q through
-    the doubling branch, 3Q..15Q), per window 4 doublings and psi, psi^2,
-    psi^3 of the gathered entries (`_psi_muls`), one add per nonzero digit
-    after the first."""
+    """Multiplies K10 (csrc/batch_exp_gls.cu) does: the table
+    (`_whole_table_muls`); psi, psi^2, psi^3 of each nonzero digit of parts
+    1, 2, 3 and of the zero digits it gathers while the accumulator is at
+    infinity (those of the point's first window before its first nonzero
+    row; all three rows of the last window for a point without one); 4
+    doublings per window after each point's first nonzero one; one add per
+    nonzero digit after the first."""
+    import torch
+
     ops = OP_MULS["g2"]
     _, nw, n = digits.shape
-    table = ops["add_head"] + ops["dbl"] + 13 * ops["add"]
-    adds = int(((digits != 0).sum((0, 1)) - 1).clamp(min=0).sum())
-    return n * (table + nw * (4 * ops["dbl"] + _psi_window_muls())) + adds * ops["add"]
+    nz = digits != 0
+    live = nz.any(0)
+    first = torch.where(live.any(0), live.int().argmax(0), nw - 1)
+    at_first = nz[:, first, torch.arange(n, device=digits.device)]  # (4, N)
+    lead = torch.where(at_first.any(0), at_first.int().argmax(0), 4)  # rows before the first nonzero one
+    rows = torch.arange(4, device=digits.device)[:, None]
+    adds = (nz.sum((0, 1)) - 1).clamp(min=0)
+    return int((_whole_table_muls(ops, digits.amax((0, 1))) + _psi_muls(nz) + _psi_muls((rows < lead)[:, None])
+                + _ladder_doublings(live, 4) * ops["dbl"] + adds * ops["add"]).sum())
 
 
 # wrapper name -> (tag, group, the module whose `decompose` splits its scalars

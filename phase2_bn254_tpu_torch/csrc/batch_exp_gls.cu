@@ -13,12 +13,24 @@
 // Montgomery, fully reduced. The ceremony runs it for G2 under
 // PHASE2_TPU_NO_SIGNED5 (ops/backend.py Ladders).
 //
-// What bounds it on the card: 32-bit integer multiply throughput, about
-// 4,900 Fq products a point (17 windows of 4 doublings, psi, psi^2, psi^3
-// and up to 4 adds, against K2's 14 windows of 5), and the per-thread table
-// of 16 Fq2 Jacobian points (3 KB) in local memory, read four times per
-// window. The design is K2's: one point per thread, the table in local
-// memory.
+// What bounds it on the card: 32-bit integer multiply throughput (about
+// 4,600 Fq products a point on uniform scalars: 17 windows of 4 doublings
+// and up to 4 adds, psi, psi^2 and psi^3 of the nonzero digits, against
+// K2's 14 windows of 5) and the per-thread table of 16 Fq2 Jacobian points
+// (3 KB) in local memory, read four times per window. The design keeps
+// K2's one point per thread and the table in local memory, and does only
+// the work each thread's digits ask for:
+// * T[2..15] is built only where a digit above 1 occurs in any of the four
+//   rows, by one doubling and 13 mixed adds of the affine Q (the values of
+//   general adds, every one fully reduced);
+// * each thread starts at its own first window with a nonzero digit in any
+//   row, with no doublings before it; a thread with none runs the last
+//   window alone, whose adds of psi^c(T[0]) leave the limbs the full ladder
+//   leaves (an add into infinity returns its other operand);
+// * a zero digit costs no psi and no add once the accumulator is finite
+//   (the add would return it unchanged); while it is at infinity they run,
+//   as the full ladder's, and set its limbs.
+// The limbs are the full 17-window ladder's in every thread.
 //
 // Outside nvcc (no __CUDACC__) only the per-point function is compiled, so a
 // host C++ compiler can run the arithmetic on the CPU.
@@ -32,20 +44,38 @@
 __device__ void batch_exp_gls_point(const int64_t* x, const int64_t* y, const int64_t* digits,
                                     const int64_t* negs, int64_t* ox, int64_t* oy, int64_t* oz, int i, int n,
                                     int nw) {
+  int first = nw - 1, top = 0;  // the first window with a nonzero digit in any row (the last if none has), the
+                                // largest digit
+  for (int w = nw - 1; w >= 0; --w) {
+    int any = 0;
+    for (int c = 0; c < 4; ++c) {
+      const int d = (int)digits[((int64_t)c * nw + w) * n + i];
+      any |= d;
+      top = d > top ? d : top;
+    }
+    if (any) first = w;
+  }
   Jac<Fp2> table[16];
+  Fp2 qx, qy;
+  load_el(x + 32 * (int64_t)i, qx);
+  load_el(y + 32 * (int64_t)i, qy);
   table[0] = jac_infinity<Fp2>();
-  load_el(x + 32 * (int64_t)i, table[1].x);
-  load_el(y + 32 * (int64_t)i, table[1].y);
-  table[1].z = fp2_one();
-  for (int k = 2; k < 16; ++k) table[k] = jac_add(table[k - 1], table[1]);  // k = 2 is Q + Q
+  table[1] = {qx, qy, fp2_one()};
+  if (top >= 2) {
+    table[2] = jac_double(table[1]);
+    for (int k = 3; k < 16; ++k) table[k] = jac_madd(table[k - 1], qx, qy);
+  }
 
   bool ng[4];
   for (int c = 0; c < 4; ++c) ng[c] = negs[(int64_t)c * n + i] != 0;
   Jac<Fp2> acc = jac_infinity<Fp2>();
-  for (int w = 0; w < nw; ++w) {
-    for (int s = 0; s < 4; ++s) acc = jac_double(acc);
+  for (int w = first; w < nw; ++w) {
+    if (w > first)
+      for (int s = 0; s < 4; ++s) acc = jac_double(acc);
     for (int c = 0; c < 4; ++c) {
-      Jac<Fp2> e = psi_pow(c, table[(int)digits[((int64_t)c * nw + w) * n + i]]);
+      const int d = (int)digits[((int64_t)c * nw + w) * n + i];
+      if (d == 0 && !is_zero(acc.z)) continue;
+      Jac<Fp2> e = psi_pow(c, table[d]);
       if (ng[c]) e.y = neg(e.y);
       acc = jac_add(acc, e);
     }
@@ -56,6 +86,8 @@ __device__ void batch_exp_gls_point(const int64_t* x, const int64_t* y, const in
 #ifdef __CUDACC__
 namespace {
 
+// 128 threads a block (255 registers): on an NVIDIA H100 80GB HBM3 at 700 W 6% faster than 256, K2's shape,
+// and 1% faster than 64 (scripts/bench_shapes.py K10)
 constexpr int kThreads = 128;
 
 __global__ void __launch_bounds__(kThreads)

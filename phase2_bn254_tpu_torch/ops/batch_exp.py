@@ -400,12 +400,14 @@ def _glv_plain(f, beta, x, y, d1, d2, negs) -> G.JacobianBatch:
     Montgomery limbs: T[j] = j P for j = 0..15; per window 4 doublings, then
     +-T[d1] and +-phi(T[d2]), the sign that of the lane's k_i whatever the
     digit (T[0] negated is still infinity). The windows before the first
-    nonzero digit of the batch are skipped (`_first_live_window`)."""
+    nonzero digit of the batch are skipped (`_first_live_window`; a batch
+    without one runs the last window, as each lane without one does in the
+    kernel, which starts every lane at its own)."""
     table = _table(f, x, y, 16)
     phi = table._replace(x=f.mul(table.x, beta))
     neg1, neg2 = negs[0] != 0, negs[1] != 0
     acc = G.jac_zero(f, (x.shape[0],), x.device)
-    for w in range(_first_live_window(d1, d2), d1.shape[0]):
+    for w in range(min(_first_live_window(d1, d2), d1.shape[0] - 1), d1.shape[0]):
         for _ in range(4):
             acc = G.jac_double(f, acc)
         acc = _add_neg(f, acc, _gather(table, d1[w]), neg1)
@@ -444,11 +446,13 @@ def batch_exp_gls_plain(x, y, digits, negs) -> G.JacobianBatch:
     int64 (4, W, N) 4-bit windows of |k_c|, MSB first; negs: int64 (4, N), 1
     where k_c < 0. T[j] = j Q for j = 0..15; per window 4 doublings, then
     for c = 0..3 psi^c(T[d_c]) with y negated after psi where k_c < 0. The
-    windows before the first nonzero digit of the batch are skipped."""
+    windows before the first nonzero digit of the batch are skipped (a batch
+    without one runs the last window, as each lane without one does in the
+    kernel, which starts every lane at its own)."""
     consts = _gls_consts(x.device)
     table = _table(FQ2, x, y, 16)
     acc = G.jac_zero(FQ2, (x.shape[0],), x.device)
-    for w in range(_first_live_window(digits.transpose(0, 1)), digits.shape[1]):
+    for w in range(min(_first_live_window(digits.transpose(0, 1)), digits.shape[1] - 1), digits.shape[1]):
         for _ in range(4):
             acc = G.jac_double(FQ2, acc)
         for c in range(4):

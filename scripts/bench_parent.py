@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time K6, K8, K9, K1, D1, K3-K5 and the prover's h step of this checkout
-and of another one on the same card, and compare three of their outputs
-byte for byte.
+"""Time K6, K8, K9, K1, D1, K3-K5, K7, K10, K7-BLS and the prover's h step
+of this checkout and of another one on the same card, and compare three of
+their outputs byte for byte.
 
     python3 scripts/bench_parent.py --parent DIR [--bytes] [--out DIR]
     python3 scripts/bench_parent.py --parent DIR --msm [--out DIR]
@@ -30,8 +30,12 @@ device work alone (this checkout's `chip_smoke.device_ms`, for both trees):
 * K3, K4 and K5 on one power_pairs-shaped MSM of 2^16 uniform scalars (two
   sets, the unsigned default's window), G1 and G2, as the checkout's
   msm_sets runs them (with its fold table where it has one);
-* and reads the ptxas lines (registers, spills) of K6, K8, K9, K1, D1 and
-  K3-K5 from the checkout's build log.
+* K7 at 2^16 points with chip_smoke's edge scalars first (phase 14's case)
+  and on 1,310,711 terms of coefficient 1 (`new`'s G1 terms in chip_smoke
+  phase 15), K10 at 2^16 with the edge scalars first, and K7-BLS at 2^16
+  with chip_smoke's BLS12-381 edge scalars first (phase 16's case);
+* and reads the ptxas lines (registers, spills, stack) of K6, K8, K9, K1,
+  D1, K3-K5, K7, K10 and K7-BLS from the checkout's build log.
 
 With --msm, the timing process times instead the default MSM path end to
 end, as the port's callers run it (four processes, in the same order):
@@ -68,6 +72,7 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NEW_TERMS = 262_141  # `new`'s G2 terms at 2^18 constraints (chip_smoke phase 13)
+NEW_G1_TERMS = 1_310_711  # `new`'s G1 terms at 2^18 constraints (chip_smoke phase 15)
 
 
 def _device_ms():
@@ -118,15 +123,17 @@ def job_times(tree: str) -> dict:
     dev = torch.device("cuda")
     out = {}
     with open(os.path.join(_build.BUILD_DIR, f"ptxas_{_build._source_hash()}.log")) as f:
-        kernel = None  # registers and spills of K6, K8, K9, K1 and D1 as this checkout builds them
+        kernel = None  # registers and spills of K6, K8, K9, K1, D1, K3-K5, K7, K10, K7-BLS as this checkout builds them
         for line in f:
             if "Compiling entry function" in line:
                 kernel = next((k for k in ("lane_dft_kernel", "exp_g1_windowed_kernel", "exp_g2_windowed_kernel",
                                            "batch_exp_glv_signed_kernel", "decompress_g1_kernel",
                                            "decompress_g2_kernel", "bucket_accumulate_kernel",
                                            "bucket_accumulate_tree_kernel", "bucket_accumulate_collect_kernel",
-                                           "bucket_reduce_kernel", "combine_windows_kernel")
-                               if k in line), None)  # (not their BLS12-381 instances: exp_bls_g1_..., and so on)
+                                           "bucket_reduce_kernel", "combine_windows_kernel",
+                                           "batch_exp_glv_kernel", "batch_exp_gls_kernel",
+                                           "batch_exp_bls_glv_kernel")
+                               if k in line), None)  # (BLS12-381 instances only where named: exp_bls_g1_... not)
             elif kernel and ("registers" in line or "spill" in line):
                 out.setdefault(f"ptxas {kernel}", []).append(line.split(":", 1)[-1].strip())
     device_ms = _device_ms()
@@ -187,6 +194,32 @@ def job_times(tree: str) -> dict:
     for group, kernels in _msm_kernels(S, dev, rng).items():
         for name, fn in kernels.items():
             out[f"{name} {group} 2^16 uniform, 2 sets"] = S.cuda_ms(fn, 5)
+    out.update(_glv_gls_times(S, dev, rng))
+    return out
+
+
+def _glv_gls_times(S, dev, rng) -> dict:
+    """K7 (2^16 edge and uniform scalars; `new`'s G1 terms, coefficient 1),
+    K10 (2^16 edge and uniform) and K7-BLS (2^16, BLS12-381 edge and
+    uniform) in the checkout."""
+    from phase2_bn254_tpu_torch import convert
+    from phase2_bn254_tpu_torch.bls12_381 import device as D
+    from phase2_bn254_tpu_torch.ops import batch_exp, gls, glv
+
+    out, n = {}, 1 << 16
+    pts, _ = S._tiled_points("g1", n, dev, rng)
+    inputs = glv.decompose(convert.ints_to_limbs(S._edge_scalars(n, rng), dev))
+    out["K7 2^16 edge and uniform"] = S.cuda_ms(lambda: batch_exp.batch_exp_glv(pts.x, pts.y, *inputs), 5)
+    ones, _ = S._tiled_points("g1", NEW_G1_TERMS, dev, rng)
+    unit = glv.decompose(convert.ints_to_limbs([1] * NEW_G1_TERMS, dev))
+    out["K7 new's G1 terms (coefficient 1)"] = S.cuda_ms(lambda: batch_exp.batch_exp_glv(ones.x, ones.y, *unit), 5)
+    del ones, unit
+    qts, _ = S._tiled_points("g2", n, dev, rng)
+    digits = gls.decompose(convert.ints_to_limbs(S._edge_scalars(n, rng), dev))
+    out["K10 2^16 edge and uniform"] = S.cuda_ms(lambda: batch_exp.batch_exp_gls(qts.x, qts.y, *digits), 5)
+    bls = S._bls_points("g1", n, rng)
+    split = D.decompose_glv_t(D.scalars_to_canon(S._bls_edge_scalars(n, rng), dev))
+    out["K7-BLS 2^16 edge and uniform"] = S.cuda_ms(lambda: batch_exp.batch_exp_bls_glv(bls.x, bls.y, *split), 5)
     return out
 
 

@@ -50,6 +50,18 @@ on the wrappers' inputs and arguments. The groups:
 * K2 (csrc/batch_exp_g2.cu, the signed GLS ladder) on chip_smoke's inputs
   (2^16 points, edge and random scalars): 256 threads (the port's), 64 and
   128, and launch bounds asking 3 blocks of 128 or 5 of 64 an SM;
+* K7 and K7-BLS (csrc/batch_exp_glv.cu, the unsigned GLV ladder) on
+  chip_smoke's inputs (2^16 points, edge and random scalars; K7 also on
+  1,310,711 terms of coefficient 1, `new`'s G1 terms): K7 64 threads (the
+  port's), 128 and 256, K7-BLS 128 (the port's), 64 and 256; the table by
+  general adds (`general_table`) in place of a doubling and mixed adds; the
+  digit scan unrolled (`unroll4`, `unroll11`); K7 with launch bounds asking
+  6, 7, 8 or 10 blocks of 64 an SM (at most 168 / 144 / 128 / 102
+  registers: `bounds6` ... `bounds10`; `bounds8_unroll11` with the scan
+  unrolled) or 3 or 4 of 128 (`t128_bounds3`, `t128_bounds4`);
+* K10 (csrc/batch_exp_gls.cu, the unsigned GLS ladder) on chip_smoke's
+  inputs: 128 threads (the port's), 64 and 256; the digit scan unrolled
+  (`unroll4`, `unroll17`);
 * field (csrc/field.cuh's layout, in K1, K2, K3 and K5 at the contribute
   and verify chunk: 2^16 points, c = 9, two sets, G1 and G2): the port's;
   `inline`, the Fq product and square `__forceinline__` into the group
@@ -305,6 +317,13 @@ K2_SHAPES = {
     "t64_min5": [("constexpr int kThreads = 256;", "constexpr int kThreads = 64;"),
                  ("__launch_bounds__(kThreads)", "__launch_bounds__(kThreads, 5)")],
 }
+# K7 / K7-BLS (csrc/batch_exp_glv.cu): the table by general adds in place of a doubling and mixed adds
+GLV_GENERAL_TABLE = [("    table[2] = jac_double(table[1]);\n"
+                      "    for (int k = 3; k < 16; ++k) table[k] = jac_madd(table[k - 1], px, py);",
+                      "    for (int k = 2; k < 16; ++k) table[k] = jac_add(table[k - 1], table[1]);  // k = 2 doubles")]
+# K7 / K10: the digit scan (the first window, the largest digit) unrolled
+GLV_SCAN = "  for (int w = nw - 1; w >= 0; --w) {\n    const int da"
+GLS_SCAN = "  for (int w = nw - 1; w >= 0; --w) {\n    int any = 0;"
 # group -> (sources, kernels whose ptxas lines to keep, {shape: patches}, compare); the first shape is the
 # port's. A patch is (text, replacement) in the first source or (file, text or pattern, replacement).
 GROUPS = {
@@ -345,6 +364,28 @@ GROUPS = {
         **{f"t{t}": [("constexpr int kBlsThreads = 128;", f"constexpr int kBlsThreads = {t};")] for t in (64, 256)},
     }, "points"),
     "K2": (("batch_exp_g2.cu",), ("gls_signed_kernel",), {"port": [], **K2_SHAPES}, "limbs"),
+    "K7": (("batch_exp_glv.cu",), ("batch_exp_glv_kernel",), {
+        "port": [],
+        **{f"t{t}": [("constexpr int kThreads = 64;", f"constexpr int kThreads = {t};")] for t in (128, 256)},
+        "general_table": GLV_GENERAL_TABLE,
+        **{f"unroll{u}": [(GLV_SCAN, f"#pragma unroll {u}\n" + GLV_SCAN)] for u in (4, 11)},
+        **{f"bounds{b}": [("__launch_bounds__(kThreads)", f"__launch_bounds__(kThreads, {b})")] for b in (6, 7, 8, 10)},
+        "bounds8_unroll11": [("__launch_bounds__(kThreads)", "__launch_bounds__(kThreads, 8)"),
+                             (GLV_SCAN, "#pragma unroll 11\n" + GLV_SCAN)],
+        **{f"t128_bounds{b}": [("constexpr int kThreads = 64;", "constexpr int kThreads = 128;"),
+                               ("__launch_bounds__(kThreads)", f"__launch_bounds__(kThreads, {b})")] for b in (3, 4)},
+    }, "limbs"),
+    "K7-BLS": (("batch_exp_glv.cu",), ("batch_exp_bls_glv_kernel",), {
+        "port": [],
+        **{f"t{t}": [("constexpr int kBlsThreads = 128;", f"constexpr int kBlsThreads = {t};")] for t in (64, 256)},
+        "general_table": GLV_GENERAL_TABLE,
+        "unroll4": [(GLV_SCAN, "#pragma unroll 4\n" + GLV_SCAN)],
+    }, "limbs"),
+    "K10": (("batch_exp_gls.cu",), ("batch_exp_gls_kernel",), {
+        "port": [],
+        **{f"t{t}": [("constexpr int kThreads = 128;", f"constexpr int kThreads = {t};")] for t in (64, 256)},
+        **{f"unroll{u}": [(GLS_SCAN, f"#pragma unroll {u}\n" + GLS_SCAN)] for u in (4, 17)},
+    }, "limbs"),
     "field": (("batch_exp_g1.cu", "batch_exp_g2.cu", "msm.cu"),
               ("glv_signed_kernel", "gls_signed_kernel", "bucket_accumulate_kernel", "combine_windows_kernel"), {
         "port": [],
@@ -487,6 +528,25 @@ def _cases(groups: list[str]) -> dict:
             kernel = getattr(batch_exp, f"batch_exp_bls_{name}_windowed")
             cases[group] = {"2^16 uniform": ((lambda p=pts, k=k, kernel=kernel: kernel(p.x, p.y, k)), 3,
                                              D.field_ops(name))}
+    if "K7" in groups:
+        g1, _ = S._tiled_points("g1", S.KERNEL_N, dev, rng)
+        split = glv.decompose(convert.ints_to_limbs(S._edge_scalars(S.KERNEL_N, rng), dev))
+        ones, _ = S._tiled_points("g1", 1_310_711, dev, rng)
+        unit = glv.decompose(convert.ints_to_limbs([1] * 1_310_711, dev))
+        cases["K7"] = {"2^16 edge and uniform": (lambda: batch_exp.batch_exp_glv(g1.x, g1.y, *split), 5, None),
+                       "new's terms (coefficient 1)": (lambda: batch_exp.batch_exp_glv(ones.x, ones.y, *unit), 5,
+                                                       None)}
+    if "K7-BLS" in groups:
+        from phase2_bn254_tpu_torch.bls12_381 import device as D
+
+        bls = S._bls_points("g1", S.KERNEL_N, rng)
+        bsplit = D.decompose_glv_t(D.scalars_to_canon(S._bls_edge_scalars(S.KERNEL_N, rng), dev))
+        cases["K7-BLS"] = {"2^16 edge and uniform": (lambda: batch_exp.batch_exp_bls_glv(bls.x, bls.y, *bsplit), 3,
+                                                     None)}
+    if "K10" in groups:
+        g2, _ = S._tiled_points("g2", S.KERNEL_N, dev, rng)
+        gsplit = gls.decompose(convert.ints_to_limbs(S._edge_scalars(S.KERNEL_N, rng), dev))
+        cases["K10"] = {"2^16 edge and uniform": (lambda: batch_exp.batch_exp_gls(g2.x, g2.y, *gsplit), 3, None)}
     if "K2" in groups or "field" in groups:
         n = S.KERNEL_N
         pts, _ = S._tiled_points("g1", n, dev, rng)

@@ -18,7 +18,9 @@ the JAX package.
   the same bytes from all three and the host chain's;
 * the CUDA sources' per-point K7-BLS, K1-BLS and D1-BLS functions compiled
   by g++ (CUDA qualifiers defined away), limb for limb and flag for flag
-  with the plain versions, D1-BLS on x values without a square root too.
+  with the plain versions, D1-BLS on x values without a square root too,
+  K7-BLS also on a batch of only k = 0, 1 and r - 1 (no table, the last
+  window alone).
 
 The JAX Pallas GLV ladders are not run: in interpret mode they take
 minutes (`tests/test_bls_glv.py` gates them behind PHASE2_TPU_SLOW_TESTS).
@@ -280,6 +282,26 @@ def test_cuda_sources_glv_ladder_on_host_matches_plain(case, ladders, host_lib, 
     fn(*_ptrs(b.x, b.y, *digits, *out), ctypes.c_int(N), ctypes.c_int(digits[0].shape[0]))
     live = ~b.inf
     assert all(torch.equal(o[live], w[live]) for o, w in zip(out, ladders[kind]))
+
+
+def test_cuda_source_k7_bls_edge_lanes_on_host(host_lib):
+    """K7-BLS's per-lane work on the lanes that build no table: k = 0 (no
+    nonzero digit: the last window alone), 1 and r - 1, on a batch of only
+    such lanes (the plain version starts at its last window); the g++-built
+    code limb for limb with the plain version, and host Point.mul after
+    normalizing."""
+    rng = random.Random("bls k7 edge lanes")
+    vals = [0, 1, R - 1, 1, R - 1, 0]
+    pts = [jcurve.G1_GEN.mul(rng.randrange(1, R)) for _ in vals]
+    b = D.points_to_batch(_host(pts), "g1", "cpu")
+    digits = D.decompose_glv_t(D.scalars_to_canon(vals, "cpu"))
+    assert int(((digits[0] != 0) | (digits[1] != 0)).int().argmax(0).max()) == digits[0].shape[0] - 1
+    want = batch_exp.batch_exp_bls_glv_plain(b.x, b.y, *digits)
+    out = [torch.empty_like(b.x) for _ in range(3)]
+    host_lib.host_k7(*_ptrs(b.x, b.y, *digits, *out), ctypes.c_int(len(vals)), ctypes.c_int(digits[0].shape[0]))
+    assert all(torch.equal(o, w) for o, w in zip(out, want))
+    got = D.batch_to_points(G.jac_normalize(D.FQ_OPS, G.JacobianBatch(*out)), "g1")
+    assert _same_points(got, [p.mul(v) for p, v in zip(pts, vals)])
 
 
 def _d1_inputs(group: str):

@@ -13,9 +13,12 @@ them, against the JAX package and refimpl.
   the edge scalars of tests/test_torch_batch_exp.py and random ones;
 * the CUDA sources' per-point code (csrc/batch_exp_glv.cu,
   batch_exp_g1_windowed.cu, batch_exp_gls.cu) compiled with g++ against the
-  plain versions, limb for limb; ladders.cuh's windowed ladder (K8 and K9)
-  on the edge scalars of its recoding and its per-thread start, also
-  against refimpl;
+  plain versions, limb for limb; K7's and K10's per-lane start, their
+  tables (mixed adds, only where a digit above 1 occurs) and their skipped
+  adds of zero digits on lanes that take each path (k = 0 under any sign
+  flags, 1, r - 1, late first windows), also against refimpl; ladders.cuh's
+  windowed ladder (K8 and K9) on the edge scalars of its recoding and its
+  per-thread start, also against refimpl;
 * `Ladders.from_env` over the eight combinations of the three variables,
   against the table of the JAX package's `ops/backend.py:133-172` and
   `ops/segsum.py:104-115`;
@@ -38,6 +41,7 @@ equality of every digit, limb and byte.
 import ctypes
 import json
 import os
+import random
 import subprocess
 
 import jax.numpy as jnp
@@ -203,6 +207,102 @@ def test_cuda_sources_arithmetic_on_host_matches_plain(ladder_cases, host_lib, n
     windows = [] if name == "k8" else [ctypes.c_int(inputs[0].shape[-2])]
     getattr(host_lib, f"host_{name}")(*ptrs, ctypes.c_int(len(vals)), *windows)
     assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+def _host_ladder(fn, aff, inputs) -> list:
+    """The per-point function `fn` of the g++ shim over every lane."""
+    out = [torch.empty_like(aff.x) for _ in range(3)]
+    fn(*[ctypes.c_void_p(t.data_ptr()) for t in (aff.x, aff.y, *inputs, *out)], ctypes.c_int(aff.x.shape[0]),
+       ctypes.c_int(inputs[0].shape[-2]))
+    return out
+
+
+def _random_points(group: str, n: int, seed: str):
+    from phase2_bn254_tpu_torch.refimpl import curve as rc
+
+    rng = random.Random(seed)
+    gen = rc.G1_GEN if group == "g1" else rc.G2_GEN
+    pts = [gen.mul(rng.randrange(1, R_MOD)) for _ in range(n)]
+    return pts, convert.points_to_affine(pts, group, "cpu")
+
+
+def _mixed_table(f, aff, size: int = 16) -> list:
+    """T[0..size-1] by one doubling and mixed adds of the affine P, as the
+    kernels build it."""
+    n = aff.x.shape[0]
+    table = [G.jac_zero(f, (n,), "cpu"), G.JacobianBatch(aff.x, aff.y, f.ones((n,), "cpu"))]
+    table.append(G.jac_double(f, table[1]))
+    for _ in range(3, size):
+        table.append(G.jac_madd(f, table[-1], aff.x, aff.y))
+    return table
+
+
+# the redesigned K7 and K10 on lanes that take each of their paths: k = 0 (no
+# nonzero digit: the last window alone), 1 and r - 1 (new's terms: no table,
+# one add), a lane whose nonzero digits are all in d2 (K7) or in row 3 (K10),
+# small scalars whose first nonzero window comes late and differs from lane
+# to lane, the Babai tie, two random scalars
+def _redesign_lanes(only_last_part: int) -> list[int]:
+    return ([0, 1, R_MOD - 1, only_last_part, 3 * only_last_part % R_MOD, 31, 1023, (1 << 40) + 1, 1 << 70,
+             1 << 100, TIE] + _scalars(15, 2))
+
+
+def test_k7_table_and_first_window_on_host(host_lib):
+    """K7's table by one doubling and mixed adds equals the table by general
+    adds limb for limb; its per-lane start (a lane without a nonzero digit
+    from the last window), its table and beta x only where the digits reach
+    them and its skipped adds of T[0] give the plain version's limbs (the
+    plain version starts the batch at its first live window), the negs lanes
+    included, also on a batch whose every scalar is 0 (under each pair of
+    sign flags); k P equals refimpl's."""
+    vals = _redesign_lanes(LAMBDA)
+    pts, aff = _random_points("g1", len(vals), "k7 redesign")
+    general = batch_exp._table(FQ, aff.x, aff.y, 16)
+    assert all(torch.equal(torch.stack(a), b) for a, b in zip(zip(*_mixed_table(FQ, aff)), general))
+    d1, d2, negs = glv.decompose(convert.ints_to_limbs(vals, "cpu"))
+    assert bool((d1[:, 3] == 0).all()) and bool((d2[:, 3] != 0).any())  # only d2 on LAMBDA's lane
+    live = (d1 != 0) | (d2 != 0)
+    first = torch.where(live.any(0), live.int().argmax(0), d1.shape[0] - 1)
+    assert len(set(first.tolist())) > 3 and bool(negs.any())
+    want = batch_exp.batch_exp_glv_plain(aff.x, aff.y, d1, d2, negs)
+    assert all(torch.equal(a, b) for a, b in zip(_host_ladder(host_lib.host_k7, aff, (d1, d2, negs)), want))
+    got = convert.affine_to_points(G.jac_normalize(FQ, G.JacobianBatch(*want)), "g1")
+    assert got == [p.mul(k) for p, k in zip(pts, vals)]
+    # k = 0 under each pair of sign flags (the split gives none; the kernel takes any)
+    zero = G.AffineBatch(aff.x[:4], aff.y[:4], aff.inf[:4])
+    inputs = (*glv.decompose(convert.ints_to_limbs([0] * 4, "cpu"))[:2], torch.tensor([[0, 1, 0, 1], [0, 0, 1, 1]]))
+    want = batch_exp.batch_exp_glv_plain(zero.x, zero.y, *inputs)
+    assert all(torch.equal(a, b) for a, b in zip(_host_ladder(host_lib.host_k7, zero, inputs), want))
+    assert bool(G.jac_normalize(FQ, want).inf.all())
+
+
+def test_k10_table_and_first_window_on_host(host_lib):
+    """K10's table by one doubling and mixed adds over Fq2 equals the table
+    by general adds limb for limb; its per-lane start (a lane without a
+    nonzero digit in any row from the last window), its table only where a
+    digit above 1 occurs and its skipped psi and adds of T[0] give the plain
+    version's limbs, the negs lanes included, also on a batch whose every
+    scalar is 0 (under sign flags in every row); k Q equals refimpl's."""
+    vals = _redesign_lanes(pow(rgls.LAMBDA, 3, R_MOD))
+    pts, aff = _random_points("g2", len(vals), "k10 redesign")
+    general = batch_exp._table(FQ2, aff.x, aff.y, 16)
+    assert all(torch.equal(torch.stack(a), b) for a, b in zip(zip(*_mixed_table(FQ2, aff)), general))
+    digits, negs = gls.decompose(convert.ints_to_limbs(vals, "cpu"))
+    assert bool((digits[:3, :, 3] == 0).all()) and bool((digits[3, :, 3] != 0).any())  # only row 3
+    live = (digits != 0).any(0)
+    first = torch.where(live.any(0), live.int().argmax(0), digits.shape[1] - 1)
+    assert len(set(first.tolist())) > 3 and bool(negs.any())
+    want = batch_exp.batch_exp_gls_plain(aff.x, aff.y, digits, negs)
+    assert all(torch.equal(a, b) for a, b in zip(_host_ladder(host_lib.host_k10, aff, (digits, negs)), want))
+    got = convert.affine_to_points(G.jac_normalize(FQ2, G.JacobianBatch(*want)), "g2")
+    assert got == [p.mul(k) for p, k in zip(pts, vals)]
+    # k = 0 under sign flags in every row (the split gives none; the kernel takes any)
+    zero = G.AffineBatch(aff.x[:4], aff.y[:4], aff.inf[:4])
+    inputs = (gls.decompose(convert.ints_to_limbs([0] * 4, "cpu"))[0],
+              torch.tensor([[0, 1, 0, 1], [1, 0, 0, 1], [0, 1, 1, 0], [0, 0, 1, 1]]))
+    want = batch_exp.batch_exp_gls_plain(zero.x, zero.y, *inputs)
+    assert all(torch.equal(a, b) for a, b in zip(_host_ladder(host_lib.host_k10, zero, inputs), want))
+    assert bool(G.jac_normalize(FQ2, want).inf.all())
 
 
 # ladders.cuh's windowed ladder at the edges of its recoding and its start:

@@ -1,5 +1,6 @@
 """The ceremony's ladder configurations on a card (`gpu`; they skip without
-one): K7, K8 and K10 against their plain versions on the same CUDA tensors,
+one): K7, K8 and K10 against their plain versions on the same CUDA tensors
+(K7 also on terms like `new`'s, mostly 1 and r - 1),
 a size-10 / batch-256 response under each configuration equal to the
 default's, and scripts/fixtures' `new` under PHASE2_TPU_NO_SIGNED5 equal to
 the default's. Through the plain ladders on one thread of an Intel Xeon a
@@ -82,9 +83,26 @@ def set_config(monkeypatch, config: str) -> None:
         monkeypatch.setenv(v, value)
 
 
-@pytest.mark.parametrize("name", sorted(LADDERS))
+def new_terms_inputs(device, n: int = 4096) -> tuple:
+    """K7 on terms like `new`'s G1 QAP terms: n scalars, 45% 1, 45% r - 1
+    and 10% uniform, shuffled, on 32 random points tiled (affine points, the
+    split). Lanes of one warp then start at different windows, and most
+    build no table."""
+    rng = random.Random("new terms")
+    vals = [1 if u < 0.45 else R_MOD - 1 if u < 0.9 else rng.randrange(R_MOD)
+            for u in (rng.random() for _ in range(n))]
+    pts = [rc.G1_GEN.mul(rng.randrange(1, R_MOD)) for _ in range(32)]
+    aff = convert.points_to_affine([pts[i % 32] for i in range(n)], "g1", device)
+    return aff, glv.decompose(convert.ints_to_limbs(vals, device))
+
+
+@pytest.mark.parametrize("name", sorted(LADDERS) + ["k7_new_terms"])
 def test_kernel_matches_plain_on_gpu(name):
-    _, _, aff, inputs = ladder_inputs(name, "cuda")
+    if name == "k7_new_terms":
+        aff, inputs = new_terms_inputs("cuda")
+        name = "k7"
+    else:
+        _, _, aff, inputs = ladder_inputs(name, "cuda")
     wrapper = LADDERS[name][1]
     plain = getattr(batch_exp, wrapper.__name__ + "_plain")
     before = batch_exp.LAUNCHES[wrapper.__name__]
