@@ -92,9 +92,9 @@ phases:
 15. the ceremony's other ladder configurations end to end, selected as the
    JAX package selects them (PHASE2_TPU_NO_SIGNED5: K7 + K10;
    PHASE2_TPU_NO_GLV + PHASE2_TPU_NO_GLS: K8 + K9): compute_constrained at
-   size 21, batch 2^16, from phase 5's challenge and seed, gives phase 5's
-   response hash with the configuration's kernels launched once per chunk
-   call and the default ones never; wall time and ladder device time (per
+   size 21 (CONFIG_SIZE), batch 2^16, from phase 5's challenge and seed,
+   gives phase 5's response hash with the configuration's kernels launched
+   once per chunk call and the default ones never; wall time and ladder device time (per
    launch of each); and
    `new` at 2^18 constraints under PHASE2_TPU_NO_SIGNED5 (the G1 terms on
    K7) writes phase 13's .params bytes; K7 against its plain version on the
@@ -135,7 +135,22 @@ phases:
    c = 16 on G1 and 14 on G2, as in phase 10) and verify_contribution on
    phase 13's files (1->2 passes, the copy with a changed l is rejected
    with phase 13's message); each with its signed K3 / K4 launches (the
-   unsigned ones none) and its K5 launches that take the fold.
+   unsigned ones none) and its K5 launches that take the fold;
+18. the phase-1 -> phase-2 bridge: N1 (the group NTT's butterfly stage) and
+   N2 (its Jacobian ladder) against their plain versions at 2^16 pairs /
+   points, G1 and G2, with edge twiddles (0, 1, r - 1) and equal points
+   first, limb for limb and in canonical affine on a prefix and on a row of
+   random points (z != 1); time per call, bound (k B counted by the fewest
+   of the port's ladders, as every ladder's), ptxas registers and spills;
+   prepare_phase2 (the CLI function) on
+   phase 5's size-21 response, every degree 0..21, as a user runs it, with
+   its N1 / N2 launches and the files' bytes, then again with every part
+   timed (decode, group iNTT G1 / G2 with their normalize and encode, H
+   bases, their encode, the rest); the files of PREPARE_DEGREES byte-equal to write_radix's from
+   phase 5's tau, alpha and beta; `new` on phase 10's circuit from the
+   prepared directory (its .params blake2b); reduce_powers of phase 8's new
+   challenge from 21 to 18 (the reduced_hash header, every region the
+   original's prefix); verify_transcript on phase 7's size-10 pair.
 
 K5 counts the sets and the launches that take the hot-bucket fold itself,
 on the device (msm.fold_counts), read after the timed run.
@@ -161,8 +176,10 @@ _windowed_muls); this ladder's own count stands beside it
 segment (_s1_muls), the products of an NTT other than by 1 (_ntt_muls), a mixed
 add per point of a bucket after its first (_k3_muls), the adds of a
 serial running sum over the weighted buckets, the fold's excluded one left
-out (_k4_muls), K5's chain with the fold (_k5_muls); the kernel's own count
-stands beside each (kernel_muls). K5, whose time is a chain's latency,
+out (_k4_muls), K5's chain with the fold (_k5_muls), N1 / N2's ladder
+from a Jacobian base (the port's only one; N1 with its two butterfly adds,
+_jac_ladder_muls); the kernel's own count stands beside each
+(kernel_muls). K5, whose time is a chain's latency,
 also prints its chain in dependent products (_k5_chain).
 
 Prints one JSON line of the kernels' results, the card's nvidia-smi line,
@@ -174,6 +191,7 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import io
 import json
 import os
 import random
@@ -682,15 +700,18 @@ class _Timers:
         self.events: dict[str, list] = {}
         self._undo = []
 
-    def wall_of(self, key: str, owner, attr: str, sync: bool = False) -> None:
+    def wall_of(self, key: str, owner, attr: str, sync: bool = False, sync_start: bool = False) -> None:
         """Add the wall time of owner.attr's calls to wall[key]; with sync,
-        up to the end of the device work they queued."""
+        up to the end of the device work they queued; with sync_start, from
+        the end of the device work queued before them."""
         import torch
 
         fn = getattr(owner, attr)
         self.wall.setdefault(key, 0.0)
 
         def inner(*a, **k):
+            if sync_start:
+                torch.cuda.synchronize()
             t0 = time.time()
             try:
                 return fn(*a, **k)
@@ -2026,7 +2047,7 @@ def phase_prove(card: Card, workdir: str, records: list[dict], exp: int = PROVE_
         finally:
             M.bucket_accumulate = k3
         launches, folds = {**ntt.LAUNCHES, **M.LAUNCHES}, M.fold_counts()
-        want = {**dict.fromkeys(M.LAUNCHES, 0), "lane_dft": 14,
+        want = {**dict.fromkeys(ntt.LAUNCHES, 0), **dict.fromkeys(M.LAUNCHES, 0), "lane_dft": 14,
                 "bucket_accumulate": sum(M.accumulate_launches(n) for n in k3_sizes), "bucket_reduce": 2,
                 "combine_windows": 2}
         if launches != want or len(k3_sizes) != 4:
@@ -2501,26 +2522,38 @@ def phase_segsum_kernels(card: Card, records: list[dict], n: int = KERNEL_N) -> 
                               **_three_fq_fields(card, g2["work"][0], g2["three_fq"])}))
 
 
-def write_radix(workdir: str, exp: int, seed: int) -> str:
-    """phase1radix2m{exp} in workdir from tau, alpha, beta drawn from a
-    ChaCha seed, written with the port's kernels: the Lagrange coefficients
-    L_i(tau) are K6's inverse NTT of the tau powers (as the generator
-    computes them), the G1 vectors go through K1 and the G2 one through K2;
-    the layout of ceremony/prepare.py:1-12 (alpha G1, beta G1, beta G2;
-    L_i G1; L_i G2; alpha L_i G1; beta L_i G1; tau^i (tau^m - 1) G1 for
-    i < m - 1). Returns the directory."""
+def radix_secrets(seed: int) -> tuple[int, int, int]:
+    """(tau, alpha, beta) drawn from a ChaCha seed."""
+    from phase2_bn254_tpu_torch.crypto.chacha import ChaChaRng
+    from phase2_bn254_tpu_torch.refimpl.sampling import rand_fr
+
+    rng = ChaChaRng.from_digest_be(hashlib.blake2b(b"radix" + seed.to_bytes(8, "little")).digest())
+    return rand_fr(rng), rand_fr(rng), rand_fr(rng)
+
+
+RADIX_CHUNK = 1 << 18  # points per ladder call in write_radix
+
+
+def write_radix(workdir: str, exp: int, seed: int | None = None,
+                secrets: tuple[int, int, int] | None = None) -> str:
+    """phase1radix2m{exp} in workdir from the secrets (tau, alpha, beta),
+    by default those `radix_secrets(seed)` draws, written with the port's
+    kernels: the Lagrange coefficients L_i(tau) are
+    K6's inverse NTT of the tau powers (as the generator computes them), the
+    G1 vectors go through K1 and the G2 one through K2; the layout of
+    ceremony/prepare.py:1-13 (alpha G1, beta G1, beta G2; L_i G1; L_i G2;
+    alpha L_i G1; beta L_i G1; tau^i (tau^m - 1) G1 for i < m - 1): the file
+    prepare_phase2 writes from a response to the initial challenge with these
+    secrets. Returns the directory."""
     import torch
     from phase2_bn254_tpu_torch import convert
-    from phase2_bn254_tpu_torch.crypto.chacha import ChaChaRng
     from phase2_bn254_tpu_torch.field import fp
     from phase2_bn254_tpu_torch.groth16.generator import _batch_mul
     from phase2_bn254_tpu_torch.ops import ntt
     from phase2_bn254_tpu_torch.refimpl import curve as rc
     from phase2_bn254_tpu_torch.refimpl.field import R_MOD
-    from phase2_bn254_tpu_torch.refimpl.sampling import rand_fr
 
-    rng = ChaChaRng.from_digest_be(hashlib.blake2b(b"radix" + seed.to_bytes(8, "little")).digest())
-    tau, alpha, beta = rand_fr(rng), rand_fr(rng), rand_fr(rng)
+    tau, alpha, beta = radix_secrets(seed) if secrets is None else secrets
     dev, ctx, m = torch.device(DEVICE), fp.FR_CTX, 1 << exp
     powers = ntt.geometric(tau, exp, dev)
     lag = ntt.ntt(exp, powers, True)
@@ -2528,15 +2561,18 @@ def write_radix(workdir: str, exp: int, seed: int) -> str:
     def times(v, c):  # canonical limbs of v * c, v Montgomery
         return fp.from_mont(ctx, fp.mont_mul(ctx, v, convert.ints_to_limbs([ctx.to_mont_int(c % R_MOD)], dev)[0]))
 
+    def mul(gen, scalars):  # RADIX_CHUNK at a time: a 2^21 G2 encode's temporaries outgrow the card
+        return b"".join(_batch_mul(gen, scalars[i : i + RADIX_CHUNK]) for i in range(0, scalars.shape[0], RADIX_CHUNK))
+
     path = os.path.join(workdir, f"phase1radix2m{exp}")
     with open(path, "wb") as f:
         for p in (rc.G1_GEN.mul(alpha), rc.G1_GEN.mul(beta), rc.G2_GEN.mul(beta)):
             f.write(rc.point_to_bytes(p, False))
-        f.write(_batch_mul(rc.G1_GEN, times(lag, 1)))
-        f.write(_batch_mul(rc.G2_GEN, times(lag, 1)))
-        f.write(_batch_mul(rc.G1_GEN, times(lag, alpha)))
-        f.write(_batch_mul(rc.G1_GEN, times(lag, beta)))
-        f.write(_batch_mul(rc.G1_GEN, times(powers[: m - 1], pow(tau, m, R_MOD) - 1)))
+        f.write(mul(rc.G1_GEN, times(lag, 1)))
+        f.write(mul(rc.G2_GEN, times(lag, 1)))
+        f.write(mul(rc.G1_GEN, times(lag, alpha)))
+        f.write(mul(rc.G1_GEN, times(lag, beta)))
+        f.write(mul(rc.G1_GEN, times(powers[: m - 1], pow(tau, m, R_MOD) - 1)))
     return workdir
 
 
@@ -2812,6 +2848,10 @@ def phase_fixture_ceremony(workdir: str) -> None:
 # ---------------------------------------------------------------------------
 
 PLAIN_LADDER_N = 1 << 14  # the prefix of phase 14's lanes the plain K7, K8, K10 are held to
+# phase 15's contributions: phase 5's size (21), held to phase 5's response
+# hash; a smaller size holds them to the default ladders' response of that
+# size, made in the phase (the cut to make if the smoke outgrows its 1,200 s)
+CONFIG_SIZE = 21
 LADDER_VARIABLES = ("PHASE2_TPU_NO_GLV", "PHASE2_TPU_NO_GLS", "PHASE2_TPU_NO_SIGNED5")
 
 
@@ -2982,18 +3022,24 @@ def _ladder_env(names):
 
 
 def phase_configurations(card: Card, workdir: str, records: list[dict], response_hash: bytes,
-                         size: int = SMOKE_SIZE, batch: int = SMOKE_BATCH, exp: int = CEREMONY_EXP) -> None:
-    """Phase 15: phase 5's contribution and phase 13's `new` under the JAX
-    package's other ladder switches, through the CLI functions, and K7
-    against its plain version on the set `new` took."""
+                         size: int = CONFIG_SIZE, batch: int = SMOKE_BATCH, exp: int = CEREMONY_EXP) -> None:
+    """Phase 15: a contribution (phase 5's at SMOKE_SIZE, whose hash is
+    response_hash; at a smaller size the default ladders' response of that
+    size, made here first) and phase 13's `new` under the JAX package's
+    other ladder switches, through the CLI functions, and K7 against its
+    plain version on the set `new` took."""
     import torch
     from phase2_bn254_tpu_torch.ceremony.params import CeremonyParams
     from phase2_bn254_tpu_torch.cli import phase1
     from phase2_bn254_tpu_torch.cli import phase2 as cli2
     from phase2_bn254_tpu_torch.crypto.chacha import ChaChaRng
+    from phase2_bn254_tpu_torch.crypto.hashing import calculate_hash
     from phase2_bn254_tpu_torch.ops import batch_exp, segsum
 
     params = CeremonyParams(size, batch)
+    if size != SMOKE_SIZE:
+        with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
+            response_hash = calculate_hash(_torch_response(workdir, size, batch))
     configs = {"NO_SIGNED5": (("SIGNED5",), "batch_exp_glv", "batch_exp_gls"),
                "NO_GLV + NO_GLS": (("GLV", "GLS"), "batch_exp_g1_windowed", "batch_exp_g2_windowed")}
     launches = {}
@@ -3018,10 +3064,10 @@ def phase_configurations(card: Card, workdir: str, records: list[dict], response
         if launches[label] != want:
             raise AssertionError(f"PHASE2_TPU_{label}: kernel launches {launches[label]}, want {want}")
         if got != response_hash:
-            raise AssertionError(f"PHASE2_TPU_{label}: response hash {got.hex()[:16]} differs from phase 5's "
-                                 f"{response_hash.hex()[:16]}")
+            raise AssertionError(f"PHASE2_TPU_{label}: response hash {got.hex()[:16]} differs from the default "
+                                 f"ladders' {response_hash.hex()[:16]}")
         device = {name: timers.device_s(name) for name in (g1, g2)}
-        log(f"phase 15 PHASE2_TPU_{label}: size {size} batch {batch} response == phase 5's (blake2b "
+        log(f"phase 15 PHASE2_TPU_{label}: size {size} batch {batch} response == the default ladders' (blake2b "
             f"{got.hex()[:16]}); {g1} launches {want[g1]}, {g2} launches {want[g2]}, the default ladders none; "
             f"wall {wall:.3f} s, ladder kernels {sum(device.values()):.3f} s device (CUDA events): "
             + ", ".join(f"{k} {1e3 * v / want[k]:.3f} ms a launch" for k, v in device.items()))
@@ -3652,9 +3698,371 @@ def phase_signed(card: Card, workdir: str, records: list[dict], new_challenge_ha
 
 
 # ---------------------------------------------------------------------------
+# phase 18: prepare_phase2, reduce_powers, verify_transcript
+# ---------------------------------------------------------------------------
+
+PREPARE_DEGREES = (0, 1, 2, 10, 18, 21)  # the radix files held to write_radix's from phase 5's secrets
+GROUP_NTT_N = 1 << 16  # N1's pairs and N2's points in the kernel cases
+GROUP_NTT_LOG2C = 12  # N1's case: rows of 2^12 points, stage 12 (each pair its own twiddle of the row's 2^11)
+# the points the plain versions are held to, in one call each: N1's first
+# two rows (2^12 pairs) and N2's first 2^13 points; row 0 holds the
+# generator (z = 1), the edge scalars and infinities, row 1 random Jacobian
+# points (z != 1)
+PLAIN_GROUP_NTT_N = 2 << GROUP_NTT_LOG2C
+
+
+def _jac_ladder_muls(group: str, scalars, whole_table: bool = False):
+    """Multiplies (N,) of k B for Jacobian bases B by N1 / N2's own ladder
+    (csrc/group_ntt.cu jac_ladder) on these scalars, kept beside the bound
+    (which counts `_function_muls`, the fewest of the port's ladders): k above (r - 1)/2 as (r - k)(-B), the multiples
+    by general adds up to each lane's largest 4-bit digit (2B through the
+    add's doubling branch; with whole_table all of T[2..15] where a digit
+    above 1 occurs, as the kernel builds them), 4 doublings per window after
+    the first nonzero one, one add per nonzero window after the first."""
+    import torch
+    from phase2_bn254_tpu_torch.ops import batch_exp
+
+    ops = OP_MULS[group]
+    win = batch_exp.scalar_windows_msb(batch_exp.half_recode(scalars)[0])
+    nz = win != 0
+    top = win.amax(0)
+    if whole_table:
+        top = torch.where(top >= 2, torch.full_like(top, 15), top)
+    return _table_muls(ops, top) + _ladder_doublings(nz, 4) * ops["dbl"] + (nz.sum(0) - 1).clamp(min=0) * ops["add"]
+
+
+def _group_ntt_points(group: str, n: int, dev, rng: random.Random):
+    """n Jacobian points for N1 and N2: sums P_i + P_(i+1) of tiled random
+    multiples of the generator (z != 1), the first row (2^GROUP_NTT_LOG2C)
+    the generator itself (z = 1), and every 1009th from 7 on at infinity."""
+    from phase2_bn254_tpu_torch import convert
+    from phase2_bn254_tpu_torch.curve import group as G
+    from phase2_bn254_tpu_torch.field.fq2 import FQ, FQ2
+    from phase2_bn254_tpu_torch.refimpl import curve as rc
+
+    f = FQ if group == "g1" else FQ2
+    pts, _ = _tiled_points(group, n + 1, dev, rng)
+    jac = G.jac_add(f, *(G.affine_to_jac(f, G.AffineBatch(*(t[a : a + n] for t in pts))) for a in (0, 1)))
+    gen = G.affine_to_jac(f, convert.points_to_affine([rc.G1_GEN if group == "g1" else rc.G2_GEN], group, dev))
+    zero = G.jac_zero(f, (1,), dev)
+    for c, g, z in zip(jac, gen, zero):
+        c[: 1 << GROUP_NTT_LOG2C] = g
+        c[7::1009] = z
+    return jac
+
+
+def _same_affine(group: str, got, want) -> bool:
+    import torch
+    from phase2_bn254_tpu_torch.curve import group as G
+    from phase2_bn254_tpu_torch.field.fq2 import FQ, FQ2
+
+    f = FQ if group == "g1" else FQ2
+    return all(torch.equal(a, b) for a, b in zip(G.jac_normalize(f, got), G.jac_normalize(f, want)))
+
+
+def _group_ntt_case(group: str, rng: random.Random) -> dict:
+    """N1 over rows of 2^GROUP_NTT_LOG2C points, stage GROUP_NTT_LOG2C
+    (GROUP_NTT_N pairs), the inverse domain's twiddles with w^1 and w^2
+    replaced by 0 and r - 1 (w^0 = 1: row 0's equal points double into a +
+    t and cancel in a - t), and N2 on GROUP_NTT_N points with the edge
+    scalars first: each against its plain version, limb for limb and in
+    canonical affine, on the first PLAIN_GROUP_NTT_N points (the generator,
+    z = 1, then random points, z != 1); time per call; the work (the
+    bound's: `_function_muls`; the ladder's and the kernel's beside it)."""
+    import torch
+    from phase2_bn254_tpu_torch import convert
+    from phase2_bn254_tpu_torch.curve import group as G
+    from phase2_bn254_tpu_torch.ops import ntt
+    from phase2_bn254_tpu_torch.refimpl.field import R_MOD
+
+    dev, log2c, n = torch.device(DEVICE), GROUP_NTT_LOG2C, GROUP_NTT_N
+    out = {}
+    pts = _group_ntt_points(group, 2 * n, dev, rng)
+    tw = ntt.Domain(log2c).twiddles_canonical(True, dev).clone()
+    tw[1:3] = convert.ints_to_limbs([0, R_MOD - 1], dev)
+
+    def copy(jac, k=None):
+        return G.JacobianBatch(*(c[:k].clone() for c in jac))
+
+    pn = PLAIN_GROUP_NTT_N
+
+    def held(name: str, got, want) -> int:
+        err = max_limb_err(got, want)
+        if err or not _same_affine(group, G.JacobianBatch(*got), want):
+            raise AssertionError(f"{name} {group}: kernel and plain version differ on the first {pn} points (max "
+                                 f"abs limb error {err})")
+        return err
+
+    # the plain version on the first two rows: a batch of two rows, with the
+    # same twiddles
+    got = ntt.group_ntt_stage(copy(pts), tw, log2c, log2c)
+    want, plain_ms = once_ms(lambda: ntt.group_ntt_stage_plain(copy(pts, pn), tw, log2c, log2c))
+    err = held("N1", [t[:pn] for t in got], want)
+    scratch = copy(pts)
+    ms = cuda_ms(lambda: ntt.group_ntt_stage(scratch, tw, log2c, log2c), 3)
+    pair_tw = tw.repeat(n >> (log2c - 1), 1)
+    adds = 2 * n * OP_MULS[group]["add"]
+    out["group_ntt_stage"] = {"err": err, "ms": ms, "plain_ms": plain_ms, "plain_n": pn // 2, "n": n,
+                              "work": (2 * nbytes(*pts) + nbytes(tw), _function_muls(group, pair_tw) + adds),
+                              "ladder_muls": int(_jac_ladder_muls(group, pair_tw).sum()) + adds,
+                              "kernel_muls": int(_jac_ladder_muls(group, pair_tw, True).sum()) + adds}
+    del got, want, scratch
+
+    pts = G.JacobianBatch(*(c[:n].contiguous() for c in pts))
+    k = convert.ints_to_limbs(_edge_scalars(n, rng), dev)
+    got = ntt.jac_scalar_mul(copy(pts), k)
+    want, plain_ms = once_ms(lambda: ntt.jac_scalar_mul_plain(copy(pts, pn), k[:pn]))
+    err = held("N2", [t[:pn] for t in got], want)
+    scratch = copy(pts)
+    ms = cuda_ms(lambda: ntt.jac_scalar_mul(scratch, k), 3)
+    out["jac_scalar_mul"] = {"err": err, "ms": ms, "plain_ms": plain_ms, "plain_n": pn, "n": n,
+                             "work": (2 * nbytes(*pts) + nbytes(k), _function_muls(group, k)),
+                             "ladder_muls": int(_jac_ladder_muls(group, k).sum()),
+                             "kernel_muls": int(_jac_ladder_muls(group, k, True).sum())}
+    return out
+
+
+def _prepare_launches(size: int) -> dict:
+    """N1 and N2 launches of a size-`size` prepare run in-core: per degree m
+    >= 1 one N1 a stage and one N2 for the G1 batch (three vectors) and for
+    G2."""
+    return {"group_ntt_stage": size * (size + 1), "jac_scalar_mul": 2 * size}
+
+
+# the vectors of a degree's two iNTT calls, and the bytes of a Jacobian point
+PREPARE_VECTORS = {"g1": 3, "g2": 1}
+JAC_BYTES = {"g1": 3 * 16 * 8, "g2": 3 * 2 * 16 * 8}
+
+
+def _prepare_bound(card: Card, size: int) -> dict:
+    """The bound (s, as every kernel's: per launch the larger of its bytes
+    and its multiplies over the card's rates, summed) of the N1 and N2
+    launches of a size-`size` prepare run in-core. Stage s of every degree
+    m >= s takes the twiddles w_(2^s)^-j, j < 2^(s-1) (Domain(s)'s), each
+    2^(m-s) times a vector; k B as `_function_muls` counts it, two general
+    adds a pair; N2 multiplies the 2^m points of each vector by 1/2^m; each
+    launch reads and writes its points once."""
+    import torch
+    from phase2_bn254_tpu_torch import convert
+    from phase2_bn254_tpu_torch.ops import ntt
+
+    dev = torch.device(DEVICE)
+    out = {"group_ntt_stage": 0.0, "jac_scalar_mul": 0.0}
+    for group, v in PREPARE_VECTORS.items():
+        add = 2 * OP_MULS[group]["add"]
+        stage = [_function_muls(group, ntt.Domain(s).twiddles_canonical(True, dev))
+                 for s in range(1, size + 1)]
+        for m in range(1, size + 1):
+            moved = 2 * (v << m) * JAC_BYTES[group]
+            for s in range(1, m + 1):
+                muls = v * ((stage[s - 1] << (m - s)) + (1 << (m - 1)) * add)
+                out["group_ntt_stage"] += card.bound(moved + (16 * 8 << (s - 1)), muls)[0] / 1e3
+            minv = convert.ints_to_limbs([ntt.Domain(m).minv], dev)
+            out["jac_scalar_mul"] += card.bound(moved, (v << m) * _function_muls(group, minv))[0] / 1e3
+    return out
+
+
+def _prepare_parts(timers, total: float) -> str:
+    """The parts of a timed prepare: the group iNTT calls hold the
+    normalization and the encoding of the Lagrange vectors; the H bases'
+    encoding is apart."""
+    w = timers.wall
+    kernels = timers.device_s("n1") + timers.device_s("n2")
+    encode_h = w["encode"] - w["encode_lagrange"]
+    other = total - w["decode"] - w["intt_g1"] - w["intt_g2"] - w["h_bases"] - encode_h
+    return (f"decode {w['decode']:.3f} | group iNTT G1 {w['intt_g1']:.3f} | G2 {w['intt_g2']:.3f} (of the two: "
+            f"normalize {w['normalize']:.3f}, encode {w['encode_lagrange']:.3f}, N1 + N2 device {kernels:.3f} (CUDA "
+            f"events)) | H bases (add, normalize) {w['h_bases']:.3f}, their encode {encode_h:.3f} | other (file "
+            f"writes, headers) {other:.3f}")
+
+
+def phase_prepare(card: Card, workdir: str, records: list[dict], size: int = SMOKE_SIZE,
+                  batch: int = SMOKE_BATCH, pair: tuple[int, int] = (10, 256)) -> None:
+    """Phase 18: N1 and N2 against their plain versions; prepare_phase2 on
+    phase 5's response through the CLI function, as a user runs it and then
+    timed by part; its files against write_radix's from phase 5's secrets;
+    `new` from them; reduce_powers of phase 8's new challenge;
+    verify_transcript on phase 7's size-10 pair."""
+    import torch
+    from phase2_bn254_tpu_torch.ceremony import prepare, streaming
+    from phase2_bn254_tpu_torch.ceremony.keypair import keypair
+    from phase2_bn254_tpu_torch.ceremony.params import HASH_SIZE, CeremonyParams
+    from phase2_bn254_tpu_torch.cli import phase1, transcript
+    from phase2_bn254_tpu_torch.cli import phase2 as cli2
+    from phase2_bn254_tpu_torch.crypto.chacha import ChaChaRng
+    from phase2_bn254_tpu_torch.crypto.hashing import calculate_hash, reduced_hash
+    from phase2_bn254_tpu_torch.curve import codecs
+    from phase2_bn254_tpu_torch.ops import decompress, ntt
+    from phase2_bn254_tpu_torch.ops.backend import TorchBackend
+
+    t_phase = time.time()
+    rng = random.Random(18)
+    cases = {group: _group_ntt_case(group, rng) for group in ("g1", "g2")}
+    for name in ("group_ntt_stage", "jac_scalar_mul"):
+        for group, c in ((g, cases[g][name]) for g in ("g1", "g2")):
+            b, by = card.bound(*c["work"])
+            c["bound_ms"], c["bound_by"] = b, by
+            log(f"phase 18 {'N1' if name == 'group_ntt_stage' else 'N2'} ({name}) {group}: {c['n']} "
+                f"{'pairs' if name == 'group_ntt_stage' else 'points'}, edge scalars and equal points first: kernel == "
+                f"plain limb for limb and in canonical affine on the first {c['plain_n']} (the first "
+                f"{1 << GROUP_NTT_LOG2C} points the generator, the next random, z != 1); kernel {c['ms']:.3f} ms/call, plain {c['plain_ms']:.3f} ms "
+                f"({c['plain_n']}), bound {b:.3f} ms ({by}: {c['work'][1]} multiplies, the fewest of the port's "
+                f"ladders, {c['work'][0]} bytes; this ladder needs {c['ladder_muls']}, the kernel does "
+                f"{c['kernel_muls']})")
+    for line in _ptxas_of(("group_ntt_stage_kernel", "jac_scalar_mul_kernel")):
+        log(f"  ptxas: {line}")
+
+    response = os.path.join(workdir, f"response_{size}")  # phase 5's
+    prepared = os.path.join(workdir, "prepared")
+    os.makedirs(prepared, exist_ok=True)
+    argv = [response, str(size), str(batch), "--out-dir", prepared, "--device", DEVICE]
+    tool_log = os.path.join(workdir, "prepare_tools.log")
+    _zero_counts()
+    with open(tool_log, "a") as out, contextlib.redirect_stdout(out):
+        t0 = time.time()
+        phase1.main_prepare_phase2(argv)
+        torch.cuda.synchronize()
+        total = time.time() - t0
+    launches = {k: ntt.LAUNCHES[k] for k in ("group_ntt_stage", "jac_scalar_mul")}
+    if launches != _prepare_launches(size):
+        raise AssertionError(f"prepare_phase2: N1 / N2 launches {launches}, want {_prepare_launches(size)} (in-core)")
+    nbytes_out = sum(os.path.getsize(os.path.join(prepared, f"phase1radix2m{m}")) for m in range(size + 1))
+    log(f"phase 18 prepare_phase2 size {size} batch {batch} (as a user runs it): {total:.3f} s wall; N1 launches "
+        f"{launches['group_ntt_stage']}, N2 {launches['jac_scalar_mul']}, D1 {decompress.LAUNCHES['decompress']}; "
+        f"{size + 1} files, {nbytes_out} bytes")
+
+    # again, every part timed (the same files written over)
+    timers = _Timers()
+    timers.wall_of("decode", prepare, "_read_region_host")
+    timers.wall_of("normalize", streaming, "normalize", sync=True, sync_start=True)
+    timers.wall_of("h_bases", TorchBackend, "sub_batches", sync=True)
+    timers.wall_of("encode", codecs, "encode_batch")
+    timers.device_of("n1", ntt, "group_ntt_stage")
+    timers.device_of("n2", ntt, "jac_scalar_mul")
+    intt = streaming.group_intt_streamed
+    timers.wall.update(intt_g1=0.0, intt_g2=0.0, encode_lagrange=0.0)
+
+    def timed_intt(srcs, exp, device, rows_per_block=None):
+        t, encode = time.time(), timers.wall["encode"]
+        try:
+            return intt(srcs, exp, device, rows_per_block)
+        finally:
+            torch.cuda.synchronize()
+            timers.wall[f"intt_{srcs[0].group}"] += time.time() - t
+            timers.wall["encode_lagrange"] += timers.wall["encode"] - encode
+
+    streaming.group_intt_streamed = timed_intt
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with open(tool_log, "a") as out, contextlib.redirect_stdout(out):
+            t0 = time.time()
+            phase1.main_prepare_phase2(argv)
+            torch.cuda.synchronize()
+            total_parts = time.time() - t0
+    finally:
+        streaming.group_intt_streamed = intt
+        timers.restore()
+    log(f"  by part ({total_parts:.3f} s wall, peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB): " + _prepare_parts(timers, total_parts))
+    bound = _prepare_bound(card, size)
+    for name, key in (("group_ntt_stage", "n1"), ("jac_scalar_mul", "n2")):
+        n_launch = launches[name]
+        log(f"  {name}: {timers.device_s(key):.3f} s device over {n_launch} launches "
+            f"({1e3 * timers.device_s(key) / n_launch:.3f} ms a launch), bound {bound[name]:.3f} s")
+        cases["g1"][name]["prepare_device_s"] = timers.device_s(key)
+        cases["g1"][name]["prepare_bound_s"] = bound[name]
+
+    # the files against write_radix's from phase 5's secrets
+    challenge = _challenge(workdir, size, batch)
+    _, key = keypair(ChaChaRng.from_digest_be(SEED), calculate_hash(challenge))
+    refs = os.path.join(workdir, "radix_phase5")
+    os.makedirs(refs, exist_ok=True)
+    t0 = time.time()
+    for m in PREPARE_DEGREES:
+        write_radix(refs, m, secrets=(key.tau, key.alpha, key.beta))
+        ref, got = os.path.join(refs, f"phase1radix2m{m}"), os.path.join(prepared, f"phase1radix2m{m}")
+        if _read(ref) != _read(got):
+            raise AssertionError(f"prepare_phase2: phase1radix2m{m} differs from write_radix's from phase 5's secrets")
+        os.remove(ref)
+    log(f"  phase1radix2m{{{', '.join(map(str, PREPARE_DEGREES))}}} == write_radix's from phase 5's tau, alpha, beta "
+        f"({time.time() - t0:.1f} s); radix m={size} blake2b "
+        f"{hashlib.blake2b(_read(os.path.join(prepared, f'phase1radix2m{size}'))).hexdigest()[:16]}")
+
+    # phase-2 `new` from the prepared directory (phase 10's circuit)
+    circuit_json = os.path.join(workdir, f"circuit_{CEREMONY_EXP}.json")
+    params = os.path.join(workdir, "prepared.params")
+    with open(tool_log, "a") as out, contextlib.redirect_stdout(out):
+        t0 = time.time()
+        cli2.main_new([circuit_json, params, prepared, "--device", DEVICE])
+        torch.cuda.synchronize()
+        t_new = time.time() - t0
+    log(f"  new at 2^{CEREMONY_EXP} constraints from the prepared directory: {t_new:.3f} s, .params blake2b "
+        f"{hashlib.blake2b(_read(params)).hexdigest()[:16]} ({os.path.getsize(params)} bytes)")
+    shutil.rmtree(prepared)
+    os.remove(params)
+
+    # reduce_powers of phase 8's new challenge, 21 -> 18
+    small = CEREMONY_EXP
+    new_challenge = os.path.join(workdir, f"new_challenge_{size}")
+    reduced = os.path.join(workdir, f"reduced_{small}")
+    with open(tool_log, "a") as out, contextlib.redirect_stdout(out):
+        t0 = time.time()
+        phase1.main_reduce_powers([new_challenge, reduced, str(size), str(small), str(batch), "--device", DEVICE])
+        t_reduce = time.time() - t0
+    orig, red = CeremonyParams(size, batch), CeremonyParams(small, batch)
+    with open(reduced, "rb") as f:
+        if f.read(HASH_SIZE) != reduced_hash(size, small):
+            raise AssertionError("reduce_powers: the header is not reduced_hash(21, 18)")
+    with open(new_challenge, "rb") as fo, open(reduced, "rb") as fr:
+        for kind in ("tau_g1", "tau_g2", "alpha_g1", "beta_g1", "beta_g2"):
+            n = red.element_count(kind) * red.element_size(kind, False)
+            fo.seek(orig.position(kind, 0, False))
+            fr.seek(red.position(kind, 0, False))
+            if fo.read(n) != fr.read(n):
+                raise AssertionError(f"reduce_powers: {kind} is not the prefix of the original's")
+    if os.path.getsize(reduced) != red.accumulator_size:
+        raise AssertionError("reduce_powers: wrong size")
+    log(f"  reduce_powers {size} -> {small} of phase 8's new challenge: {t_reduce:.3f} s; header == "
+        f"reduced_hash({size}, {small}), every region the original's prefix; blake2b "
+        f"{calculate_hash(reduced).hex()[:16]}")
+    os.remove(reduced)
+
+    # verify_transcript on phase 7's size-10 pair
+    psize, pbatch = pair
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        t0 = time.time()
+        transcript.main_verify_transcript([_challenge(workdir, psize, pbatch), os.path.join(workdir, f"response_{psize}"),
+                                           "--size", str(psize), "--batch", str(pbatch), "--device", DEVICE])
+        t_transcript = time.time() - t0
+    if "Transcript OK" not in buf.getvalue():
+        raise AssertionError(f"verify_transcript did not pass phase 7's size-{psize} pair")
+    log(f"  verify_transcript on phase 7's size-{psize} pair: Transcript OK ({t_transcript:.3f} s)")
+
+    replaces = {"group_ntt_stage": "phase2_bn254_tpu/ops/ntt.py:133 _group_stage, :224 _jac_scalar_mul (XLA "
+                                   "glue, not Pallas)",
+                "jac_scalar_mul": "phase2_bn254_tpu/ops/ntt.py:224 _jac_scalar_mul, :176 the iNTT's 1/N (XLA glue, "
+                                  "not Pallas)"}
+    for name, source in (("group_ntt_stage", "N1"), ("jac_scalar_mul", "N2")):
+        g1, g2 = cases["g1"][name], cases["g2"][name]
+        rec = record(card, name, "phase2_bn254_tpu_torch/csrc/group_ntt.cu", replaces[name],
+                     max(g1["err"], g2["err"]), g1["ms"], g1["plain_ms"], g1["work"],
+                     shape=f"{source}: {g1['n']} {'pairs' if name == 'group_ntt_stage' else 'points'} G1; g2 beside",
+                     plain_n=g1["plain_n"], muls=g1["work"][1], ladder_muls=g1["ladder_muls"],
+                     kernel_muls=g1["kernel_muls"], prepare_device_s=g1["prepare_device_s"],
+                     prepare_bound_s=g1["prepare_bound_s"], prepare_wall_s=total,
+                     g2={k: g2[k] for k in ("ms", "plain_ms", "plain_n", "bound_ms", "bound_by", "ladder_muls",
+                                            "kernel_muls")} | {"muls": g2["work"][1]})
+        rec["launches"] = launches[name]
+        rec["ptxas"] = _ptxas_of((f"{name}_kernel",))
+        records.append(rec)
+    log(f"phase 18: {time.time() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 
 def run_phases(card: Card, workdir: str, records: list[dict]) -> None:
-    """Phases 3-17 (phases 1 and 2 run before the working directory exists)."""
+    """Phases 3-18 (phases 1 and 2 run before the working directory exists)."""
     phase_golden(workdir)
     phase_parity(workdir)
     response_hash = phase_contribute(workdir, records)
@@ -3670,6 +4078,7 @@ def run_phases(card: Card, workdir: str, records: list[dict]) -> None:
     phase_configurations(card, workdir, records, response_hash)
     phase_bls(card, records)
     phase_signed(card, workdir, records, new_challenge_hash, proof_hash, rejections)
+    phase_prepare(card, workdir, records)
     phase_fixture_ceremony(workdir)
 
 

@@ -5,13 +5,16 @@ from __future__ import annotations
 
 import sys
 
-from .cli import phase1, phase2
+from .cli import phase1, phase2, transcript
 
 TOOLS = {
     "new_constrained": phase1.main_new,
     "compute_constrained": phase1.main_compute,
     "beacon_constrained": phase1.main_beacon,
     "verify_transform_constrained": phase1.main_verify,
+    "prepare_phase2": phase1.main_prepare_phase2,
+    "reduce_powers": phase1.main_reduce_powers,
+    "verify_transcript": transcript.main_verify_transcript,
     "new": phase2.main_new,
     "contribute": phase2.main_contribute,
     "beacon": phase2.main_beacon,

@@ -1,7 +1,8 @@
 """Phase-1 ceremony tools of the port (counterpart of
 `phase2_bn254_tpu/cli/phase1.py`, whose protocol functions `:72-82`,
 `:116-126` and `:153-271` this module carries, without the JAX package's
-multihost, sharded and default-backend code).
+multihost, sharded and default-backend code, and its `prepare_phase2` and
+`reduce_powers` entry points `:333-365`, on `ceremony/prepare.py`).
 
 The ceremony "API" is files on disk: challenge/response with a 64-byte
 Blake2b hash-chain header (the reference's powersoftau binaries). The point
@@ -19,7 +20,7 @@ import hashlib
 import os
 import sys
 
-from ..ceremony import accumulator
+from ..ceremony import accumulator, prepare
 from ..ceremony.keypair import PublicKey, keypair
 from ..ceremony.params import HASH_SIZE, CeremonyParams
 from ..crypto.chacha import ChaChaRng
@@ -226,3 +227,28 @@ def main_verify(argv=None):
     a = ap.parse_args(argv)
     verify_transform_constrained(a.challenge_file, a.response_file, a.new_challenge_file, a.circuit_power,
                                  a.batch_size, a.device)
+
+
+def main_prepare_phase2(argv=None):
+    ap = argparse.ArgumentParser(prog="prepare_phase2")
+    ap.add_argument("response_file")
+    ap.add_argument("circuit_power", type=int)
+    ap.add_argument("batch_size", type=int)
+    ap.add_argument("--out-dir", default=".")
+    _device_arg(ap)
+    a = ap.parse_args(argv)
+    prepare.prepare_phase2(a.response_file, a.circuit_power, a.batch_size, TorchBackend(a.device), out_dir=a.out_dir)
+
+
+def main_reduce_powers(argv=None):
+    ap = argparse.ArgumentParser(prog="reduce_powers")
+    ap.add_argument("challenge_file")
+    ap.add_argument("reduced_challenge_file")
+    ap.add_argument("original_circuit_power", type=int)
+    ap.add_argument("reduced_circuit_power", type=int)
+    ap.add_argument("batch_size", type=int)
+    _device_arg(ap)  # byte copying on the host; checked for a uniform interface
+    a = ap.parse_args(argv)
+    check_device(a.device)
+    prepare.reduce_powers(a.challenge_file, a.reduced_challenge_file, a.original_circuit_power,
+                          a.reduced_circuit_power, a.batch_size)

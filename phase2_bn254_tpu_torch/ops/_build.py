@@ -30,7 +30,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 SOURCES = ("batch_exp_g1.cu", "batch_exp_g2.cu", "batch_exp_g2_windowed.cu", "batch_exp_g1_windowed.cu",
-           "batch_exp_glv.cu", "batch_exp_gls.cu", "msm.cu", "decompress.cu", "ntt.cu", "segsum.cu", "fieldops.cu")
+           "batch_exp_glv.cu", "batch_exp_gls.cu", "msm.cu", "decompress.cu", "ntt.cu", "segsum.cu", "fieldops.cu",
+           "group_ntt.cu")
 HEADERS = ("field.cuh", "constants.cuh", "ladders.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -56,6 +57,8 @@ ENTRY_POINTS = {
     "p2_batch_exp_bls_glv": (8, 2),
     "p2_batch_exp_bls_glv_signed": (7, 2),
     **{f"p2_decompress_bls_{g}": (5, 1) for g in ("g1", "g2")},
+    **{f"p2_group_ntt_stage_{g}": (4, 3) for g in ("g1", "g2")},
+    **{f"p2_jac_scalar_mul_{g}": (4, 2) for g in ("g1", "g2")},
 }
 
 _lock = threading.Lock()

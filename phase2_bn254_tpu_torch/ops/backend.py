@@ -1,6 +1,7 @@
 """`TorchBackend`: the ceremony's bulk-math backend on PyTorch (counterpart of
-`phase2_bn254_tpu/ops/backend.py`, the contribute and verify slices; the
-Groth16 prover's query MSMs go through `msm_async` / `msm_wait`).
+`phase2_bn254_tpu/ops/backend.py`: the contribute, verify and
+prepare_phase2 protocols; the Groth16 prover's query MSMs go through
+`msm_async` / `msm_wait`).
 
 Contribute: `ceremony.accumulator.transform` calls, per chunk and kind,
 `decode`, then `pow_mul` (point i times coeff * tau^(start + i)), then
@@ -17,6 +18,14 @@ chunk (kernel D1) and calls `power_pairs`, two MSMs (K3, K4, K5 in
 `ops/msm.py`) with shared random coefficients; `decompress` re-encodes the
 chunks uncompressed. The phase-2 checks of `phase2/mpc.py` call
 `merge_pairs`, the same MSMs over pairs of query vectors.
+
+prepare_phase2 (`ceremony/prepare.py`) reads its regions through `decode`
+and writes the H bases tau^(i+m) - tau^i through `from_batch`,
+`sub_batches` (plain torch: an add and the batched normalization) and
+`encode_radix` (infinity permitted); its Lagrange vectors go through
+`ceremony.streaming` (the group iNTT's kernels N1 and N2, `ops/ntt.py`), as
+`group_intt` does for one vector. `slice` and `concat` serve the exact
+in-memory path's protocol.
 
 Every MSM (power_pairs, merge_pairs, the prover's msm_many_async) takes the
 digits that the backend's `MsmMode` names: unsigned by default, signed under
@@ -119,7 +128,7 @@ def check_device(device) -> torch.device:
 
 
 class TorchBackend:
-    """Contribute- and verify-slice backend on one torch device ("cuda",
+    """The ceremony's backend on one torch device ("cuda",
     "cuda:1" or "cpu") with its ladder kernels and MSM digits: `ladders` and
     `msm_mode`, by default those that the environment selects
     (`Ladders.from_env`, `MsmMode.from_env`), as the JAX package reads its
@@ -249,6 +258,46 @@ class TorchBackend:
     def from_points(self, points, group: str) -> PointSet:
         return PointSet(group, len(points), affine=convert.points_to_affine(points, group, self.device))
 
+    # -- the prepare_phase2 protocol (ceremony/prepare.py) --------------------
+    def from_batch(self, batch: G.AffineBatch, group: str) -> PointSet:
+        """An AffineBatch (host-resident rows, say) on the backend's device."""
+        return PointSet(group, batch.inf.shape[0], affine=G.AffineBatch(*(t.to(self.device) for t in batch)))
+
+    def slice(self, ps: PointSet, start: int, stop: int) -> PointSet:
+        if not 0 <= start <= stop <= ps.n:
+            raise ValueError(f"slice [{start}, {stop}) of {ps.n} points")
+        return PointSet(ps.group, stop - start, affine=G.AffineBatch(*(t[start:stop] for t in self._affine(ps))))
+
+    def concat(self, parts: list[PointSet]) -> PointSet:
+        batches = [self._affine(p) for p in parts]
+        return PointSet(parts[0].group, sum(p.n for p in parts),
+                        affine=G.AffineBatch(*(torch.cat(c) for c in zip(*batches))))
+
+    def group_intt(self, ps: PointSet) -> PointSet:
+        """Lagrange conversion (prepare_phase2.rs:102-131): the inverse group
+        NTT on the device (`ceremony.streaming.intt_device`: N1 a stage, N2
+        for 1/N, the batched normalization); n a power of two. May give
+        points at infinity."""
+        from ..ceremony import streaming
+
+        exp = ps.n.bit_length() - 1
+        if ps.n != 1 << exp:
+            raise ValueError(f"group_intt: {ps.n} points is not a power of two")
+        return PointSet(ps.group, ps.n, affine=streaming.intt_device(self._affine(ps), exp))
+
+    def sub_batches(self, a: PointSet, b: PointSet) -> PointSet:
+        """a[i] - b[i], normalized (the H-query bases tau^(i+m) - tau^i,
+        prepare_phase2.rs:137-148): plain torch on the device."""
+        if a.n != b.n or a.group != b.group:
+            raise ValueError(f"sub_batches: {a.n} {a.group} points against {b.n} {b.group}")
+        f = FQ if a.group == "g1" else FQ2
+        ja, jb = G.affine_to_jac(f, self._affine(a)), G.affine_to_jac(f, self._affine(b))
+        return PointSet(a.group, a.n, affine=G.jac_normalize(f, G.jac_add(f, ja, jb._replace(y=f.neg(jb.y)))))
+
+    def encode_radix(self, ps: PointSet, compressed: bool = False) -> bytes:
+        """Uncompressed encode permitting points at infinity (radix files)."""
+        return codecs.encode_batch(self._affine(ps), ps.group, compressed, allow_infinity=True)
+
     def _to_host(self, jac: G.JacobianBatch, group: str):
         """Start the copy of (S,) Jacobian MSM results to host memory behind
         an event (pinned memory on a card): the handle _msm_points takes."""
@@ -308,16 +357,3 @@ def _jacobian_to_point(jac: torch.Tensor, group: str) -> rc.Point:
     zinv = z.inverse()
     zinv2 = zinv * zinv
     return rc.Point(x * zinv2, y * zinv2 * zinv, False, "g2")
-
-
-def _not_ported(name: str, item: str):
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(f"TorchBackend.{name} is not ported yet: ROADMAP.md queue 1 item {item}")
-
-    method.__name__ = name
-    return method
-
-
-# the prepare_phase2 protocol belongs to a later slice
-for _name in ("from_batch", "slice", "concat", "group_intt", "sub_batches", "encode_radix"):
-    setattr(TorchBackend, _name, _not_ported(_name, "9 (prepare_phase2)"))

@@ -1,6 +1,7 @@
-"""Radix-2 NTT over Fr for evaluation domains (counterpart of the scalar half
-of `phase2_bn254_tpu/ops/ntt.py`, and of its Pallas four-step kernel K6,
-`ops/pallas_ntt.py` `ntt_pallas` / `_lane_dft_pass`).
+"""Radix-2 NTT over Fr for evaluation domains (counterpart of
+`phase2_bn254_tpu/ops/ntt.py`, and of its Pallas four-step kernel K6,
+`ops/pallas_ntt.py` `ntt_pallas` / `_lane_dft_pass`), and over group
+elements (the end of this module).
 
 `ntt(exp, coeffs, inverse)`: int64 (2^exp, 16) Montgomery Fr -> the
 natural-order DFT out[k] = sum_j a_j w^(jk), w = omega (or omegainv, and then
@@ -40,6 +41,20 @@ for limb.
 `distribute_powers` and `divide_by_z_on_coset` stay the pointwise helpers
 they are in the JAX package (plain torch on the tensors' device).
 
+The group NTT (JAX `ops/ntt.py:133-260`; prepare_phase2's Lagrange
+conversion, through `ceremony/streaming.py`): `group_ntt_staged(exp, pts,
+inverse)` over every row of 2^exp consecutive Jacobian points (G1 (N, 16)
+or G2 (N, 2, 16), Montgomery), natural order in and out: each row's
+bit-reversed gather, then per stage one launch of N1 `group_ntt_stage`
+over all the rows (a butterfly's twiddle w^j, canonical, read from
+`Domain.twiddles_canonical` by the pair's index, is a windowed ladder over
+the Jacobian point b: (a, b) -> (a + w b, a - w b)), and for the inverse
+one launch of N2 `jac_scalar_mul` (each point times 1/m); csrc/group_ntt.cu.
+Both wrappers update the points in place, count their launches in
+`LAUNCHES` and take their plain versions (`group_ntt_stage_plain`,
+`jac_scalar_mul_plain`, over `jac_ladder_plain`, the kernels' ladder limb
+for limb) for CPU tensors; on a CUDA tensor they launch or raise.
+
 Memory: besides its input (128 bytes an element), `ntt` at exp holds its
 output and one packed intermediate (the middle of three passes runs in
 place), 160 bytes an element (`device_bytes`): 5 GiB at 2^25, 40 GiB at
@@ -55,9 +70,11 @@ from typing import NamedTuple
 import torch
 
 from .. import convert
+from ..curve import group as G
 from ..field import fp
+from ..field.fq2 import FQ, FQ2
 from ..refimpl.field import FR_GENERATOR, FR_ROOT_OF_UNITY, FR_S, R_MOD
-from . import _build
+from . import _build, batch_exp
 
 CTX = fp.FR_CTX
 MULT_GEN = FR_GENERATOR  # Fr::multiplicative_generator() = 7
@@ -65,7 +82,7 @@ MAX_PASS_LOG = 12  # a pass's row, 2^12 packed elements (128 KiB), in one block'
 TWO_PASS_MAX_EXP = 2 * MAX_PASS_LOG
 
 # kernel launches; only a launch of the kernel counts
-LAUNCHES = {"lane_dft": 0}
+LAUNCHES = {"lane_dft": 0, "group_ntt_stage": 0, "jac_scalar_mul": 0}
 
 
 class Domain:
@@ -82,6 +99,24 @@ class Domain:
         self.minv = pow(self.m, -1, R_MOD)
         self.gen = MULT_GEN
         self.geninv = pow(MULT_GEN, -1, R_MOD)
+
+    def twiddles_canonical(self, inverse: bool, device) -> torch.Tensor:
+        """w^j for j < m/2 (w = omega, or omegainv for the inverse),
+        canonical Fr digits int64 (m/2, 16) on `device` (JAX
+        `Domain.twiddles_canonical`), built there by `geometric` and kept;
+        needs m >= 2."""
+        return _twiddles_canonical(self.exp, inverse, torch.device(device))
+
+    def bitrev(self, device) -> torch.Tensor:
+        """The bit-reversal permutation of [0, m), int64 on `device` (JAX
+        `Domain.bitrev`)."""
+        return _bitrev(self.exp, torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _twiddles_canonical(exp: int, inverse: bool, device: torch.device) -> torch.Tensor:
+    d = Domain(exp)
+    return fp.from_mont(CTX, geometric(d.omegainv if inverse else d.omega, exp - 1, device))
 
 
 def geometric(ratio: int, log2n: int, device, start: int = 1) -> torch.Tensor:
@@ -378,3 +413,169 @@ def icoset_ntt(exp: int, coeffs: torch.Tensor, divide_by_z: bool = False) -> tor
 def divide_by_z_on_coset(exp: int, coeffs: torch.Tensor) -> torch.Tensor:
     """Multiply by 1/(g^m - 1): z is constant on the coset (domain.rs:217-230)."""
     return fp.mont_mul(CTX, coeffs, convert.ints_to_limbs([CTX.to_mont_int(z_inverse(exp))], coeffs.device)[0])
+
+
+# ---------------------------------------------------------------------------
+# the group NTT (JAX ops/ntt.py:133-260): N1 `group_ntt_stage`, N2
+# `jac_scalar_mul` (csrc/group_ntt.cu)
+# ---------------------------------------------------------------------------
+
+def _group_field(x: torch.Tensor):
+    """FQ for G1 coordinates (N, 16), FQ2 for G2 (N, 2, 16)."""
+    return FQ if x.dim() == 2 else FQ2
+
+
+def _select(f, mask: torch.Tensor, a: G.JacobianBatch, b: G.JacobianBatch) -> G.JacobianBatch:
+    return G.JacobianBatch(*(f.select(mask, u, v) for u, v in zip(a, b)))
+
+
+def jac_ladder_plain(base: G.JacobianBatch, scalars: torch.Tensor) -> G.JacobianBatch:
+    """k_i B_i for Jacobian bases B (any point) and canonical scalars k
+    (N, 16): the kernels' per-lane ladder (csrc/group_ntt.cu `jac_ladder`,
+    the windowed ladder of K8 / K9 over a Jacobian base), limb for limb. k
+    above (r - 1)/2 runs as (r - k)(-B) (`batch_exp.half_recode`); T[j] = j
+    B by general adds (`jac_add_sparse`: `jac_add`'s limbs, the doubling
+    only on the lanes that need it), up to the batch's largest digit; per
+    4-bit window,
+    most significant first, a lane that has met a nonzero digit doubles 4
+    times, and a nonzero digit d adds T[d] (into infinity that returns T[d],
+    the kernel's start). A lane whose scalar is 0 stays (0, 1, 0)."""
+    f = _group_field(base.x)
+    n, dev = scalars.shape[0], scalars.device
+    k, neg = batch_exp.half_recode(scalars)
+    base = base._replace(y=f.select(neg, f.neg(base.y), base.y))
+    digits = batch_exp.scalar_windows_msb(k)
+    first = batch_exp._first_live_window(digits)
+    acc = G.jac_zero(f, (n,), dev)
+    if first == digits.shape[0]:
+        return acc
+    entries = [acc, base]
+    for _ in range(2, int(digits[first:].max()) + 1):
+        entries.append(G.jac_add_sparse(f, entries[-1], base))  # step 2 doubles
+    table = G.JacobianBatch(*(torch.stack(c) for c in zip(*entries)))
+    started = torch.zeros(n, dtype=torch.bool, device=dev)
+    for w, d in enumerate(digits[first:]):
+        if w:
+            dbl = acc
+            for _ in range(4):
+                dbl = G.jac_double(f, dbl)
+            acc = _select(f, started, dbl, acc)
+        live = d != 0
+        acc = _select(f, live, G.jac_add_sparse(f, acc, batch_exp._gather(table, d)), acc)
+        started |= live
+    return acc
+
+
+def _pairs(n: int, log2c: int, s: int, device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(even, odd, twiddle index) of every pair of stage s over rows of
+    2^log2c points, n points in all (csrc/group_ntt.cu group_ntt_pair)."""
+    p = torch.arange(n // 2, device=device)
+    row, idx = p >> (log2c - 1), p & ((1 << (log2c - 1)) - 1)
+    j = idx & ((1 << (s - 1)) - 1)
+    even = (row << log2c) + ((idx >> (s - 1)) << s) + j
+    return even, even + (1 << (s - 1)), j << (log2c - s)
+
+
+def group_ntt_stage_plain(jac: G.JacobianBatch, tw: torch.Tensor, log2c: int, s: int) -> G.JacobianBatch:
+    """Plain PyTorch N1: `group_ntt_stage` in whole-tensor ops (JAX
+    `_group_stage`), in place; returns jac."""
+    f = _group_field(jac.x)
+    even, odd, t_idx = _pairs(jac.x.shape[0], log2c, s, jac.x.device)
+    a = G.take(jac, even)
+    t = jac_ladder_plain(G.take(jac, odd), tw[t_idx])
+    lo, hi = G.jac_add(f, a, t), G.jac_add(f, a, t._replace(y=f.neg(t.y)))
+    for c, u, v in zip(jac, lo, hi):
+        c[even] = u
+        c[odd] = v
+    return jac
+
+
+def _check_points(wrapper: str, jac: G.JacobianBatch) -> tuple[int, str]:
+    x = jac.x
+    if x.dim() not in (2, 3) or x.shape[-1] != fp.NLIMBS or (x.dim() == 3 and x.shape[1] != 2):
+        raise ValueError(f"{wrapper}: want (N, 16) or (N, 2, 16) coordinates, got {tuple(x.shape)}")
+    for name, t in zip("xyz", jac):
+        _build.check(wrapper, name, t, x.shape, x.device)
+    return x.shape[0], "g1" if x.dim() == 2 else "g2"
+
+
+def group_ntt_stage(jac: G.JacobianBatch, tw: torch.Tensor, log2c: int, s: int) -> G.JacobianBatch:
+    """N1: radix-2 DIT stage s (1 <= s <= log2c) over every row of 2^log2c
+    consecutive Jacobian points of jac, in place: pair (e, o) = (e, e +
+    2^(s-1)) becomes (a + w b, a - w b), w = tw[j 2^(log2c - s)], j = e mod
+    2^(s-1); tw: the row length's canonical twiddles, int64 (2^(log2c-1),
+    16). Returns jac. CPU tensors take the plain version; CUDA tensors launch
+    csrc/group_ntt.cu."""
+    if not 1 <= s <= log2c:
+        raise ValueError(f"group_ntt_stage: stage {s} of a 2^{log2c}-point DFT")
+    if jac.x.shape[0] % (1 << log2c):
+        raise ValueError(f"group_ntt_stage: {jac.x.shape[0]} points are not rows of 2^{log2c}")
+    if not _build.on_card("group_ntt_stage", jac.x):
+        return group_ntt_stage_plain(jac, tw, log2c, s)
+    n, group = _check_points("group_ntt_stage", jac)
+    _build.check("group_ntt_stage", "tw", tw, (1 << (log2c - 1), fp.NLIMBS), jac.x.device)
+    _build.launch(f"p2_group_ntt_stage_{group}", jac.x.device, *jac, tw, n >> log2c, log2c, s)
+    LAUNCHES["group_ntt_stage"] += 1
+    return jac
+
+
+def jac_scalar_mul_plain(jac: G.JacobianBatch, scalars: torch.Tensor) -> G.JacobianBatch:
+    """Plain PyTorch N2: `jac_scalar_mul` in whole-tensor ops, in place."""
+    out = jac_ladder_plain(jac, scalars.expand(jac.x.shape[0], -1))
+    for c, v in zip(jac, out):
+        c.copy_(v)
+    return jac
+
+
+def jac_scalar_mul(jac: G.JacobianBatch, scalars: torch.Tensor) -> G.JacobianBatch:
+    """N2 (JAX `_jac_scalar_mul`): point i of jac (any Jacobian point) times
+    scalars[i], canonical Fr digits int64 (N, 16), or times scalars[0] for
+    every point where scalars is (1, 16); in place, returns jac. CPU
+    tensors take the plain version; CUDA tensors launch csrc/group_ntt.cu."""
+    n = jac.x.shape[0]
+    if scalars.dim() != 2 or scalars.shape[0] not in (1, n):
+        raise ValueError(f"jac_scalar_mul: {tuple(scalars.shape)} scalars for {n} points")
+    if not _build.on_card("jac_scalar_mul", jac.x):
+        return jac_scalar_mul_plain(jac, scalars)
+    n, group = _check_points("jac_scalar_mul", jac)
+    _build.check("jac_scalar_mul", "scalars", scalars, (scalars.shape[0], fp.NLIMBS), jac.x.device)
+    _build.launch(f"p2_jac_scalar_mul_{group}", jac.x.device, *jac, scalars, n, int(scalars.shape[0] == n))
+    LAUNCHES["jac_scalar_mul"] += 1
+    return jac
+
+
+def group_dft_rows(exp: int, pts: G.JacobianBatch, inverse: bool) -> G.JacobianBatch:
+    """The DFT of every row of 2^exp consecutive Jacobian points of pts
+    (omega, or omegainv for the inverse; no 1/m): each row's bit-reversed
+    gather, then `exp` N1 launches over all the rows. A new batch in
+    natural order (pts itself at exp 0)."""
+    d = Domain(exp)
+    if d.m == 1:
+        return pts
+    n, dev = pts.x.shape[0], pts.x.device
+    rev = d.bitrev(dev)
+    x = G.JacobianBatch(*(c.reshape(n // d.m, d.m, *c.shape[1:])[:, rev].reshape(c.shape) for c in pts))
+    tw = d.twiddles_canonical(inverse, dev)
+    for s in range(1, exp + 1):
+        group_ntt_stage(x, tw, exp, s)
+    return x
+
+
+def group_ntt_staged(exp: int, pts: G.JacobianBatch, inverse: bool) -> G.JacobianBatch:
+    """Group NTT over each row of 2^exp consecutive Jacobian points (JAX
+    `group_ntt_staged`, one vector per row): `group_dft_rows`, then for the
+    inverse every point times 1/m by one N2 launch. Natural order in and
+    out; exp 0 returns pts."""
+    d = Domain(exp)
+    if d.m == 1:
+        return pts
+    x = group_dft_rows(exp, pts, inverse)
+    if inverse:
+        jac_scalar_mul(x, convert.ints_to_limbs([d.minv], x.x.device))
+    return x
+
+
+def group_ntt(exp: int, pts: G.JacobianBatch, inverse: bool) -> G.JacobianBatch:
+    """JAX `group_ntt`, the same transform as one jitted program; eager
+    PyTorch has no second form, so it is `group_ntt_staged`."""
+    return group_ntt_staged(exp, pts, inverse)

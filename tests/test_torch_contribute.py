@@ -121,5 +121,5 @@ def test_cuda_device_never_falls_back(tmp_path):
         torch_phase1.main_compute([str(tmp_path / "c"), str(tmp_path / "r"), "4", "16", "--entropy", "x"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         torch_phase1.main_verify([str(tmp_path / "c"), str(tmp_path / "r"), str(tmp_path / "n"), "4", "16"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TorchBackend("cpu").group_intt(None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        torch_phase1.main_prepare_phase2([str(tmp_path / "r"), "4", "16"])
